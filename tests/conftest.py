@@ -13,6 +13,11 @@ from repro.data.synthetic import make_dlrm_pool, make_prod_pool  # noqa: E402
 from repro.sim.costsim import CostSimulator  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; skipped where there is none")
+
+
 @pytest.fixture(scope="session")
 def dlrm_pool():
     return make_dlrm_pool(seed=0)

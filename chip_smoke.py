@@ -18,30 +18,52 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``measure_placement`` (batch 65536, each table's own pooling, rows
    capped at 2^20) -- one K1 launch per device and repeat;
 5. the yardstick: K1, its plain version and ``F.embedding_bag`` timed at
-   the largest main-path device shape, beside the memory bound.
+   the largest main-path device shape, beside the memory bound;
+6. build: K2 (``src/repro_torch/csrc/flash_attention.cu``), started beside
+   K1's build in phase 2;
+7. K2 against its plain PyTorch version on the card: S x hd x dtype x
+   window x GQA group, non-causal attention over ragged key lengths, and
+   (after phase 8) layer 0's real q/k/v of the served model;
+8. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
+   seeded weights) through ``repro_torch.launch.serve.serve``: 2 prompts
+   of 8192 tokens, one warm-up prefill, a timed prefill and 31 greedy
+   decode steps -- 24 K2 launches per prefill -- then a torch.profiler
+   window over one prefill and over 4 decode steps;
+9. the same path at full width with 2 layers in float32, on the card (K2)
+   and on the CPU (plain): logits and greedy tokens must agree;
+10. the yardstick: K2, its plain version and
+   ``F.scaled_dot_product_attention`` timed at the main-path layer shape,
+   beside the operations bound.
 
-It prints the kernel line (one JSON object with a ``kernels`` list) and
-then, as its last line, ``{"ok": true, "device": {...}}``.  Without a
-CUDA device it exits 1 and prints no result.
+It prints each phase's seconds, the kernel line (one JSON object with a
+``kernels`` list) and then, as its last line, ``{"ok": true, "device":
+{...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 BATCH = 65536                    # the paper's DLRM batch
 MAX_ROWS = 2 ** 20
 N_MEASURED_TASKS = 2
+ARCH = "h2o-danube-1.8b"
+SERVE_BATCH = 2                  # two prompts of two windows each
+SERVE_PROMPT = 8192
+SERVE_TOKENS = 32
 
 
 def log(msg: str) -> None:
@@ -71,12 +93,22 @@ def phase_device() -> str:
     return line.splitlines()[0]
 
 
-def phase_build(K) -> float:
-    t0 = time.perf_counter()
-    path = K.embedding_bag_cuda.build()
-    secs = time.perf_counter() - t0
+def start_builds(libraries) -> dict:
+    """One nvcc per source, all started together; name -> future of
+    (library path, seconds)."""
+    def timed(lib):
+        t0 = time.perf_counter()
+        return lib.build(), time.perf_counter() - t0
+    pool = ThreadPoolExecutor(len(libraries))
+    futures = {lib.name: pool.submit(timed, lib) for lib in libraries}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_build(library, future) -> float:
+    path, secs = future.result()
     log(f"[build] {os.path.relpath(path, ROOT)} in {secs:.2f} s")
-    for ln in K.embedding_bag_cuda.build_log.splitlines():
+    for ln in library.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
             log(f"[build] {ln.strip()}")
     return secs
@@ -133,7 +165,7 @@ def phase_kernel_checks(torch, np, K, plain) -> float:
     return worst
 
 
-def phase_main_path(torch, np, K, summary: dict):
+def phase_main_path(torch, np, K, counters, summary: dict):
     from repro_torch import telemetry as tele
     from repro_torch.api import (SimOracle, make_baseline_placers,
                                  measure_placements)
@@ -148,7 +180,8 @@ def phase_main_path(torch, np, K, summary: dict):
     oracle = SimOracle(seed=0)
     tele.reset()
     tele.enable()
-    K.embedding_bag_cuda.launches = 0          # counts of the main path only
+    for c in counters:                         # counts of this path only
+        c.launches = 0
 
     agent = DreamShard(train, oracle, DreamShardConfig(seed=0),
                        device="cuda")
@@ -302,6 +335,287 @@ def phase_yardstick(torch, np, K, plain, shapes, summary: dict) -> dict:
     return row
 
 
+def _qkv(torch, np, seed, B, S, T, Hq, Hkv, hd, dtype):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        return torch.as_tensor(rng.normal(size=shape) * 0.5,
+                               dtype=torch.float32, device="cuda").to(dtype)
+    return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
+
+
+def phase_k2_checks(torch, np, FA, plain) -> float:
+    """K2 against the plain version on the card; returns the max error."""
+    worst = 0.0
+    cases = 0
+    tols = ((torch.float32, 2e-4), (torch.bfloat16, 3e-2))
+    for S in (100, 128, 384, 1000):
+        for hd in FA.HEAD_DIMS:
+            for dtype, tol in tols:
+                for window in (None, 64):
+                    for group in (1, 4):
+                        q, k, v = _qkv(torch, np, S + hd, 2, S, S, 2 * group,
+                                       2, hd, dtype)
+                        out = FA.flash_attention_cuda(q, k, v, window=window)
+                        ref = plain(q, k, v, window=window)
+                        torch.cuda.synchronize()
+                        worst = max(worst, allclose_err(out.float(),
+                                                        ref.float(), tol))
+                        cases += 1
+    # non-causal over key lengths that are no tile multiple: masked by T
+    for T in (77, 1000):
+        for hd in FA.HEAD_DIMS:
+            for dtype, tol in tols:
+                q, k, v = _qkv(torch, np, T + hd, 1, 300, T, 4, 2, hd, dtype)
+                out = FA.flash_attention_cuda(q, k, v, causal=False)
+                ref = plain(q, k, v, causal=False)
+                torch.cuda.synchronize()
+                worst = max(worst, allclose_err(out.float(), ref.float(),
+                                                tol))
+                cases += 1
+    log(f"[k2] K2 == plain on {cases} cases, max |err| {worst:.3g}")
+    return worst
+
+
+def phase_k2_layer0(torch, FA, plain, res) -> float:
+    """K2 on layer 0's real q/k/v of the served model (2 KV groups of 4
+    query heads), against the plain version."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import map_params
+    cfg = res.cfg
+    lp = map_params(lambda t: t[0], res.params["layers"])
+    B, S = res.prompts.shape
+    hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    with torch.no_grad():
+        h = L.rms_norm(res.params["embed"][res.prompts.long()], lp["ln1"],
+                       cfg.norm_eps)
+        pos = torch.arange(S, device="cuda")[None, :]
+        q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd)[:, :, :2 * G]
+        k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd)[:, :, :2]
+        v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)[:, :, :2]
+        q = L.apply_rope(q.contiguous(), pos, cfg.rope_theta)
+        k = L.apply_rope(k.contiguous(), pos, cfg.rope_theta)
+        v = v.contiguous()
+        out = FA.flash_attention_cuda(q, k, v, window=cfg.sliding_window)
+        ref = plain(q, k, v, window=cfg.sliding_window)
+        torch.cuda.synchronize()
+        err = allclose_err(out.float(), ref.float(), 3e-2)
+    log(f"[k2] layer 0 of {cfg.name}: q {tuple(q.shape)}, k "
+        f"{tuple(k.shape)}, window {cfg.sliding_window}, bf16: K2 == plain, "
+        f"max |err| {err:.3g}")
+    return err
+
+
+def phase_serve(torch, counters, FA, summary: dict):
+    """The LM path: danube at full width, served through the entry point."""
+    from repro_torch.launch.serve import serve
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = serve(ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                tokens=SERVE_TOKENS, size="full", device="cuda", warmup=1)
+    wall = time.perf_counter() - t0
+    launches = FA.flash_attention_cuda.launches
+    others = {type(c).__name__: c.launches for c in counters
+              if c is not FA.flash_attention_cuda}
+    cfg = res.cfg
+    check(launches == 2 * cfg.n_layers,
+          f"K2 launched {launches} times in 2 prefills of {cfg.n_layers} "
+          "layers")
+    check(not any(others.values()), f"other kernels launched: {others}")
+    check(bool(torch.isfinite(res.last_logits.float()).all()),
+          "finite logits")
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS), "token shape")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_padded)).all()),
+          "token ids in range")
+    check(res.pos == SERVE_PROMPT + SERVE_TOKENS - 1, "cache position")
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    summary["serve"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+        "tokens": SERVE_TOKENS, "prefill_ms": res.prefill_ms,
+        "decode_ms_per_token": res.decode_ms_per_token,
+        "decode_tokens_per_s": res.decode_tokens_per_s,
+        "peak_memory_bytes": res.peak_memory_bytes, "wall_s": wall,
+        "k2_launches": launches}
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, {n_params} params, "
+        f"bf16; batch {SERVE_BATCH} x {SERVE_PROMPT} tokens")
+    log(f"[serve] prefill {res.prefill_ms:.1f} ms; decode "
+        f"{res.decode_ms_per_token:.2f} ms/token, "
+        f"{res.decode_tokens_per_s:.1f} tokens/s; peak memory "
+        f"{res.peak_memory_bytes / 2**30:.2f} GiB; wall {wall:.1f} s")
+    log(f"[serve] request 0: {res.tokens[0, :12].tolist()} ...")
+    log(f"[main] K2 launches on the LM path: {launches} "
+        f"({launches // 2} per prefill)")
+    return res, launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_profile(torch, res, summary: dict) -> dict:
+    """Where the LM path's time goes: torch.profiler over one prefill and
+    over 4 decode steps of the served model (weights from phase 8).  The
+    busy share is the kernels' summed device time over the window's wall
+    time (one stream); the profiler slows the host, so the idle share it
+    gives is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as ST
+    model = ST.build_model(res.cfg, device="cuda")
+    prefill = ST.make_prefill_step(model, capacity=SERVE_PROMPT + 4)
+    decode = ST.make_decode_step(model)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(
+            res.params, {"tokens": res.prompts})
+
+    def run_decode():
+        tok = state["logits"][:, -1].argmax(-1, keepdim=True)
+        for _ in range(4):
+            logits, state["cache"] = decode(res.params, state["cache"],
+                                            {"tokens": tok})
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    out = {}
+    for name, fn in (("prefill", run_prefill), ("decode x4", run_decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernel rows only: an op's row repeats its kernels' device time
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                     "idle_share": 1 - busy / wall_ms if busy else None,
+                     "top": [{"name": k[:80], "ms": ms, "calls": n}
+                             for k, ms, n in rows[:8]]}
+        log(f"[profile] {name}: wall {wall_ms:.1f} ms under the profiler, "
+            f"kernels {busy:.1f} ms"
+            + (f" (idle share <= {1 - busy / wall_ms:.3f})" if busy
+               else " (no device time recorded: not measured)"))
+        for k, ms, n in rows[:8]:
+            log(f"[profile]   {ms:9.3f} ms {n:5d}x {k[:80]}")
+    summary["profile"] = out
+    return out
+
+
+def phase_cross_device(torch, np, summary: dict) -> float:
+    """Full width, 2 layers, float32: the card (K2) against the CPU."""
+    from repro_torch.configs import get_full
+    from repro_torch.models.transformer import LM, map_params
+    cfg = dataclasses.replace(get_full(ARCH), n_layers=2).resolve(1)
+    gpu = LM(cfg, dtype=torch.float32, device="cuda")
+    cpu = LM(cfg, dtype=torch.float32, device="cpu")
+    params = gpu.init_params(0)
+    cparams = map_params(torch.Tensor.cpu, params)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, 1024)), dtype=torch.int32)
+    logits, cache = gpu.prefill(params, prompt.cuda(), capacity=1024 + 4)
+    clogits, ccache = cpu.prefill(cparams, prompt, capacity=1024 + 4)
+    worst = allclose_err(logits.cpu(), clogits, 1e-3)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    ctok = clogits[:, -1].argmax(-1, keepdim=True)
+    for _ in range(4):
+        check(bool((tok.cpu() == ctok).all()), "greedy tokens cuda == cpu")
+        logits, cache = gpu.decode_step(params, cache, tok)
+        clogits, ccache = cpu.decode_step(cparams, ccache, ctok)
+        worst = max(worst, allclose_err(logits.cpu(), clogits, 1e-3))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        ctok = clogits[:, -1].argmax(-1, keepdim=True)
+    check(bool((tok.cpu() == ctok).all()), "greedy tokens cuda == cpu")
+    summary["cross_device_max_abs_err"] = worst
+    log(f"[cross] {cfg.name} at 2 layers, float32, 1 x 1024 prompt + 4 "
+        f"decode steps: cuda (K2) == cpu (plain), max |err| {worst:.3g}, "
+        "same greedy tokens")
+    return worst
+
+
+def phase_k2_yardstick(torch, FA, plain, summary: dict) -> dict:
+    """K2, plain and SDPA at the main-path layer shape, beside the bound."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    from repro_torch.profiling.microbench import median_time_ms
+    cfg = summary["serve"]
+    B, S, Hq, Hkv, hd, W = SERVE_BATCH, SERVE_PROMPT, 32, 8, 80, 4096
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def mk(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.5).to(torch.bfloat16)
+    q, k, v = mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hd)
+    scale = 1.0 / math.sqrt(hd)
+    mask = attention_mask(S, S, causal=True, window=W, device="cuda")
+    pairs = int(mask.sum())
+
+    def k2(a, b, c):
+        return FA.flash_attention_cuda(a, b, c, window=W, scale=scale)
+
+    def pl(a, b, c):
+        return plain(a, b, c, window=W, scale=scale)
+
+    def sdpa(a, b, c):
+        return torch.nn.functional.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            attn_mask=mask, scale=scale, enable_gqa=True).transpose(1, 2)
+
+    with torch.no_grad():
+        out = k2(q, k, v)
+        ref = pl(q, k, v)
+        torch.cuda.synchronize()
+        err = allclose_err(out.float(), ref.float(), 3e-2)
+        lib_out = sdpa(q, k, v)
+        torch.cuda.synchronize()
+        allclose_err(lib_out.float(), ref.float(), 3e-2)
+        del out, ref, lib_out
+        torch.cuda.empty_cache()
+        ms = median_time_ms(k2, (q, k, v), warmup=2, repeats=10)
+        plain_ms = median_time_ms(pl, (q, k, v), warmup=1, repeats=3)
+        torch.cuda.empty_cache()
+        library_ms = median_time_ms(sdpa, (q, k, v), warmup=2, repeats=10)
+    flops = 4 * hd * pairs * B * Hq
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "library_ms": library_ms}
+    summary["k2_yardstick"] = {
+        "shape": [B, S, Hq, Hkv, hd], "window": W, "dtype": "bfloat16",
+        "unmasked_pairs_per_head": pairs, "flops": flops, "bytes": nbytes,
+        "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "tflops": flops / (ms * 1e-3) / 1e12,
+        "per_prefill_ms": ms * cfg["layers"], **row}
+    log(f"[k2-yardstick] q ({B}, {S}, {Hq}, {hd}), k/v ({B}, {S}, {Hkv}, "
+        f"{hd}) bf16, causal, window {W}, {pairs} pairs per head: K2 "
+        f"{ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def run(name: str, fn, *args, phases: dict):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phases[name] = time.perf_counter() - t0
+    log(f"[phase] {name}: {phases[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write a JSON summary of the run here")
@@ -316,19 +630,47 @@ def main() -> int:
 
     from repro_torch.kernels.embedding_bag import kernel as K
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.flash_attention.ref import attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda}
-    summary["nvidia_smi"] = phase_device()
-    summary["build_s"] = phase_build(K)
-    summary["kernel_check_max_abs_err"] = phase_kernel_checks(
-        torch, np, K, embedding_bag_plain)
-    launches, shapes = phase_main_path(torch, np, K, summary)
-    row = phase_yardstick(torch, np, K, embedding_bag_plain, shapes, summary)
-    row = {**row, "launches": launches}
-    summary["kernels"] = [row]
+    counters = (K.embedding_bag_cuda, FA.flash_attention_cuda)
+    phases: dict = {}
+    summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                     "phase_s": phases}
+    summary["nvidia_smi"] = run("1 device", phase_device, phases=phases)
+    builds = start_builds([K.LIBRARY, FA.LIBRARY])
+    summary["build_s"] = run("2 build K1", phase_build, K.LIBRARY,
+                             builds[K.LIBRARY.name], phases=phases)
+    summary["kernel_check_max_abs_err"] = run(
+        "3 K1 checks", phase_kernel_checks, torch, np, K,
+        embedding_bag_plain, phases=phases)
+    k1_launches, shapes = run("4 DreamShard main path", phase_main_path,
+                              torch, np, K, counters, summary, phases=phases)
+    k1_row = run("5 K1 yardstick", phase_yardstick, torch, np, K,
+                 embedding_bag_plain, shapes, summary, phases=phases)
+    summary["k2_build_s"] = run("6 build K2", phase_build, FA.LIBRARY,
+                                builds[FA.LIBRARY.name], phases=phases)
+    summary["k2_check_max_abs_err"] = run(
+        "7 K2 checks", phase_k2_checks, torch, np, FA, attention_plain,
+        phases=phases)
+    res, k2_launches = run("8 LM serve path", phase_serve, torch, counters,
+                           FA, summary, phases=phases)
+    summary["k2_layer0_max_abs_err"] = run(
+        "7b K2 on layer 0", phase_k2_layer0, torch, FA, attention_plain, res,
+        phases=phases)
+    run("8b LM profile", phase_profile, torch, res, summary, phases=phases)
+    del res
+    torch.cuda.empty_cache()
+    run("9 cuda vs cpu", phase_cross_device, torch, np, summary,
+        phases=phases)
+    k2_row = run("10 K2 yardstick", phase_k2_yardstick, torch, FA,
+                 attention_plain, summary, phases=phases)
+    rows = [{**k1_row, "launches": k1_launches},
+            {**k2_row, "launches": k2_launches}]
+    summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -336,7 +678,7 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump(summary, fh, indent=1)
     log(f"[done] {summary['seconds']:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

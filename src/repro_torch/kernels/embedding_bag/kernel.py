@@ -1,10 +1,8 @@
 """K1 on the GPU: ctypes binding of ``csrc/embedding_bag.cu``.
 
-The CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, at first use, under ``build/kernels/``
-at the root of the checkout (the file name carries a hash of the source
-and flags, so an edit rebuilds).  Nothing is compiled or loaded when this
-module is imported.
+The CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use by
+the port's shared build helper (``kernels/build.py``).  Nothing is compiled or
+loaded when this module is imported.
 
 ``embedding_bag_cuda`` is the wrapper: it checks its inputs, allocates
 the output with ``torch.empty``, launches on the current stream and adds
@@ -15,31 +13,17 @@ only; the plain version for CPU tensors is in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "embedding_bag.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+from repro_torch.kernels.build import CudaLibrary
 
-
-def nvcc_path() -> str:
-    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else
-    ``nvcc`` on ``PATH``."""
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: K1 builds only where the CUDA "
-                           "toolkit is installed")
-    return found
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = CudaLibrary("embedding_bag", {
+    "embedding_bag_fwd": ([_P, _I, _P, _P, _LL, _LL, _I, _I, _I, _I, _P], _I),
+    "embedding_bag_block_threads": ([], _I),
+    "embedding_bag_error_string": ([_I], ctypes.c_char_p),
+})
 
 
 class EmbeddingBagKernel:
@@ -47,54 +31,13 @@ class EmbeddingBagKernel:
 
     def __init__(self):
         self.launches = 0          # kernel launches since the last reset
-        self.build_log = ""        # nvcc/ptxas output of the last build
-        self._lib = None
-
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(SOURCE.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"embedding_bag-{digest[:16]}.so"
-
-    def build(self) -> Path:
-        """Compile the source unless this exact build exists; returns the
-        library's path."""
-        lib = self.library_path()
-        if lib.exists():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{self.build_log}")
-        os.replace(tmp, lib)
-        return lib
-
-    def _load(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            lib.embedding_bag_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.embedding_bag_fwd.restype = ctypes.c_int
-            lib.embedding_bag_block_threads.argtypes = []
-            lib.embedding_bag_block_threads.restype = ctypes.c_int
-            lib.embedding_bag_error_string.argtypes = [ctypes.c_int]
-            lib.embedding_bag_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
 
     def __call__(self, arena: torch.Tensor,
                  indices: torch.Tensor) -> torch.Tensor:
         """arena: (R, D) float32/bfloat16 with D % 128 == 0; indices:
         (N, P) int32 rows in [0, R) -> (N, D) float32 pooled sums."""
         _check(arena, indices)
-        lib = self._load()
+        lib = LIBRARY.load()
         n_bags, pool = indices.shape
         n_rows, dim = arena.shape
         out = torch.empty((n_bags, dim), dtype=torch.float32,

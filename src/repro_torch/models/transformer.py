@@ -1,0 +1,227 @@
+"""Decoder-only LM for dense attention blocks (h2o-danube-1.8b).
+
+The counterpart of ``repro/models/transformer.py`` for ``block="attn"``
+without experts or frontends, at ``tp = 1``.  Parameters are a nested dict
+of tensors in the reference's pytree layout, with each layer's weights
+stacked along a leading ``L`` axis; the layer loop is a Python loop over
+that axis (the reference's ``layer_loop="unrolled"``).
+
+Entry points:
+  * ``forward``      -- logits over a full sequence
+  * ``prefill``      -- forward + a populated KV cache
+  * ``decode_step``  -- one token against the (circular) cache
+
+Prefill attention runs through the flash attention op with KV heads
+unexpanded (K2 on the card).  The cache is updated in place: ``prefill``
+allocates it and ``decode_step`` writes its token into the tensors it is
+given, returning them with ``pos`` advanced.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+_LATER = {
+    "block": "hybrid SSM (hymba) and RWKV blocks (ROADMAP queue, LM "
+             "substrate: hybrid SSM, RWKV)",
+    "moe": "MoE layers and moe_apply (ROADMAP queue, LM substrate: MoE)",
+    "frontend": "the VLM/audio frontends (ROADMAP queue, LM substrate: "
+                "frontends)",
+    "qkv_bias": "qkv biases (ROADMAP queue, LM substrate: other dense "
+                "configs)",
+    "tie_embeddings": "tied embeddings (ROADMAP queue, LM substrate: other "
+                      "dense configs)",
+}
+
+
+class LM:
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
+                 device: str | torch.device | None = None):
+        if cfg.tp != 1 or not cfg.head_dim:
+            raise ValueError("config must be resolve(1)d: the port runs "
+                             "unsharded (sharding is on the ROADMAP queue)")
+        unsupported = [key for key, bad in (
+            ("block", cfg.block != "attn"), ("moe", cfg.moe is not None),
+            ("frontend", cfg.frontend is not None),
+            ("qkv_bias", cfg.qkv_bias),
+            ("tie_embeddings", cfg.tie_embeddings)) if bad]
+        if unsupported:
+            raise NotImplementedError(
+                f"{cfg.name}: the port does not run "
+                f"{'; '.join(_LATER[k] for k in unsupported)} yet")
+        if cfg.n_heads_padded != cfg.n_heads or cfg.n_heads % cfg.n_kv_heads:
+            raise NotImplementedError(
+                f"{cfg.name}: query heads must group evenly over KV heads")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    # ---- parameters ----------------------------------------------------------
+
+    def init_params(self, seed: int) -> dict:
+        """Weights drawn as normal x 0.02 (norms at 1) by a generator on
+        the model's device seeded with ``seed``; shapes as in the
+        reference."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        cfg, dt = self.cfg, self.dtype
+        n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+        hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
+
+        def normal(*shape):
+            w = torch.randn(shape, generator=generator, device=self.device)
+            return (w * 0.02).to(dt)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=dt, device=self.device)
+
+        params = {"embed": normal(cfg.vocab_padded, d),
+                  "final_norm": ones(d),
+                  "lm_head": normal(d, cfg.vocab_padded)}
+        lay = {"ln1": ones(n, d), "ln2": ones(n, d),
+               "wq": normal(n, d, Hq * hd), "wk": normal(n, d, Hkv * hd),
+               "wv": normal(n, d, Hkv * hd), "wo": normal(n, Hq * hd, d),
+               "mlp": {"wu": normal(n, d, f), "wo": normal(n, f, d)}}
+        if cfg.act == "swiglu":
+            lay["mlp"]["wg"] = normal(n, d, f)
+        params["layers"] = lay
+        return params
+
+    # ---- sublayers -------------------------------------------------------------
+
+    def _attn(self, lp, h, positions, cache=None, pos=None):
+        cfg = self.cfg
+        B, Sq, _ = h.shape
+        hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
+        q = (h @ lp["wq"]).reshape(B, Sq, Hq, hd)
+        k = (h @ lp["wk"]).reshape(B, Sq, Hkv, hd)
+        v = (h @ lp["wv"]).reshape(B, Sq, Hkv, hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+
+        if cache is None or Sq > 1:                     # forward / prefill
+            if cache is not None:
+                cache["k"][:, :Sq] = k
+                cache["v"][:, :Sq] = v
+            out = L.flash_attention(q, k, v, causal=True,
+                                    window=cfg.sliding_window)
+        else:                                           # single-token decode
+            T = cache["k"].shape[1]
+            idx = pos % T                               # circular buffer
+            cache["k"][:, idx] = k[:, 0]
+            cache["v"][:, idx] = v[:, 0]
+            # the reference masks by n_valid only: with capacity > window
+            # decode attends past the sliding window (ROADMAP, LM module)
+            n_valid = min(pos + 1, T)
+            valid = (torch.arange(T, device=h.device) < n_valid)[None, :]
+            out = L.decode_attention(q, cache["k"], cache["v"],
+                                     valid.expand(B, T))
+        return out.reshape(B, Sq, Hq * hd) @ lp["wo"]
+
+    def _layer(self, lp, x, positions, cache=None, pos=None):
+        cfg = self.cfg
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + self._attn(lp, h, positions, cache=cache, pos=pos)
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + L.mlp_apply(lp["mlp"], h, cfg.act)
+
+    def _layers(self, params, x, positions, cache=None, pos=None):
+        for i in range(self.cfg.n_layers):
+            lp = map_params(lambda t: t[i], params["layers"])
+            cl = None if cache is None else map_params(lambda t: t[i],
+                                                       cache["layers"])
+            x = self._layer(lp, x, positions, cache=cl, pos=pos)
+        return x
+
+    # ---- embeddings / logits ----------------------------------------------------
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()]
+
+    def _logits(self, params, x):
+        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return x @ params["lm_head"]
+
+    # ---- entry points -------------------------------------------------------------
+
+    @torch.no_grad()
+    def forward(self, params: dict, tokens: torch.Tensor):
+        """Eval forward. Returns (logits (B, S, Vp), moe aux loss = 0)."""
+        x = self._embed(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        return self._logits(params, self._layers(params, x, positions)), 0.0
+
+    def init_cache(self, batch: int, capacity: int) -> dict:
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+        return {"layers": {
+            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=self.device)},
+            "pos": 0}
+
+    @torch.no_grad()
+    def prefill(self, params: dict, tokens: torch.Tensor,
+                capacity: int | None = None):
+        """Forward pass that also populates the cache. Returns (logits of
+        the last position (B, 1, Vp), cache)."""
+        B, Sq = tokens.shape
+        capacity = capacity or Sq
+        if capacity < Sq:
+            raise ValueError(f"cache capacity {capacity} < prompt {Sq}")
+        cache = self.init_cache(B, capacity)
+        x = self._embed(params, tokens)
+        positions = torch.arange(Sq, device=x.device)[None, :]
+        x = self._layers(params, x, positions, cache=cache, pos=0)
+        cache["pos"] = Sq
+        return self._logits(params, x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
+        """One decode step. tokens: (B, 1). Returns (logits (B, 1, Vp),
+        cache), the cache's tensors updated in place."""
+        x = self._embed(params, tokens)
+        pos = int(cache["pos"])
+        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        x = self._layers(params, x, positions, cache=cache, pos=pos)
+        return self._logits(params, x), {"layers": cache["layers"],
+                                         "pos": pos + 1}
+
+
+def map_params(fn, tree: dict) -> dict:
+    """``fn`` applied to every leaf of a parameter (or cache) tree."""
+    return {k: map_params(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+# ---- weights from and to the JAX package ------------------------------------------
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":           # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                      # only where JAX's dtypes are
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
+    """The port's parameters from a JAX ``LM`` parameter pytree (leaves as
+    numpy arrays), bit for bit, in the same layout and dtypes."""
+    return map_params(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def params_to_jax(params: dict) -> dict:
+    """The JAX parameter pytree (numpy leaves) of the port's parameters;
+    inverse of ``params_from_jax``."""
+    return map_params(_leaf_to_numpy, params)

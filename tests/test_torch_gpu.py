@@ -1,9 +1,10 @@
 """Port tests that need an NVIDIA GPU (marker ``gpu``; skipped elsewhere).
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
-that has only PyTorch: K1 against its plain version and the autograd op on
-the card, the wrapper's input checks, its launch count, and the default
-device of the entry points.
+that has only PyTorch: K1 and K2 against their plain versions on the card,
+K1's autograd op, the wrappers' input checks and launch counts, the LM on
+the card against the LM on the CPU, and the default device of the entry
+points.
 """
 
 import numpy as np
@@ -14,6 +15,9 @@ from repro_torch.kernels.embedding_bag import ops
 from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grad_plain,
                                                    embedding_bag_plain)
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -106,3 +110,88 @@ def test_entry_points_default_to_cuda(cuda):
     assert next(agent.cost_net.parameters()).is_cuda
     assert agent.as_placer().place(test[0]).assignment.shape == (8,)
     assert all(t.is_cuda for t in make_inputs(128, 100, 4, 2))
+
+
+def _qkv(seed, B, S, T, Hq, Hkv, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        return torch.as_tensor(rng.normal(size=shape) * 0.5,
+                               dtype=torch.float32, device=device).to(dtype)
+    return mk(B, S, Hq, hd), mk(B, T, Hkv, hd), mk(B, T, Hkv, hd)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("S,window,group", [(100, None, 1), (384, 64, 4)])
+def test_flash_kernel_matches_plain(cuda, hd, dtype, tol, S, window, group):
+    q, k, v = _qkv(S + hd, 2, S, S, 4 * group, 4, hd, dtype, cuda)
+    out = flash_attention_cuda(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(),
+                               attention_plain(q, k, v,
+                                               window=window).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_kernel_non_causal_ragged_keys(cuda):
+    q, k, v = _qkv(3, 1, 100, 77, 4, 2, 80, torch.float32, cuda)
+    out = flash_attention_cuda(q, k, v, causal=False)
+    torch.testing.assert_close(out, attention_plain(q, k, v, causal=False),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(4, 1, 64, 64, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_cuda(q.cpu(), k, v)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(*_qkv(4, 1, 8, 8, 2, 2, 96, torch.float32,
+                                   cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v)
+    with pytest.raises(ValueError, match="match"):
+        flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_cuda(q, k, v, window=0)
+
+
+def test_flash_launch_count_counts_launches(cuda):
+    q, k, v = _qkv(5, 1, 64, 64, 2, 2, 64, torch.float32, cuda)
+    n0 = flash_attention_cuda.launches
+    flash_ops.flash_attention(q, k, v)
+    flash_ops.flash_attention(q.cpu(), k.cpu(), v.cpu())  # plain: no launch
+    flash_attention_cuda(q[:, :0], k, v)                   # no rows: none
+    assert flash_attention_cuda.launches == n0 + 1
+
+
+def test_lm_on_cuda_matches_cpu(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import LM, map_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke("h2o-danube-1.8b").resolve(1)
+    gpu = LM(cfg, dtype=torch.float32)
+    cpu = LM(cfg, dtype=torch.float32, device="cpu")
+    params = gpu.init_params(0)
+    cparams = map_params(torch.Tensor.cpu, params)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 96)), dtype=torch.int32)
+    n0 = flash_attention_cuda.launches
+    logits, cache = gpu.prefill(params, tokens.to(cuda), capacity=100)
+    clogits, ccache = cpu.prefill(cparams, tokens, capacity=100)
+    assert flash_attention_cuda.launches == n0 + cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), clogits, rtol=1e-4, atol=1e-4)
+    tok = clogits[:, -1].argmax(-1, keepdim=True)
+    for _ in range(3):
+        logits, cache = gpu.decode_step(params, cache, tok.to(cuda))
+        clogits, ccache = cpu.decode_step(cparams, ccache, tok)
+        torch.testing.assert_close(logits.cpu(), clogits, rtol=1e-4,
+                                   atol=1e-4)
+        tok = clogits[:, -1].argmax(-1, keepdim=True)

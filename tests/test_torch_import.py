@@ -37,6 +37,8 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_found():
     assert "repro_torch.core.rollout" in MODULES
     assert "repro_torch.kernels.embedding_bag.ops" in MODULES
+    assert "repro_torch.kernels.flash_attention.ops" in MODULES
+    assert "repro_torch.launch.serve" in MODULES
     assert len(MODULES) >= 25
 
 
@@ -92,7 +94,12 @@ def _measure_placement(**kw):
 
 
 def _entry(name):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models.transformer import LM
     from repro_torch.profiling import microbench as mb
+    cfg = get_smoke("h2o-danube-1.8b").resolve(1)
     return {
         "DreamShard": _dreamshard,
         "measure_placement": _measure_placement,
@@ -103,12 +110,16 @@ def _entry(name):
                                                    **kw),
         "bench_fused_shape": lambda **kw: mb.bench_fused_shape(
             [16], [10], 4, [2], repeats=1, **kw),
+        "build_model": lambda **kw: build_model(cfg, **kw),
+        "LM.init_params": lambda **kw: LM(cfg, **kw).init_params(0),
+        "serve": lambda **kw: serve(batch=1, prompt_len=4, tokens=2, **kw),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["DreamShard", "measure_placement",
                                   "make_inputs", "make_fused_inputs",
-                                  "bench_shape", "bench_fused_shape"])
+                                  "bench_shape", "bench_fused_shape",
+                                  "build_model", "LM.init_params", "serve"])
 def test_entry_points_raise_without_a_card_unless_given_cpu(name):
     entry = _entry(name)
     entry(device="cpu")                        # runs on the CPU when asked
@@ -120,6 +131,11 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(name):
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
     with pytest.raises(ValueError, match="CUDA tensors only"):
         embedding_bag_cuda(torch.zeros((4, 128)),
                            torch.zeros((2, 2), dtype=torch.int32))
+    q = torch.zeros((1, 4, 2, 64))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_cuda(q, q, q)

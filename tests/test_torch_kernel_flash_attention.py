@@ -1,0 +1,153 @@
+"""Flash attention (K2) of the port against the JAX package, on the CPU.
+
+Seeded numpy inputs go to both packages.  The port's op runs its plain
+version on CPU tensors; the JAX side is the Pallas kernel in interpret
+mode (``ops.flash_attention``, as ``tests/test_kernel_flash_attention.py``
+runs it), the blockwise scan of the LM (``models.layers.flash_attention``,
+given KV heads expanded by ``kv_map`` where the port takes them grouped),
+and ``attention_ref`` where the JAX op's padding would attend to padded
+keys (non-causal, ragged T).  Tolerances are the reference sweep's: 2e-4
+for float32, 3e-2 for bfloat16 (inputs rounded to bf16 the same way on
+both sides; outputs rounded once more).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jops
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.layers import flash_attention as jax_model_flash
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_plain
+
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _arrays(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=s) * 0.5).astype(np.float32) for s in shapes]
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, JNP[dtype])
+
+
+def _torch(a, dtype):
+    return torch.as_tensor(a).to(TORCH[dtype])
+
+
+def _close(out_torch, ref_jax, tol):
+    np.testing.assert_allclose(out_torch.float().numpy(),
+                               np.asarray(ref_jax, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S", [128, 256, 384])
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matches_pallas_kernel(S, hd, dtype):
+    q, k, v = _arrays(S + hd, *[(1, S, 2, hd)] * 3)
+    ref = jops.flash_attention(_jax(q, dtype), _jax(k, dtype),
+                               _jax(v, dtype), q_block=128, kv_block=128)
+    out = ops.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                              _torch(v, dtype))
+    assert out.dtype == TORCH[dtype] and out.shape == (1, S, 2, hd)
+    _close(out, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sliding_window_matches_pallas_kernel(dtype):
+    q, k, v = _arrays(4, *[(1, 256, 1, 128)] * 3)
+    ref = jops.flash_attention(_jax(q, dtype), _jax(k, dtype),
+                               _jax(v, dtype), window=64, q_block=128,
+                               kv_block=128)
+    out = ops.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                              _torch(v, dtype), window=64)
+    _close(out, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_head_dims_the_tpu_op_pads(hd):
+    """The JAX op pads hd to 128 lanes (scale from the true hd); the port
+    takes hd as it is."""
+    q, k, v = _arrays(5 + hd, *[(1, 128, 2, hd)] * 3)
+    ref = jops.flash_attention(_jax(q, "float32"), _jax(k, "float32"),
+                               _jax(v, "float32"))
+    out = ops.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                              torch.as_tensor(v))
+    _close(out, ref, TOL["float32"])
+
+
+def test_odd_sequence_length():
+    q, k, v = _arrays(6, *[(1, 100, 1, 128)] * 3)
+    ref = jops.flash_attention(_jax(q, "float32"), _jax(k, "float32"),
+                               _jax(v, "float32"), q_block=64, kv_block=64)
+    out = ops.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                              torch.as_tensor(v))
+    _close(out, ref, TOL["float32"])
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_kv_matches_model_blockwise_scan(window, dtype):
+    """GQA: the port reads KV head h // G from unexpanded k, v; the JAX
+    LM expands them by ``kv_map`` first."""
+    B, S, Hq, Hkv, hd = 2, 128, 8, 2, 80
+    q, k, v = _arrays(7, (B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))
+    kv_map = np.arange(Hq) // (Hq // Hkv)
+    ref = jax_model_flash(_jax(q, dtype), _jax(k, dtype)[:, :, kv_map],
+                          _jax(v, dtype)[:, :, kv_map], causal=True,
+                          window=window, q_chunk=32, kv_chunk=32)
+    out = ops.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                              _torch(v, dtype), window=window)
+    _close(out, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 30])
+def test_non_causal_ragged_keys_mask_by_true_length(window):
+    """Non-causal with T unlike any block multiple: the port masks keys by
+    their true length, as ``attention_ref`` does (the JAX op would attend
+    to its zero-padded keys here)."""
+    B, S, T, H, hd = 1, 100, 77, 2, 64
+    q, k, v = _arrays(8, (B, S, H, hd), (B, T, H, hd), (B, T, H, hd))
+
+    def fold(a):
+        return jnp.moveaxis(jnp.asarray(a), 2, 1).reshape(B * H, -1, hd)
+
+    ref = attention_ref(fold(q), fold(k), fold(v), causal=False,
+                        window=window)
+    ref = jnp.moveaxis(ref.reshape(B, H, S, hd), 1, 2)
+    out = ops.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                              torch.as_tensor(v), causal=False,
+                              window=window)
+    _close(out, ref, TOL["float32"])
+
+
+def test_op_on_cpu_is_the_plain_version_with_its_scale():
+    q, k, v = _arrays(9, (1, 40, 4, 64), (1, 40, 2, 64), (1, 40, 2, 64))
+    q, k, v = map(torch.as_tensor, (q, k, v))
+    n0 = flash_attention_cuda.launches
+    out = ops.flash_attention(q, k, v, window=16, scale=0.3)
+    assert flash_attention_cuda.launches == n0
+    torch.testing.assert_close(
+        out, attention_plain(q, k, v, window=16, scale=0.3), rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v),
+        attention_plain(q, k, v, scale=1 / 8.0), rtol=0, atol=0)
+
+
+def test_op_refuses_what_no_version_takes():
+    q = torch.zeros((1, 8, 3, 64))
+    with pytest.raises(ValueError, match="group"):
+        ops.flash_attention(q, torch.zeros((1, 8, 2, 64)),
+                            torch.zeros((1, 8, 2, 64)))
+    with pytest.raises(ValueError, match="zero keys"):
+        ops.flash_attention(q, torch.zeros((1, 0, 3, 64)),
+                            torch.zeros((1, 0, 3, 64)))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_cuda(q, q, q)

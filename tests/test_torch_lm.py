@@ -1,0 +1,266 @@
+"""The port's LM substrate against the JAX package, on the CPU.
+
+Layers are fed the same seeded numpy inputs on both sides.  The whole
+model is the h2o-danube-1.8b SMOKE config (``resolve(1)``) with the JAX
+LM's own weights carried across by ``params_from_jax``, on a 96-token
+prompt, past the config's window of 64.  In float32 the JAX LM runs its
+blockwise attention scan and the port its materialized plain attention, so
+they differ by float32 summation order only: 1e-4.  In bfloat16 both
+round every matmul and residual to bf16 at the same places but accumulate
+in different orders.  Logits reach 1.6 in size, where one bf16 step is
+0.0078; the two sides stay within 2e-2 (about two steps), and decode is
+teacher-forced with the JAX tokens so that a near-tie cannot fork the two
+sequences.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import h2o_danube_1p8b as jax_danube
+from repro.models import layers as JL
+from repro.models.transformer import LM as JaxLM
+from repro_torch.configs import get_smoke
+from repro_torch.launch import serve as S
+from repro_torch.launch import steps as ST
+from repro_torch.models import layers as L
+from repro_torch.models.config import MoEConfig
+from repro_torch.models.transformer import (LM, params_from_jax,
+                                            params_to_jax)
+
+PROMPT = 96
+N_DECODE = 8
+CFG = get_smoke("h2o-danube-1.8b").resolve(1)
+
+
+def _rand(seed, *shape):
+    return (np.random.default_rng(seed).normal(size=shape) * 0.5).astype(
+        np.float32)
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm(dtype):
+    x, w = _rand(0, 2, 5, 48), 1 + _rand(1, 48)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = JL.rms_norm(jnp.asarray(x, jdt), jnp.asarray(w, jdt), 1e-5)
+    out = L.rms_norm(torch.as_tensor(x).to(dtype),
+                     torch.as_tensor(w).to(dtype), 1e-5)
+    assert out.dtype == dtype
+    np.testing.assert_allclose(out.float().numpy(), _np(ref),
+                               rtol=1e-6 if dtype == torch.float32 else 1e-2,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("hd", [32, 80, 128])
+def test_rope_freqs_bitwise(hd):
+    ref = np.asarray(JL.rope_freqs(hd, 1e4), np.float32)
+    np.testing.assert_array_equal(L.rope_freqs(hd, 1e4).numpy(), ref)
+
+
+def test_apply_rope_split_halves():
+    x = _rand(2, 2, 7, 3, 16)
+    pos = np.arange(3, 10)[None, :]
+    ref = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)
+    out = L.apply_rope(torch.as_tensor(x), torch.as_tensor(pos), 1e4)
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_mlp_apply(act):
+    x = _rand(3, 2, 5, 32)
+    p = {"wu": _rand(4, 32, 64) * 0.2, "wo": _rand(5, 64, 32) * 0.2}
+    if act == "swiglu":
+        p["wg"] = _rand(6, 32, 64) * 0.2
+    ref = JL.mlp_apply({k: jnp.asarray(v) for k, v in p.items()},
+                       jnp.asarray(x), act)
+    out = L.mlp_apply({k: torch.as_tensor(v) for k, v in p.items()},
+                      torch.as_tensor(x), act)
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["grouped", "expanded"])
+def test_decode_attention(layout):
+    B, T, Hq, Hkv, hd = 2, 20, 8, 2, 16
+    kv_heads = Hkv if layout == "grouped" else Hq
+    q = _rand(7, B, 1, Hq, hd)
+    kc, vc = _rand(8, B, T, kv_heads, hd), _rand(9, B, T, kv_heads, hd)
+    valid = np.arange(T)[None, :] < np.array([[13], [20]])
+    ref = JL.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                              jnp.asarray(vc), jnp.asarray(valid))
+    out = L.decode_attention(torch.as_tensor(q), torch.as_tensor(kc),
+                             torch.as_tensor(vc), torch.as_tensor(valid))
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+def _jax_params(dtype):
+    model = JaxLM(jax_danube.SMOKE.resolve(1), remat=False, q_chunk=32,
+                  kv_chunk=32, dtype=dtype)
+    tree = jax.tree.map(np.asarray, model.init_params(jax.random.PRNGKey(0)))
+    return model, tree
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_params_round_trip_exactly(dtype):
+    _, tree = _jax_params(dtype)
+    params = params_from_jax(tree)
+    assert params["layers"]["wq"].dtype == (
+        torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+    back = params_to_jax(params)
+    flat, treedef = jax.tree.flatten(tree)
+    flat_back, treedef_back = jax.tree.flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def test_init_params_has_the_reference_layout():
+    model, tree = _jax_params(jnp.float32)
+    ours = LM(CFG, dtype=torch.float32, device="cpu").init_params(0)
+    shapes = jax.tree.map(lambda a: a.shape, tree)
+    assert jax.tree.map(lambda t: tuple(t.shape), ours) == shapes
+    w = ours["layers"]["wq"]
+    assert abs(float(w.std()) - 0.02) < 1e-3 and abs(float(w.mean())) < 1e-3
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def run_both(request):
+    """The JAX LM and the port's, same weights, same prompt: forward,
+    prefill and N_DECODE decode steps on each side."""
+    jdt = jnp.float32 if request.param == "float32" else jnp.bfloat16
+    model, tree = _jax_params(jdt)
+    params = jax.tree.map(jnp.asarray, tree)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, CFG.vocab, (2, PROMPT)).astype(np.int32)
+    capacity = PROMPT + N_DECODE
+
+    ours = LM(CFG, dtype=getattr(torch, request.param), device="cpu")
+    tparams = params_from_jax(tree)
+    tprompt = torch.as_tensor(prompt)
+    res = {"dtype": request.param}
+    res["forward"] = (np.asarray(jax.jit(model.forward)(params, prompt)[0],
+                                 np.float32),
+                      ours.forward(tparams, tprompt)[0].float().numpy())
+
+    jlog, jcache = jax.jit(lambda p, t: model.prefill(p, t,
+                                                      capacity=capacity))(
+        params, prompt)
+    tlog, tcache = ours.prefill(tparams, tprompt, capacity=capacity)
+    res["prefill"] = (np.asarray(jlog, np.float32), tlog.float().numpy())
+    # copies: decode_step writes into the port's cache in place
+    res["cache"] = [(np.asarray(jcache["layers"][n], np.float32),
+                     tcache["layers"][n].float().numpy().copy())
+                    for n in "kv"]
+    res["pos"] = (int(jcache["pos"]), tcache["pos"])
+
+    decode = jax.jit(model.decode_step)
+    forced = request.param == "bfloat16"
+    jtok = jnp.argmax(jlog[:, -1], -1)[:, None].astype(jnp.int32)
+    ttok = tlog[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    steps = []
+    for _ in range(N_DECODE):
+        jlog, jcache = decode(params, jcache, jtok)
+        tin = torch.as_tensor(np.array(jtok)) if forced else ttok
+        tlog, tcache = ours.decode_step(tparams, tcache, tin)
+        jtok = jnp.argmax(jlog[:, -1], -1)[:, None].astype(jnp.int32)
+        ttok = tlog[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        steps.append((np.asarray(jlog, np.float32), tlog.float().numpy(),
+                      np.asarray(jtok), ttok.numpy()))
+    res["decode"] = steps
+    res["decode_pos"] = (int(jcache["pos"]), tcache["pos"])
+    return res
+
+
+def _tol(res):
+    return 1e-4 if res["dtype"] == "float32" else 2e-2
+
+
+def test_lm_forward_logits(run_both):
+    ref, out = run_both["forward"]
+    assert out.shape == (2, PROMPT, CFG.vocab_padded)
+    np.testing.assert_allclose(out, ref, rtol=_tol(run_both),
+                               atol=_tol(run_both))
+
+
+def test_lm_prefill_logits_and_cache(run_both):
+    ref, out = run_both["prefill"]
+    assert out.shape == (2, 1, CFG.vocab_padded)
+    np.testing.assert_allclose(out, ref, rtol=_tol(run_both),
+                               atol=_tol(run_both))
+    for ref_c, out_c in run_both["cache"]:
+        assert out_c.shape == (CFG.n_layers, 2, PROMPT + N_DECODE,
+                               CFG.n_kv_heads, CFG.head_dim)
+        np.testing.assert_allclose(out_c, ref_c, rtol=_tol(run_both),
+                                   atol=_tol(run_both))
+    assert run_both["pos"] == (PROMPT, PROMPT)
+
+
+def test_lm_greedy_decode(run_both):
+    for jlog, tlog, jtok, ttok in run_both["decode"]:
+        np.testing.assert_allclose(tlog, jlog, rtol=_tol(run_both),
+                                   atol=_tol(run_both))
+        if run_both["dtype"] == "float32":
+            np.testing.assert_array_equal(ttok, jtok)
+    assert run_both["decode_pos"] == (PROMPT + N_DECODE,) * 2
+
+
+@pytest.mark.parametrize("change", [
+    {"block": "hybrid"}, {"block": "rwkv"},
+    {"moe": MoEConfig(n_experts=4, top_k=2)}, {"frontend": "vlm"},
+    {"qkv_bias": True}, {"tie_embeddings": True}])
+def test_unsupported_blocks_raise(change):
+    cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LM(cfg.resolve(1), device="cpu")
+
+
+def test_unresolved_or_sharded_config_raises():
+    with pytest.raises(ValueError, match="resolve"):
+        LM(get_smoke("h2o-danube-1.8b"), device="cpu")
+    with pytest.raises(ValueError, match="resolve"):
+        LM(get_smoke("h2o-danube-1.8b").resolve(2), device="cpu")
+
+
+def test_steps_are_the_model_calls():
+    model = ST.build_model(CFG, dtype=torch.float32, device="cpu")
+    params = model.init_params(1)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, CFG.vocab, (2, 10)), dtype=torch.int32)
+    logits, cache = ST.make_prefill_step(model, capacity=12)(
+        params, {"tokens": tokens})
+    ref_logits, ref_cache = model.prefill(params, tokens, capacity=12)
+    torch.testing.assert_close(logits, ref_logits, rtol=0, atol=0)
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    out, cache = ST.make_decode_step(model)(params, cache, {"tokens": nxt})
+    ref_out, _ = model.decode_step(params, ref_cache, nxt)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=0)
+    assert cache["pos"] == 11
+    with pytest.raises(ValueError, match="capacity"):
+        model.prefill(params, tokens, capacity=5)
+
+
+def test_serve_on_the_cpu():
+    res = S.serve(batch=2, prompt_len=70, tokens=5, device="cpu")
+    assert res.tokens.shape == (2, 5)
+    assert ((res.tokens >= 0) & (res.tokens < CFG.vocab_padded)).all()
+    assert res.pos == 70 + 4
+    assert torch.isfinite(res.last_logits).all()
+    assert res.peak_memory_bytes is None
+    # the same greedy tokens as driving the model by hand
+    model = LM(CFG, device="cpu")
+    logits, cache = model.prefill(res.params, res.prompts, capacity=75)
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    toks = [tok]
+    for _ in range(4):
+        logits, cache = model.decode_step(res.params, cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    np.testing.assert_array_equal(torch.cat(toks, 1).numpy(), res.tokens)

@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    K1's build in phase 2;
 7. K2 against its plain PyTorch version on the card: S x hd x dtype x
    window x GQA group, non-causal attention over ragged key lengths, and
-   (after phase 8) layer 0's real q/k/v of the served model;
+   (after phase 8) layer 0's real q/k/v of the served model at 8192 tokens
+   and window 4096, in bf16 and in float32, each held to a limit below a
+   typical output;
 8. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
    seeded weights) through ``repro_torch.launch.serve.serve``: 2 prompts
    of 8192 tokens, one warm-up prefill, a timed prefill and 31 greedy
@@ -81,6 +83,30 @@ def allclose_err(out, ref, tol: float) -> float:
     check(bool((diff <= tol + tol * ref.abs()).all()),
           f"max |err| {float(diff.max())} over tolerance {tol}")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def attention_err(out, ref, *, max_abs: float, rel_rms: float) -> dict:
+    """An attention output's errors against plain, in float32; raises
+    unless max |out - ref| <= max_abs and ||out - ref|| / ||ref|| <=
+    rel_rms.  ``mean_abs_ref`` comes back with them, so a limit can be read
+    against a typical output: one as large as the output would let a wrong
+    mask through."""
+    ref = ref.float()
+    diff = out.float() - ref
+    err = {"max_abs_err": float(diff.abs().max()),
+           "rel_rms_err": float(diff.norm() / ref.norm()),
+           "mean_abs_ref": float(ref.abs().mean()),
+           "limits": [max_abs, rel_rms]}
+    check(err["max_abs_err"] <= max_abs and err["rel_rms_err"] <= rel_rms,
+          f"attention against plain: {err}")
+    return err
+
+
+def _err_line(err: dict) -> str:
+    return (f"max |err| {err['max_abs_err']:.3g} (limit "
+            f"{err['limits'][0]:.3g}), rms err / rms ref "
+            f"{err['rel_rms_err']:.3g} (limit {err['limits'][1]:.3g}), "
+            f"mean |ref| {err['mean_abs_ref']:.3g}")
 
 
 def phase_device() -> str:
@@ -346,9 +372,10 @@ def _qkv(torch, np, seed, B, S, T, Hq, Hkv, hd, dtype):
 
 def phase_k2_checks(torch, np, FA, plain) -> float:
     """K2 against the plain version on the card; returns the max error."""
-    worst = 0.0
+    worst = worst_rel = 0.0
     cases = 0
     tols = ((torch.float32, 2e-4), (torch.bfloat16, 3e-2))
+    rel_rms = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     for S in (100, 128, 384, 1000):
         for hd in FA.HEAD_DIMS:
             for dtype, tol in tols:
@@ -361,6 +388,9 @@ def phase_k2_checks(torch, np, FA, plain) -> float:
                         torch.cuda.synchronize()
                         worst = max(worst, allclose_err(out.float(),
                                                         ref.float(), tol))
+                        worst_rel = max(worst_rel, attention_err(
+                            out, ref, max_abs=math.inf,
+                            rel_rms=rel_rms[dtype])["rel_rms_err"])
                         cases += 1
     # non-causal over key lengths that are no tile multiple: masked by T
     for T in (77, 1000):
@@ -372,14 +402,19 @@ def phase_k2_checks(torch, np, FA, plain) -> float:
                 torch.cuda.synchronize()
                 worst = max(worst, allclose_err(out.float(), ref.float(),
                                                 tol))
+                worst_rel = max(worst_rel, attention_err(
+                    out, ref, max_abs=math.inf,
+                    rel_rms=rel_rms[dtype])["rel_rms_err"])
                 cases += 1
-    log(f"[k2] K2 == plain on {cases} cases, max |err| {worst:.3g}")
+    log(f"[k2] K2 == plain on {cases} cases, max |err| {worst:.3g}, "
+        f"max rms err / rms ref {worst_rel:.3g}")
     return worst
 
 
-def phase_k2_layer0(torch, FA, plain, res) -> float:
+def phase_k2_layer0(torch, FA, plain, res, summary: dict) -> float:
     """K2 on layer 0's real q/k/v of the served model (2 KV groups of 4
-    query heads), against the plain version."""
+    query heads) at the main path's length and window, against the plain
+    version: in bf16 as served, and in float32 on the same values."""
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import map_params
     cfg = res.cfg
@@ -396,14 +431,23 @@ def phase_k2_layer0(torch, FA, plain, res) -> float:
         q = L.apply_rope(q.contiguous(), pos, cfg.rope_theta)
         k = L.apply_rope(k.contiguous(), pos, cfg.rope_theta)
         v = v.contiguous()
-        out = FA.flash_attention_cuda(q, k, v, window=cfg.sliding_window)
-        ref = plain(q, k, v, window=cfg.sliding_window)
-        torch.cuda.synchronize()
-        err = allclose_err(out.float(), ref.float(), 3e-2)
-    log(f"[k2] layer 0 of {cfg.name}: q {tuple(q.shape)}, k "
-        f"{tuple(k.shape)}, window {cfg.sliding_window}, bf16: K2 == plain, "
-        f"max |err| {err:.3g}")
-    return err
+        errs = {}
+        for name, limits in (("bfloat16", (4e-3, 1e-2)),
+                             ("float32", (2e-4, 1e-4))):
+            dt = getattr(torch, name)
+            args = (q.to(dt), k.to(dt), v.to(dt))
+            out = FA.flash_attention_cuda(*args, window=cfg.sliding_window)
+            ref = plain(*args, window=cfg.sliding_window)
+            torch.cuda.synchronize()
+            errs[name] = attention_err(out, ref, max_abs=limits[0],
+                                       rel_rms=limits[1])
+            log(f"[k2] layer 0 of {cfg.name}: q {tuple(q.shape)}, k "
+                f"{tuple(k.shape)}, window {cfg.sliding_window}, {name}: "
+                f"K2 == plain, {_err_line(errs[name])}")
+            del out, ref
+    summary["k2_layer0"] = errs
+    torch.cuda.empty_cache()
+    return errs["bfloat16"]["max_abs_err"]
 
 
 def phase_serve(torch, counters, FA, summary: dict):
@@ -413,7 +457,7 @@ def phase_serve(torch, counters, FA, summary: dict):
         c.launches = 0
     t0 = time.perf_counter()
     res = serve(ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                tokens=SERVE_TOKENS, size="full", device="cuda", warmup=1)
+                tokens=SERVE_TOKENS, size="full", device="cuda")
     wall = time.perf_counter() - t0
     launches = FA.flash_attention_cuda.launches
     others = {type(c).__name__: c.launches for c in counters
@@ -571,10 +615,12 @@ def phase_k2_yardstick(torch, FA, plain, summary: dict) -> dict:
         out = k2(q, k, v)
         ref = pl(q, k, v)
         torch.cuda.synchronize()
-        err = allclose_err(out.float(), ref.float(), 3e-2)
+        check_err = attention_err(out, ref, max_abs=4e-3, rel_rms=1e-2)
+        err = check_err["max_abs_err"]
         lib_out = sdpa(q, k, v)
         torch.cuda.synchronize()
         allclose_err(lib_out.float(), ref.float(), 3e-2)
+        lib_err = attention_err(lib_out, ref, max_abs=math.inf, rel_rms=5e-2)
         del out, ref, lib_out
         torch.cuda.empty_cache()
         ms = median_time_ms(k2, (q, k, v), warmup=2, repeats=10)
@@ -595,7 +641,8 @@ def phase_k2_yardstick(torch, FA, plain, summary: dict) -> dict:
     summary["k2_yardstick"] = {
         "shape": [B, S, Hq, Hkv, hd], "window": W, "dtype": "bfloat16",
         "unmasked_pairs_per_head": pairs, "flops": flops, "bytes": nbytes,
-        "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms, "bytes_ms": bytes_ms, "check": check_err,
+        "sdpa_check": lib_err,
         "tflops": flops / (ms * 1e-3) / 1e12,
         "per_prefill_ms": ms * cfg["layers"], **row}
     log(f"[k2-yardstick] q ({B}, {S}, {Hq}, {hd}), k/v ({B}, {S}, {Hkv}, "
@@ -603,6 +650,8 @@ def phase_k2_yardstick(torch, FA, plain, summary: dict) -> dict:
         f"{ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
         f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
         f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    log(f"[k2-yardstick] K2 == plain: {_err_line(check_err)}")
+    log(f"[k2-yardstick] SDPA == plain: {_err_line(lib_err)}")
     del q, k, v, mask
     torch.cuda.empty_cache()
     return row
@@ -660,7 +709,7 @@ def main() -> int:
                            FA, summary, phases=phases)
     summary["k2_layer0_max_abs_err"] = run(
         "7b K2 on layer 0", phase_k2_layer0, torch, FA, attention_plain, res,
-        phases=phases)
+        summary, phases=phases)
     run("8b LM profile", phase_profile, torch, res, summary, phases=phases)
     del res
     torch.cuda.empty_cache()

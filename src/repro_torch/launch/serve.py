@@ -32,7 +32,7 @@ class ServeResult:
     tokens: np.ndarray             # (B, n_tokens) greedy tokens
     last_logits: torch.Tensor      # (B, 1, Vp) of the last decode step
     pos: int                       # cache position after the last step
-    prefill_ms: float              # the timed prefill (after warm-ups)
+    prefill_ms: float              # the timed prefill (after the warm-up)
     decode_ms_per_token: float
     decode_tokens_per_s: float     # batch x decode steps / decode time
     peak_memory_bytes: int | None  # torch.cuda.max_memory_allocated
@@ -63,10 +63,10 @@ class _Timer:
 
 def serve(arch: str = "h2o-danube-1.8b", *, batch: int = 4,
           prompt_len: int = 32, tokens: int = 32, size: str = "smoke",
-          device: str | torch.device | None = None,
-          warmup: int = 0) -> ServeResult:
-    """Prefill ``batch`` seeded prompts (after ``warmup`` untimed
-    prefills), then decode ``tokens`` greedy tokens per request."""
+          device: str | torch.device | None = None) -> ServeResult:
+    """Prefill ``batch`` seeded prompts, then decode ``tokens`` greedy
+    tokens per request.  On the card one untimed prefill comes first, so
+    the timed one pays no kernel load or allocator growth."""
     dev = resolve_device(device)
     cfg = {"smoke": C.get_smoke, "full": C.get_full}[size](arch).resolve(1)
     if dev.type == "cuda":
@@ -81,7 +81,7 @@ def serve(arch: str = "h2o-danube-1.8b", *, batch: int = 4,
     decode = ST.make_decode_step(model)
     timer = _Timer(dev)
 
-    for _ in range(warmup):
+    if dev.type == "cuda":
         prefill(params, {"tokens": prompts})
     timer.start()
     logits, cache = prefill(params, {"tokens": prompts})
@@ -115,13 +115,10 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--size", choices=("smoke", "full"), default="smoke")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    ap.add_argument("--warmup", type=int, default=0,
-                    help="untimed prefills before the timed one")
     args = ap.parse_args(argv)
 
     res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
-                tokens=args.tokens, size=args.size, device=args.device,
-                warmup=args.warmup)
+                tokens=args.tokens, size=args.size, device=args.device)
     dev = res.prompts.device
     print(f"arch={res.cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"device={dev}")

@@ -136,6 +136,20 @@ def test_flash_kernel_matches_plain(cuda, hd, dtype, tol, S, window, group):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,max_abs,rel_rms", [(torch.float32, 2e-4, 1e-4),
+                                                   (torch.bfloat16, 4e-3, 1e-2)])
+def test_flash_kernel_long_window(cuda, dtype, max_abs, rel_rms):
+    # rows past the window: the limits sit below a typical |out|, so a key
+    # let in or left out at the window's edge shows
+    q, k, v = _qkv(6, 1, 2048, 2048, 8, 2, 80, dtype, cuda)
+    out = flash_attention_cuda(q, k, v, window=700).float()
+    ref = attention_plain(q, k, v, window=700).float()
+    wide = attention_plain(q, k, v, window=701).float()
+    assert float((out - ref).abs().max()) <= max_abs
+    assert float((out - ref).norm() / ref.norm()) <= rel_rms
+    assert float((wide - ref).abs().max()) > max_abs
+
+
 def test_flash_kernel_non_causal_ragged_keys(cuda):
     q, k, v = _qkv(3, 1, 100, 77, 4, 2, 80, torch.float32, cuda)
     out = flash_attention_cuda(q, k, v, causal=False)

@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: K1 (``src/repro_torch/csrc/embedding_bag.cu``) with nvcc for
-   sm_90a into ``build/kernels/``;
+   sm_90a into ``build/kernels/``, timed on its own;
 3. K1 against its plain PyTorch version on the card: the reference's test
    sweep (rows x dim x pool x {f32, bf16}), the all-padding case, and
    arenas of more than 2^31 elements (64-bit row offsets);
@@ -19,9 +19,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    capped at 2^20) -- one K1 launch per device and repeat;
 5. the yardstick: K1, its plain version and ``F.embedding_bag`` timed at
    the largest main-path device shape, beside the memory bound;
-6. build: K2 (``src/repro_torch/csrc/flash_attention.cu``), started beside
-   K1's build in phase 2;
-7. K2 against its plain PyTorch version on the card: S x hd x dtype x
+6. build: K2 (``src/repro_torch/csrc/flash_attention.cu``), timed on its
+   own; ptxas must report no spill in any bf16 (tensor-core) instance;
+7. K2 against its plain PyTorch version on the card -- bf16 through the
+   tensor-core kernel, float32 through the CUDA-core one: S x hd x dtype x
    window x GQA group, non-causal attention over ragged key lengths, and
    (after phase 8) layer 0's real q/k/v of the served model at 8192 tokens
    and window 4096, in bf16 and in float32, each held to a limit below a
@@ -33,9 +34,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    window over one prefill and over 4 decode steps;
 9. the same path at full width with 2 layers in float32, on the card (K2)
    and on the CPU (plain): logits and greedy tokens must agree;
-10. the yardstick: K2, its plain version and
+10. the yardstick: K2 (bf16, tensor cores), its plain version and
    ``F.scaled_dot_product_attention`` timed at the main-path layer shape,
-   beside the operations bound.
+   beside the operations bound; K2's float32 (CUDA-core) kernel is timed
+   on the same values on a line of its own.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list) and then, as its last line, ``{"ok": true, "device":
@@ -49,10 +51,10 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -93,9 +95,14 @@ def attention_err(out, ref, *, max_abs: float, rel_rms: float) -> dict:
     mask through."""
     ref = ref.float()
     diff = out.float() - ref
+    worst = int(diff.abs().argmax())
     err = {"max_abs_err": float(diff.abs().max()),
            "rel_rms_err": float(diff.norm() / ref.norm()),
            "mean_abs_ref": float(ref.abs().mean()),
+           # the query row of the largest error, and |ref| there
+           "worst_row": worst // (diff.shape[-1] * diff.shape[-2])
+           % diff.shape[1],
+           "worst_abs_ref": float(ref.reshape(-1)[worst].abs()),
            "limits": [max_abs, rel_rms]}
     check(err["max_abs_err"] <= max_abs and err["rel_rms_err"] <= rel_rms,
           f"attention against plain: {err}")
@@ -104,7 +111,8 @@ def attention_err(out, ref, *, max_abs: float, rel_rms: float) -> dict:
 
 def _err_line(err: dict) -> str:
     return (f"max |err| {err['max_abs_err']:.3g} (limit "
-            f"{err['limits'][0]:.3g}), rms err / rms ref "
+            f"{err['limits'][0]:.3g}; at query row {err['worst_row']}, "
+            f"|ref| {err['worst_abs_ref']:.3g}), rms err / rms ref "
             f"{err['rel_rms_err']:.3g} (limit {err['limits'][1]:.3g}), "
             f"mean |ref| {err['mean_abs_ref']:.3g}")
 
@@ -119,24 +127,37 @@ def phase_device() -> str:
     return line.splitlines()[0]
 
 
-def start_builds(libraries) -> dict:
-    """One nvcc per source, all started together; name -> future of
-    (library path, seconds)."""
-    def timed(lib):
-        t0 = time.perf_counter()
-        return lib.build(), time.perf_counter() - t0
-    pool = ThreadPoolExecutor(len(libraries))
-    futures = {lib.name: pool.submit(timed, lib) for lib in libraries}
-    pool.shutdown(wait=False)
-    return futures
+def ptxas_functions(build_log: str) -> list:
+    """(function, spill line, registers line) of each kernel that
+    ``ptxas -v`` reports in a build log."""
+    lines = build_log.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and i + 2 < len(lines):
+            name = ln.split("Function properties for")[-1].strip()
+            out.append((name, lines[i + 1].strip(),
+                        lines[i + 2].split("ptxas info    :")[-1].strip()))
+    return out
 
 
-def phase_build(library, future) -> float:
-    path, secs = future.result()
+def phase_build(library, no_spill: str | None = None) -> float:
+    """Build one library; with ``no_spill``, fail if ptxas reports a
+    spill in a function whose name holds it."""
+    t0 = time.perf_counter()
+    path = library.build()
+    secs = time.perf_counter() - t0
     log(f"[build] {os.path.relpath(path, ROOT)} in {secs:.2f} s")
-    for ln in library.build_log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"[build] {ln.strip()}")
+    funcs = ptxas_functions(library.build_log)
+    for name, spill, regs in funcs:
+        short = re.search(r"(flash_fwd_\w*?kernel)ILi(\d+)E", name)
+        log(f"[build] {f'{short[1]}<{short[2]}>' if short else name[:72]}: "
+            f"{spill}; {regs}")
+    if no_spill is not None:
+        mine = [f for f in funcs if no_spill in f[0]]
+        check(bool(mine), f"ptxas reported no {no_spill} instance")
+        for name, spill, _ in mine:
+            check("0 bytes spill stores, 0 bytes spill loads" in spill,
+                  f"{name} spills: {spill}")
     return secs
 
 
@@ -376,7 +397,7 @@ def phase_k2_checks(torch, np, FA, plain) -> float:
     cases = 0
     tols = ((torch.float32, 2e-4), (torch.bfloat16, 3e-2))
     rel_rms = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    for S in (100, 128, 384, 1000):
+    for S in (65, 100, 128, 129, 384, 1000):
         for hd in FA.HEAD_DIMS:
             for dtype, tol in tols:
                 for window in (None, 64):
@@ -627,31 +648,50 @@ def phase_k2_yardstick(torch, FA, plain, summary: dict) -> dict:
         plain_ms = median_time_ms(pl, (q, k, v), warmup=1, repeats=3)
         torch.cuda.empty_cache()
         library_ms = median_time_ms(sdpa, (q, k, v), warmup=2, repeats=10)
+        # the float32 kernel on the same values, as the cross-device path
+        # runs it
+        f32 = tuple(t.float() for t in (q, k, v))
+        f32_ms = median_time_ms(k2, f32, warmup=1, repeats=5)
+        del f32
     flops = 4 * hd * pairs * B * Hq
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     ops_ms = flops / BF16_FLOP_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    f32_bound_ms = max(flops / F32_FLOP_PER_S,
+                       2 * nbytes / HBM_BYTES_PER_S) * 1e3
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+           "design": "wgmma (bf16 tensor cores, cp.async K/V ring)",
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_ms": bound_ms,
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "library_ms": library_ms}
+    tflops = flops / (ms * 1e-3) / 1e12
     summary["k2_yardstick"] = {
         "shape": [B, S, Hq, Hkv, hd], "window": W, "dtype": "bfloat16",
         "unmasked_pairs_per_head": pairs, "flops": flops, "bytes": nbytes,
         "ops_ms": ops_ms, "bytes_ms": bytes_ms, "check": check_err,
-        "sdpa_check": lib_err,
-        "tflops": flops / (ms * 1e-3) / 1e12,
-        "per_prefill_ms": ms * cfg["layers"], **row}
+        "sdpa_check": lib_err, "tflops": tflops,
+        "bound_share": bound_ms / ms, "per_prefill_ms": ms * cfg["layers"],
+        "float32_cuda_cores": {
+            "ms": f32_ms, "tflops": flops / (f32_ms * 1e-3) / 1e12,
+            "bound_ms": f32_bound_ms, "bound_share": f32_bound_ms / f32_ms},
+        **row}
     log(f"[k2-yardstick] q ({B}, {S}, {Hq}, {hd}), k/v ({B}, {S}, {Hkv}, "
         f"{hd}) bf16, causal, window {W}, {pairs} pairs per head: K2 "
-        f"{ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
-        f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
-        f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+        f"(wgmma) {ms:.3f} ms ({tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} "
+        f"of the bound), plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms,"
+        f" bound {bound_ms:.3f} ms ({row['bound_by']})")
+    log(f"[k2-yardstick] K2 float32 (CUDA cores) on the same values: "
+        f"{f32_ms:.3f} ms ({flops / (f32_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{f32_bound_ms / f32_ms:.1%} of its bound {f32_bound_ms:.3f} ms at "
+        f"the float32 peak)")
     log(f"[k2-yardstick] K2 == plain: {_err_line(check_err)}")
     log(f"[k2-yardstick] SDPA == plain: {_err_line(lib_err)}")
+    check(ms < library_ms, f"K2 {ms:.3f} ms is not faster than SDPA "
+          f"{library_ms:.3f} ms")
     del q, k, v, mask
     torch.cuda.empty_cache()
     return row
@@ -690,9 +730,8 @@ def main() -> int:
     summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "phase_s": phases}
     summary["nvidia_smi"] = run("1 device", phase_device, phases=phases)
-    builds = start_builds([K.LIBRARY, FA.LIBRARY])
     summary["build_s"] = run("2 build K1", phase_build, K.LIBRARY,
-                             builds[K.LIBRARY.name], phases=phases)
+                             phases=phases)
     summary["kernel_check_max_abs_err"] = run(
         "3 K1 checks", phase_kernel_checks, torch, np, K,
         embedding_bag_plain, phases=phases)
@@ -701,7 +740,7 @@ def main() -> int:
     k1_row = run("5 K1 yardstick", phase_yardstick, torch, np, K,
                  embedding_bag_plain, shapes, summary, phases=phases)
     summary["k2_build_s"] = run("6 build K2", phase_build, FA.LIBRARY,
-                                builds[FA.LIBRARY.name], phases=phases)
+                                "flash_fwd_tc_kernel", phases=phases)
     summary["k2_check_max_abs_err"] = run(
         "7 K2 checks", phase_k2_checks, torch, np, FA, attention_plain,
         phases=phases)

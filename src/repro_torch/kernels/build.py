@@ -5,8 +5,8 @@ interface.  ``CudaLibrary`` compiles one such source with ``nvcc`` for
 ``sm_90a`` at first use, under ``build/kernels/`` at the root of the
 checkout (the file name carries a hash of the source and flags, so an
 edit rebuilds), and loads it with ``ctypes``.  Nothing is compiled or
-loaded when a module is imported.  Separate sources build in parallel
-when their ``build()`` calls run in separate threads.
+loaded when a module is imported.  The compiler's output (``-Xptxas=-v``:
+registers and spills of each kernel) is kept beside the library.
 """
 
 from __future__ import annotations
@@ -61,6 +61,8 @@ class CudaLibrary:
         library's path."""
         lib = self.path()
         if lib.exists():
+            log = lib.with_suffix(".log")
+            self.build_log = log.read_text() if log.exists() else ""
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -72,6 +74,7 @@ class CudaLibrary:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
                 f"nvcc failed on {self.source}:\n{self.build_log}")
+        lib.with_suffix(".log").write_text(self.build_log)
         os.replace(tmp, lib)
         return lib
 

@@ -1,7 +1,8 @@
 """Port tests that need an NVIDIA GPU (marker ``gpu``; skipped elsewhere).
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
-that has only PyTorch: K1 and K2 against their plain versions on the card,
+that has only PyTorch: K1 and K2 against their plain versions on the card
+(K2 in bf16 on its tensor-core kernel, in float32 on its CUDA-core one),
 K1's autograd op, the wrappers' input checks and launch counts, the LM on
 the card against the LM on the CPU, and the default device of the entry
 points.
@@ -175,6 +176,10 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="window"):
         flash_attention_cuda(q, k, v, window=0)
+    # the bf16 kernel takes its row max on the unscaled scores
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             scale=0.0)
 
 
 def test_flash_launch_count_counts_launches(cuda):
@@ -184,6 +189,83 @@ def test_flash_launch_count_counts_launches(cuda):
     flash_ops.flash_attention(q.cpu(), k.cpu(), v.cpu())  # plain: no launch
     flash_attention_cuda(q[:, :0], k, v)                   # no rows: none
     assert flash_attention_cuda.launches == n0 + 1
+
+
+def _qkv_served(seed, B, S, T, Hq, Hkv, hd, device):
+    """bf16 q, k at std 0.5 and v at std 0.1, so |out| < 0.5, where one
+    bf16 step is at most 1.95e-3 (the served outputs are smaller still):
+    the 4e-3 limit then tests the kernel, not the output's rounding."""
+    rng = np.random.default_rng(seed)
+
+    def mk(std, *shape):
+        return torch.as_tensor(rng.normal(size=shape) * std,
+                               dtype=torch.float32,
+                               device=device).to(torch.bfloat16)
+    return (mk(0.5, B, S, Hq, hd), mk(0.5, B, T, Hkv, hd),
+            mk(0.1, B, T, Hkv, hd))
+
+
+def _assert_bf16_limits(out, ref):
+    """The limits the served shapes are held to: max |err| <= 4e-3 and
+    rms(err) / rms(ref) <= 1e-2."""
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    diff = out.float() - ref.float()
+    assert float(diff.abs().max()) <= 4e-3
+    assert float(diff.norm()) <= 1e-2 * float(ref.float().norm())
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 1000])
+def test_bf16_tensor_cores_ragged_lengths(cuda, hd, S):
+    # S = T, no tile multiple (64 keys; 32 at hd 256): the copy zero-fills
+    # the tail and the last tile is masked by T
+    q, k, v = _qkv_served(7 * S + hd, 2, S, S, 4, 2, hd, cuda)
+    _assert_bf16_limits(flash_attention_cuda(q, k, v),
+                        attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("hd", [64, 80, 256])
+@pytest.mark.parametrize("window", [31, 32, 33, 63, 64, 65, 128, 129])
+def test_bf16_tensor_cores_window_edges(cuda, hd, window):
+    # windows whose edge falls on or beside a key-tile boundary
+    q, k, v = _qkv_served(window + hd, 1, 300, 300, 4, 2, hd, cuda)
+    _assert_bf16_limits(flash_attention_cuda(q, k, v, window=window),
+                        attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_bf16_tensor_cores_gqa_groups(cuda, hd, group):
+    q, k, v = _qkv_served(group + hd, 2, 257, 257, 2 * group, 2, hd, cuda)
+    _assert_bf16_limits(flash_attention_cuda(q, k, v, window=100),
+                        attention_plain(q, k, v, window=100))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("S,T", [(1, 1000), (65, 63), (129, 127), (300, 77),
+                                 (1000, 129)])
+def test_bf16_tensor_cores_non_causal_ragged_keys(cuda, hd, S, T):
+    q, k, v = _qkv_served(S + T + hd, 1, S, T, 4, 2, hd, cuda)
+    _assert_bf16_limits(flash_attention_cuda(q, k, v, causal=False),
+                        attention_plain(q, k, v, causal=False))
+
+
+def test_bf16_causal_does_not_depend_on_tile_order(cuda):
+    # the grid runs q tiles heaviest first; a launch over one (b, KV group)
+    # at a time schedules the same tiles in another order and on other
+    # blocks, and must give the same bits
+    q, k, v = _qkv_served(11, 2, 1000, 1000, 8, 2, 80, cuda)
+    full = flash_attention_cuda(q, k, v, window=300)
+    for b in range(2):
+        for g in range(2):
+            part = flash_attention_cuda(
+                q[b:b + 1, :, 4 * g:4 * g + 4].contiguous(),
+                k[b:b + 1, :, g:g + 1].contiguous(),
+                v[b:b + 1, :, g:g + 1].contiguous(), window=300)
+            assert torch.equal(part, full[b:b + 1, :, 4 * g:4 * g + 4])
+    assert torch.equal(flash_attention_cuda(q, k, v, window=300), full)
+    _assert_bf16_limits(full, attention_plain(q, k, v, window=300))
 
 
 def test_lm_on_cuda_matches_cpu(cuda):

@@ -21,7 +21,8 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.layers import flash_attention as jax_model_flash
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                    attention_plain)
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -151,3 +152,71 @@ def test_op_refuses_what_no_version_takes():
                             torch.zeros((1, 0, 3, 64)))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         flash_attention_cuda(q, q, q)
+
+
+
+def _attention_tc_numerics(q, k, v, *, window, split_edges=True):
+    """``attention_plain`` with the bf16 tensor-core kernel's rounding: P
+    = exp(s - row max) rounded to bf16 before P . V, the row sum taken
+    from the float32 P, and -- with ``split_edges`` -- P kept as bf16(p) +
+    bf16(p - bf16(p)) on the key tiles the kernel masks (64 keys a tile,
+    32 at hd 256, 64 query rows).  The kernel's running max scales P by
+    other factors; the relative rounding is the same."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    keys = 32 if hd == 256 else 64
+    mask = attention_mask(S, T, causal=True, window=window)
+    q0 = (torch.arange(S)[:, None] // 64) * 64
+    k0 = (torch.arange(T)[None, :] // keys) * keys
+    edge = (k0 + keys > T) | (k0 + keys - 1 > q0) | (q0 + 63 - k0 >= window)
+    out = torch.empty_like(q)
+    for b in range(B):
+        qb = q[b].float().transpose(0, 1)
+        kb = k[b].float().repeat_interleave(Hq // Hkv, dim=1).transpose(0, 1)
+        vb = v[b].float().repeat_interleave(Hq // Hkv, dim=1).transpose(0, 1)
+        s = torch.matmul(qb, kb.transpose(1, 2)) / hd ** 0.5
+        s = torch.where(mask, s, -torch.inf)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        hi = p.bfloat16().float()
+        if split_edges:
+            hi = torch.where(edge, hi + (p - hi).bfloat16().float(), hi)
+        o = torch.matmul(hi, vb) / p.sum(-1, keepdim=True)
+        out[b] = o.transpose(0, 1).to(q.dtype)
+    return out
+
+
+def _bf16_inputs(S, Hq, hd, v_std):
+    rng = np.random.default_rng(6)
+    return (torch.as_tensor(rng.normal(size=shape) * std,
+                            dtype=torch.float32).bfloat16()
+            for shape, std in (((1, S, Hq, hd), 0.5), ((1, S, 2, hd), 0.5),
+                               ((1, S, 2, hd), v_std)))
+
+
+@pytest.mark.parametrize("S,Hq,hd,window,v_std", [
+    (2048, 8, 80, 700, 0.5),    # the GPU tests' long-window case
+    (1000, 4, 256, 129, 0.1),   # the GPU sweep's served-scale inputs
+])
+def test_tensor_core_numerics_fit_the_kernel_limits(S, Hq, hd, window,
+                                                    v_std):
+    """The bf16 kernel's numerics stay within the limits the card holds it
+    to -- max |err| <= 4e-3, rms(err) / rms(ref) <= 1e-2 -- of the plain
+    version, which keeps P in float32."""
+    q, k, v = _bf16_inputs(S, Hq, hd, v_std)
+    ref = attention_plain(q, k, v, window=window).float()
+    diff = _attention_tc_numerics(q, k, v, window=window).float() - ref
+    assert float(diff.abs().max()) <= 4e-3
+    assert float(diff.norm() / ref.norm()) <= 1e-2
+    assert float(diff.abs().max()) > 0       # P's rounding does show
+
+
+def test_bf16_p_alone_breaks_the_limit_on_few_key_rows():
+    """Why the kernel splits P on its edge tiles: rounded once to bf16, P
+    moves the outputs of the first rows (two or three keys, |out| about 1,
+    where a bf16 step is 7.8e-3) across a rounding boundary."""
+    q, k, v = _bf16_inputs(2048, 8, 80, 0.5)
+    ref = attention_plain(q, k, v, window=700).float()
+    diff = (_attention_tc_numerics(q, k, v, window=700, split_edges=False)
+            .float() - ref).abs()
+    assert float(diff[:, :8].max()) > 4e-3
+    assert float(diff[:, 64:].max()) <= 4e-3

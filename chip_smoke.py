@@ -6,35 +6,47 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build: K1 (``src/repro_torch/csrc/embedding_bag.cu``) with nvcc for
-   sm_90a into ``build/kernels/``, timed on its own;
-3. K1 against its plain PyTorch version on the card: the reference's test
-   sweep (rows x dim x pool x {f32, bf16}), the all-padding case, and
-   arenas of more than 2^31 elements (64-bit row offsets);
+2. build: K1 (``src/repro_torch/csrc/embedding_bag.cu``, its forward and
+   its backward) and K2 (``src/repro_torch/csrc/flash_attention.cu``) with
+   nvcc for sm_90a into ``build/kernels/``, one nvcc per source, started
+   together; ptxas must report no spill in any bf16 (tensor-core) K2
+   instance;
+3. K1's forward against its plain PyTorch version on the card, bit for
+   bit: the reference's test sweep (rows x dim x pool x {f32, bf16}),
+   padding at arbitrary positions with a zero, a signed-zero and a non-zero
+   row 0 at P in {1, 31, 32, 33, 199}, the all-padding case, and arenas of
+   more than 2^31 elements (64-bit row offsets);
+3b. K1's backward against its plain version (the ``index_add_`` loop): bit
+   for bit on integer-valued gradients, and on normal ones within twice the
+   plain version's own error against a float64 ``index_add_`` plus 1e-6;
+   bit for bit against the plain replay of its own order; two launches
+   bit-equal; runs longer than the chunk, all-padding bags, bf16
+   ``grad_out`` and a gradient of more than 2^31 elements;
 4. the main path: place the paper's DLRM-50 (4) test tasks with an
    untrained DreamShard agent (seed 0, 16 candidates) through
    ``as_placer().place_many`` on ``cuda``, run the baseline placers, then
    measure DreamShard's and the experts' placements of two tasks with
    ``measure_placement`` (batch 65536, each table's own pooling, rows
-   capped at 2^20) -- one K1 launch per device and repeat;
-5. the yardstick: K1, its plain version and ``F.embedding_bag`` timed at
-   the largest main-path device shape, beside the memory bound;
-6. build: K2 (``src/repro_torch/csrc/flash_attention.cu``), timed on its
-   own; ptxas must report no spill in any bf16 (tensor-core) instance;
-7. K2 against its plain PyTorch version on the card -- bf16 through the
+   capped at 2^20) -- one K1 forward and one K1 backward per device and
+   repeat;
+5. the yardstick: K1's forward, its plain version and ``F.embedding_bag``,
+   then K1's backward, its plain version and the backward of
+   ``F.embedding_bag``, timed at the largest main-path device shape, beside
+   the memory bound; it fails unless K1's forward beats ``F.embedding_bag``;
+6. K2 against its plain PyTorch version on the card -- bf16 through the
    tensor-core kernel, float32 through the CUDA-core one: S x hd x dtype x
    window x GQA group, non-causal attention over ragged key lengths, and
-   (after phase 8) layer 0's real q/k/v of the served model at 8192 tokens
+   (after phase 7) layer 0's real q/k/v of the served model at 8192 tokens
    and window 4096, in bf16 and in float32, each held to a limit below a
    typical output;
-8. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
+7. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
    seeded weights) through ``repro_torch.launch.serve.serve``: 2 prompts
    of 8192 tokens, one warm-up prefill, a timed prefill and 31 greedy
    decode steps -- 24 K2 launches per prefill -- then a torch.profiler
    window over one prefill and over 4 decode steps;
-9. the same path at full width with 2 layers in float32, on the card (K2)
+8. the same path at full width with 2 layers in float32, on the card (K2)
    and on the CPU (plain): logits and greedy tokens must agree;
-10. the yardstick: K2 (bf16, tensor cores), its plain version and
+9. the yardstick: K2 (bf16, tensor cores), its plain version and
    ``F.scaled_dot_product_attention`` timed at the main-path layer shape,
    beside the operations bound; K2's float32 (CUDA-core) kernel is timed
    on the same values on a line of its own.
@@ -55,6 +67,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -140,36 +153,85 @@ def ptxas_functions(build_log: str) -> list:
     return out
 
 
-def phase_build(library, no_spill: str | None = None) -> float:
-    """Build one library; with ``no_spill``, fail if ptxas reports a
-    spill in a function whose name holds it."""
-    t0 = time.perf_counter()
-    path = library.build()
-    secs = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(path, ROOT)} in {secs:.2f} s")
+def kernel_label(mangled: str) -> str:
+    """A kernel instance's name with its template arguments, e.g.
+    ``flash_fwd_tc_kernel<80>`` or ``segment_sum_kernel<F32, 1>``."""
+    m = re.search(r"\d([a-z][a-z_]*_kernel)I(.*?)EE", mangled)
+    if m is None:
+        return mangled[:72]
+    args = re.findall(r"Li(\d+)|(F32|Bf16)Chunk|Lb([01])", m[2])
+    return f"{m[1]}<{', '.join(''.join(a) for a in args)}>"
+
+
+def _report_build(library, secs: float, no_spill: str | None) -> None:
+    """Print a built library's ptxas lines; with ``no_spill``, fail if
+    ptxas reports a spill in a function whose name holds it."""
+    log(f"[build] {os.path.relpath(library.path(), ROOT)} in {secs:.2f} s")
     funcs = ptxas_functions(library.build_log)
     for name, spill, regs in funcs:
-        short = re.search(r"(flash_fwd_\w*?kernel)ILi(\d+)E", name)
-        log(f"[build] {f'{short[1]}<{short[2]}>' if short else name[:72]}: "
-            f"{spill}; {regs}")
+        log(f"[build] {kernel_label(name)}: {spill}; {regs}")
     if no_spill is not None:
         mine = [f for f in funcs if no_spill in f[0]]
         check(bool(mine), f"ptxas reported no {no_spill} instance")
         for name, spill, _ in mine:
             check("0 bytes spill stores, 0 bytes spill loads" in spill,
                   f"{name} spills: {spill}")
+
+
+def phase_build(builds) -> dict:
+    """Build the libraries together, one nvcc each; ``builds`` maps a
+    name to ``(library, no_spill)``.  Returns each build's seconds."""
+
+    def timed(library):
+        t0 = time.perf_counter()
+        library.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(timed, lib)
+                   for name, (lib, _) in builds.items()}
+        secs = {name: f.result() for name, f in futures.items()}
+    for name, (lib, no_spill) in builds.items():
+        _report_build(lib, secs[name], no_spill)
     return secs
 
 
-def phase_kernel_checks(torch, np, K, plain) -> float:
-    """K1 against the plain version on the card; returns the max error."""
-    worst = 0.0
+def bits_equal(torch, out, ref) -> bool:
+    """Same shape and the same bits (+0 and -0 differ here)."""
+    return out.shape == ref.shape and torch.equal(
+        out.contiguous().view(torch.int32), ref.contiguous().view(torch.int32))
+
+
+def _row0(torch, arena, kind: str) -> None:
+    """Row 0 as a case needs it: random (left as drawn), +0, -0, or +0
+    and -0 mixed."""
+    if kind == "+0":
+        arena[0] = 0.0
+    elif kind == "-0":
+        arena[0] = -0.0
+    elif kind == "mixed":
+        arena[0] = 0.0
+        arena[0, ::3] = -0.0
+
+
+def phase_kernel_checks(torch, np, K, plain) -> int:
+    """K1's forward against the plain version on the card, bit for bit;
+    returns the number of cases."""
     cases = 0
+
+    def exact(arena, idx, what):
+        nonlocal cases
+        out = K.embedding_bag_cuda(arena, idx)
+        ref = plain(arena, idx)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, out, ref), f"K1 != plain bit for bit: {what}"
+              f", max |err| {float((out - ref).abs().max()):.3g}")
+        cases += 1
+
     for rows in (8, 100, 1000):
         for dim in (128, 256):
             for pool in (1, 4, 16):
-                for dtype, tol in ((torch.float32, 1e-5),
-                                   (torch.bfloat16, 3e-2)):
+                for dtype in (torch.float32, torch.bfloat16):
                     rng = np.random.default_rng(rows * dim + pool)
                     arena = torch.as_tensor(
                         rng.normal(size=(rows, dim)), dtype=torch.float32,
@@ -177,11 +239,26 @@ def phase_kernel_checks(torch, np, K, plain) -> float:
                     idx = torch.as_tensor(
                         rng.integers(0, rows, (12, pool)), dtype=torch.int32,
                         device="cuda")
-                    out = K.embedding_bag_cuda(arena, idx)
-                    ref = plain(arena, idx)
-                    torch.cuda.synchronize()
-                    worst = max(worst, allclose_err(out, ref, tol))
-                    cases += 1
+                    exact(arena, idx, f"sweep {rows} {dim} {pool} {dtype}")
+    # padding (index 0) at arbitrary positions, over a row 0 of each kind;
+    # the first bags are all padding, padded in front, and padded behind
+    for pool in (1, 31, 32, 33, 199):
+        for dim in (128, 384):
+            for dtype in (torch.float32, torch.bfloat16):
+                for kind in ("random", "+0", "-0", "mixed"):
+                    rng = np.random.default_rng(7 * pool + dim)
+                    arena = torch.as_tensor(
+                        rng.normal(size=(500, dim)), dtype=torch.float32,
+                        device="cuda").to(dtype)
+                    _row0(torch, arena, kind)
+                    idx = rng.integers(1, 500, (300, pool))
+                    idx[rng.random(idx.shape) < 0.7] = 0
+                    idx[0] = 0
+                    idx[1, :pool // 2] = 0
+                    idx[2, pool // 2:] = 0
+                    exact(arena, torch.as_tensor(idx, dtype=torch.int32,
+                                                 device="cuda"),
+                          f"padding P={pool} D={dim} {dtype} row 0 {kind}")
     arena = torch.randn((50, 128), device="cuda")
     arena[0] = 0.0
     out = K.embedding_bag_cuda(arena, torch.zeros((4, 8), dtype=torch.int32,
@@ -192,23 +269,110 @@ def phase_kernel_checks(torch, np, K, plain) -> float:
     # arenas past 2^31 elements: row * D overflows 32 bits there
     n_rows = 2 ** 24 + 2 ** 20
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         arena = torch.randn((n_rows, 128), generator=gen, device="cuda",
                             dtype=torch.float32).to(dtype)
         arena[0] = 0
         idx = torch.randint(n_rows - 2 ** 21, n_rows, (8192, 8),
                             generator=gen, device="cuda", dtype=torch.int32)
         idx[:, -1] = 0
-        out = K.embedding_bag_cuda(arena, idx)
-        ref = plain(arena, idx)
-        torch.cuda.synchronize()
-        worst = max(worst, allclose_err(out, ref, tol))
+        exact(arena, idx, f"{dtype} arena of {arena.numel()} elements")
         log(f"[kernel] {dtype} arena of {arena.numel()} elements "
             f"({arena.numel() * arena.element_size() / 2**30:.2f} GiB): ok")
-        cases += 1
-        del arena, idx, out, ref
+        del arena, idx
     torch.cuda.empty_cache()
-    log(f"[kernel] K1 == plain on {cases} cases, max |err| {worst:.3g}")
+    log(f"[kernel] K1 == plain bit for bit on {cases} cases")
+    return cases
+
+
+def grad_f64(torch, arena_shape, idx, grad_out):
+    """The arena's gradient by a float64 ``index_add_``: the reference
+    both the kernel and the plain version are held to."""
+    g = torch.zeros(tuple(arena_shape), dtype=torch.float64,
+                    device=grad_out.device)
+    src = grad_out.double()
+    for j in range(idx.shape[1]):
+        g.index_add_(0, idx[:, j], src)
+    g[0] = 0.0
+    return g
+
+
+def grad_errs(torch, out, plain_out, ref64) -> tuple:
+    """(kernel's, plain's) max |err| against float64; raises unless the
+    kernel's is at most twice the plain version's plus 1e-6."""
+    err = float(out.double().sub_(ref64).abs_().max())
+    plain_err = float(plain_out.double().sub_(ref64).abs_().max())
+    check(err <= 2 * plain_err + 1e-6, f"K1 backward max |err| {err:.3g} "
+          f"against float64 over 2 x plain's {plain_err:.3g} + 1e-6")
+    return err, plain_err
+
+
+def phase_grad_checks(torch, np, K, grad_plain, replay) -> dict:
+    """K1's backward against the plain version (and float64) on the card;
+    returns the worst errors."""
+    worst = {"max_abs_err_vs_plain": 0.0, "err_vs_f64": 0.0,
+             "plain_err_vs_f64": 0.0, "cases": 0}
+    # (rows, dim, bags, pool, hot share, padding share): a hot row makes a
+    # run longer than the chunk, or past chunk^2 (chunks of sqrt(L) slots)
+    for R, D, N, P, hot, pad in ((1000, 128, 512, 8, 0.0, 0.3),
+                                 (1000, 384, 4096, 33, 0.5, 0.5),
+                                 (300, 128, 20000, 40, 0.9, 0.2),
+                                 (70000, 128, 2048, 199, 0.3, 0.9)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(R + N + P)
+            idx = rng.integers(1, R, (N, P))
+            idx[rng.random(idx.shape) < hot] = 1 + rng.integers(0, 3)
+            idx[rng.random(idx.shape) < pad] = 0
+            idx[:3] = 0                            # all-padding bags
+            idx = torch.as_tensor(idx, dtype=torch.int32, device="cuda")
+            shape = (R, D)
+            for integer in (True, False):
+                g = (torch.as_tensor(rng.integers(-2, 3, (N, shape[1])))
+                     if integer else torch.as_tensor(
+                         rng.normal(size=(N, shape[1]))))
+                g = g.to(device="cuda", dtype=torch.float32).to(dtype)
+                out = K.embedding_bag_grad_cuda(shape, idx, g)
+                again = K.embedding_bag_grad_cuda(shape, idx, g)
+                ref = grad_plain(shape, idx, g)
+                again_plain = replay(shape, idx, g)
+                torch.cuda.synchronize()
+                what = f"R={R} N={N} P={P} {dtype} integer={integer}"
+                check(bits_equal(torch, out, again),
+                      f"two backward launches differ: {what}")
+                check(bits_equal(torch, out, again_plain),
+                      f"backward != its plain replay: {what}")
+                check(not bool(out[0].any()), f"row 0 not zero: {what}")
+                if integer:
+                    check(bits_equal(torch, out, ref),
+                          f"backward != plain on integers: {what}")
+                else:
+                    err, plain_err = grad_errs(
+                        torch, out, ref, grad_f64(torch, shape, idx, g))
+                    worst["err_vs_f64"] = max(worst["err_vs_f64"], err)
+                    worst["plain_err_vs_f64"] = max(
+                        worst["plain_err_vs_f64"], plain_err)
+                worst["max_abs_err_vs_plain"] = max(
+                    worst["max_abs_err_vs_plain"],
+                    float((out - ref).abs().max()))
+                worst["cases"] += 1
+    # a gradient past 2^31 elements: row * D overflows 32 bits there
+    n_rows = 2 ** 24 + 2 ** 20
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.randint(n_rows - 2 ** 21, n_rows, (8192, 8), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    idx[:, -1] = 0
+    g = torch.randint(-2, 3, (8192, 128), generator=gen, device="cuda").float()
+    out = K.embedding_bag_grad_cuda((n_rows, 128), idx, g)
+    check(bits_equal(torch, out, grad_plain((n_rows, 128), idx, g)),
+          "backward != plain on a gradient past 2^31 elements")
+    worst["cases"] += 1
+    del out
+    torch.cuda.empty_cache()
+    log(f"[kernel] K1 backward on {worst['cases']} cases: bit-equal to its "
+        "plain replay and across launches, to plain on integer gradients; "
+        f"max |err| against float64 {worst['err_vs_f64']:.3g} (plain's "
+        f"{worst['plain_err_vs_f64']:.3g}), against plain "
+        f"{worst['max_abs_err_vs_plain']:.3g}")
     return worst
 
 
@@ -315,15 +479,23 @@ def phase_main_path(torch, np, K, counters, summary: dict):
             shapes += [task.raw_features[a == d]
                        for d in range(task.n_devices) if counts[d]]
     launches = K.embedding_bag_cuda.launches
+    bwd_launches = K.embedding_bag_grad_cuda.launches
     tele.disable()
     summary["measured"] = measured
     check(launches > 0, "the main path launched K1 no time")
-    log(f"[main] K1 launches on the main path: {launches}")
-    return launches, shapes
+    check(bwd_launches > 0, "the main path launched K1's backward no time")
+    slowest = [max(m["bwd_ms"]) for m in measured]
+    summary["slowest_device_bwd_ms"] = slowest
+    log(f"[main] slowest device's bwd ms per measured placement: "
+        f"{min(slowest):.3f} to {max(slowest):.3f}")
+    log(f"[main] K1 launches on the main path: {launches} forward, "
+        f"{bwd_launches} backward")
+    return launches, bwd_launches, shapes
 
 
-def phase_yardstick(torch, np, K, plain, shapes, summary: dict) -> dict:
-    """K1, plain and F.embedding_bag at the largest main-path device."""
+def phase_yardstick(torch, np, K, plain, shapes, summary: dict) -> tuple:
+    """K1's forward, plain and F.embedding_bag at the largest main-path
+    device; returns the kernel's row and the inputs, for the backward."""
     from repro_torch.core import features as FEAT
     from repro_torch.profiling.microbench import (device_tables,
                                                   make_fused_inputs,
@@ -342,7 +514,8 @@ def phase_yardstick(torch, np, K, plain, shapes, summary: dict) -> dict:
         out = K.embedding_bag_cuda(arena, idx)
         ref = plain(arena, idx)
         torch.cuda.synchronize()
-        err = allclose_err(out, ref, 1e-5)
+        check(bits_equal(torch, out, ref), "K1 != plain at the yardstick")
+        err = float((out - ref).abs().max())
         del out, ref
         ms = median_time_ms(K.embedding_bag_cuda, (arena, idx), warmup=2,
                             repeats=10)
@@ -357,6 +530,7 @@ def phase_yardstick(torch, np, K, plain, shapes, summary: dict) -> dict:
         seen[idx.reshape(-1).long()] = True
         distinct = int(seen.sum())
         slots = int((idx != 0).sum())
+        del seen
     nbytes = (distinct * dim * arena.element_size() + idx.numel() * 4
               + n * dim * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -372,12 +546,101 @@ def phase_yardstick(torch, np, K, plain, shapes, summary: dict) -> dict:
         "tables": int(len(sub)), "arena_rows": int(arena.shape[0]),
         "bags": int(n), "pool": int(p), "dim": int(dim),
         "distinct_rows": distinct, "nonpadding_slots": slots,
-        "bytes": int(nbytes), "bytes_ms": bytes_ms, "ops_ms": ops_ms, **row}
+        "bytes": int(nbytes), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_share": row["bound_ms"] / ms, **row}
     log(f"[yardstick] {len(sub)} tables, arena {arena.shape[0]} x {dim} f32, "
-        f"idx {n} x {p}, {distinct} distinct rows: K1 {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, F.embedding_bag {library_ms:.3f} ms, bound "
-        f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
-    del arena, idx, seen
+        f"idx {n} x {p}, {distinct} distinct rows, {slots} non-padding "
+        f"slots: K1 {ms:.3f} ms ({row['bound_ms'] / ms:.1%} of the bound), "
+        f"plain {plain_ms:.3f} ms, F.embedding_bag {library_ms:.3f} ms, "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); bit-equal to "
+        "plain")
+    check(ms < library_ms, f"K1 {ms:.3f} ms is not faster than "
+          f"F.embedding_bag {library_ms:.3f} ms")
+    return row, (arena, idx, slots)
+
+
+def phase_grad_yardstick(torch, K, grad_plain, inputs,
+                         summary: dict) -> dict:
+    """K1's backward, plain and F.embedding_bag's backward on the forward's
+    yardstick inputs, beside the memory bound."""
+    from repro_torch.profiling.microbench import median_time_ms
+    arena, idx, slots = inputs
+    shape = tuple(arena.shape)
+    n, dim = idx.shape[0], shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn((n, dim), generator=gen, device="cuda")
+    ones = torch.randint(-1, 2, (n, dim), generator=gen,
+                         device="cuda").float()
+    with torch.no_grad():
+        # integer-valued: every sum is exact, so the kernel equals plain
+        out = K.embedding_bag_grad_cuda(shape, idx, ones)
+        check(bits_equal(torch, out, grad_plain(shape, idx, ones)),
+              "K1 backward != plain on integers at the yardstick")
+        out = K.embedding_bag_grad_cuda(shape, idx, g)
+        check(bits_equal(torch, out, K.embedding_bag_grad_cuda(shape, idx,
+                                                               g)),
+              "two K1 backward launches differ at the yardstick")
+        ref = grad_plain(shape, idx, g)
+        err_vs_plain = float((out - ref).abs().max())
+        err, plain_err = grad_errs(torch, out, ref,
+                                   grad_f64(torch, shape, idx, g))
+        del out
+        torch.cuda.empty_cache()
+        ms = median_time_ms(K.embedding_bag_grad_cuda, (shape, idx, g),
+                            warmup=2, repeats=10)
+        # its parts: the dense zeros, the plan; the two passes are the rest
+        zeros_ms = median_time_ms(
+            lambda t: torch.zeros(shape, dtype=torch.float32,
+                                  device=t.device), (g,), warmup=2,
+            repeats=10)
+        plan_ms = median_time_ms(lambda i: K.backward_plan(i, K.CHUNK),
+                                 (idx,), warmup=2, repeats=10)
+        plain_ms = median_time_ms(grad_plain, (shape, idx, g), warmup=1,
+                                  repeats=3)
+    weight = arena.requires_grad_()
+    lib_out = torch.nn.functional.embedding_bag(idx, weight, mode="sum",
+                                                padding_idx=0)
+
+    def lib_grad(grad):
+        return torch.autograd.grad(lib_out, weight, grad,
+                                   retain_graph=True)[0]
+    lib_err = float((lib_grad(g) - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(lib_err <= 1e-3 * scale, f"F.embedding_bag's backward differs "
+          f"from plain by {lib_err:.3g} (max |ref| {scale:.3g})")
+    del ref
+    torch.cuda.empty_cache()
+    library_ms = median_time_ms(lib_grad, (g,), warmup=1, repeats=3)
+    del lib_out, weight, arena
+    nbytes = (shape[0] * dim * 4 + idx.numel() * 4
+              + g.numel() * g.element_size())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = slots * dim / F32_FLOP_PER_S * 1e3
+    row = {"name": "embedding_bag_grad", "route": "cuda",
+           "source": "src/repro_torch/csrc/embedding_bag.cu",
+           "replaces": "src/repro/kernels/embedding_bag/ref.py:15",
+           "max_abs_err": err_vs_plain, "max_abs_err_vs_f64": err,
+           "plain_max_abs_err_vs_f64": plain_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms}
+    summary["grad_yardstick"] = {
+        "bytes": int(nbytes), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_share": row["bound_ms"] / ms, "zeros_ms": zeros_ms,
+        "plan_ms": plan_ms, "library_err_vs_plain": lib_err, **row}
+    log(f"[yardstick] K1 backward, grad ({n}, {dim}) f32 into ({shape[0]}, "
+        f"{dim}): {ms:.3f} ms (plan included; {row['bound_ms'] / ms:.1%} of "
+        f"the bound), plain {plain_ms:.3f} ms, F.embedding_bag backward "
+        f"{library_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    log(f"[yardstick] K1 backward's parts: torch.zeros {zeros_ms:.3f} ms, "
+        f"plan {plan_ms:.3f} ms, the two passes the rest "
+        f"({ms - zeros_ms - plan_ms:.3f} ms)")
+    log(f"[yardstick] K1 backward max |err| against float64 {err:.3g} "
+        f"(plain's {plain_err:.3g}; limit 2 x plain's + 1e-6), against plain "
+        f"{err_vs_plain:.3g}; bit-equal to plain on integers and across "
+        "launches")
+    del idx, g, ones
     torch.cuda.empty_cache()
     return row
 
@@ -522,7 +785,7 @@ def _leaves(tree):
 
 def phase_profile(torch, res, summary: dict) -> dict:
     """Where the LM path's time goes: torch.profiler over one prefill and
-    over 4 decode steps of the served model (weights from phase 8).  The
+    over 4 decode steps of the served model (weights from phase 7).  The
     busy share is the kernels' summed device time over the window's wall
     time (one stream); the profiler slows the host, so the idle share it
     gives is an upper bound."""
@@ -718,45 +981,57 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.kernels.embedding_bag import kernel as K
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_plain
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_grad_plain, embedding_bag_grad_replay,
+        embedding_bag_plain)
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.flash_attention.ref import attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    counters = (K.embedding_bag_cuda, FA.flash_attention_cuda)
+    counters = (K.embedding_bag_cuda, K.embedding_bag_grad_cuda,
+                FA.flash_attention_cuda)
     phases: dict = {}
     summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "phase_s": phases}
     summary["nvidia_smi"] = run("1 device", phase_device, phases=phases)
-    summary["build_s"] = run("2 build K1", phase_build, K.LIBRARY,
-                             phases=phases)
-    summary["kernel_check_max_abs_err"] = run(
+    summary["build_s"] = run(
+        "2 build K1 and K2", phase_build,
+        {"K1": (K.LIBRARY, None),
+         "K2": (FA.LIBRARY, "flash_fwd_tc_kernel")}, phases=phases)
+    summary["kernel_check_cases"] = run(
         "3 K1 checks", phase_kernel_checks, torch, np, K,
         embedding_bag_plain, phases=phases)
-    k1_launches, shapes = run("4 DreamShard main path", phase_main_path,
-                              torch, np, K, counters, summary, phases=phases)
-    k1_row = run("5 K1 yardstick", phase_yardstick, torch, np, K,
-                 embedding_bag_plain, shapes, summary, phases=phases)
-    summary["k2_build_s"] = run("6 build K2", phase_build, FA.LIBRARY,
-                                "flash_fwd_tc_kernel", phases=phases)
+    summary["grad_check"] = run(
+        "3b K1 backward checks", phase_grad_checks, torch, np, K,
+        embedding_bag_grad_plain, embedding_bag_grad_replay, phases=phases)
+    k1_launches, bwd_launches, shapes = run(
+        "4 DreamShard main path", phase_main_path, torch, np, K, counters,
+        summary, phases=phases)
+    k1_row, inputs = run("5 K1 yardstick", phase_yardstick, torch, np, K,
+                         embedding_bag_plain, shapes, summary, phases=phases)
+    bwd_row = run("5b K1 backward yardstick", phase_grad_yardstick, torch, K,
+                  embedding_bag_grad_plain, inputs, summary, phases=phases)
+    del inputs
+    torch.cuda.empty_cache()
     summary["k2_check_max_abs_err"] = run(
-        "7 K2 checks", phase_k2_checks, torch, np, FA, attention_plain,
+        "6 K2 checks", phase_k2_checks, torch, np, FA, attention_plain,
         phases=phases)
-    res, k2_launches = run("8 LM serve path", phase_serve, torch, counters,
+    res, k2_launches = run("7 LM serve path", phase_serve, torch, counters,
                            FA, summary, phases=phases)
     summary["k2_layer0_max_abs_err"] = run(
-        "7b K2 on layer 0", phase_k2_layer0, torch, FA, attention_plain, res,
+        "6b K2 on layer 0", phase_k2_layer0, torch, FA, attention_plain, res,
         summary, phases=phases)
-    run("8b LM profile", phase_profile, torch, res, summary, phases=phases)
+    run("7b LM profile", phase_profile, torch, res, summary, phases=phases)
     del res
     torch.cuda.empty_cache()
-    run("9 cuda vs cpu", phase_cross_device, torch, np, summary,
+    run("8 cuda vs cpu", phase_cross_device, torch, np, summary,
         phases=phases)
-    k2_row = run("10 K2 yardstick", phase_k2_yardstick, torch, FA,
+    k2_row = run("9 K2 yardstick", phase_k2_yardstick, torch, FA,
                  attention_plain, summary, phases=phases)
     rows = [{**k1_row, "launches": k1_launches},
+            {**bwd_row, "launches": bwd_launches},
             {**k2_row, "launches": k2_launches}]
     summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_start

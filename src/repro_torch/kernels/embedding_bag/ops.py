@@ -4,10 +4,11 @@ The counterpart of ``repro/kernels/embedding_bag/ops.py``.
 ``fused_embedding_lookup`` packs per-table indices against a zero-row
 arena (``build_arena``: tables stacked, feature dim padded to 128) and
 runs ONE fused lookup for every (table, sample) bag.  ``embedding_bag``
-is a ``torch.autograd.Function``: its forward launches the CUDA kernel
-for CUDA tensors and the plain version for CPU tensors; its backward is
-the plain row-wise ``index_add_`` gradient, as the JAX op's backward is
-plain jnp outside any Pallas kernel.
+is a ``torch.autograd.Function`` whose forward and backward each launch
+their CUDA kernel for CUDA tensors and run the plain version for CPU
+tensors.  The backward computes what the JAX op's plain jnp backward
+computes (``embedding_bag_grad_ref``): the row-wise scatter-add with row
+0's gradient zeroed; its plain version is the ``index_add_`` loop.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_cuda,
+                                                     embedding_bag_grad_cuda)
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grad_plain,
                                                    embedding_bag_plain)
 
@@ -63,14 +65,23 @@ class _EmbeddingBag(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         (indices,) = ctx.saved_tensors
-        return embedding_bag_grad_plain(ctx.arena_shape, indices,
-                                        grad_out), None
+        return embedding_bag_grad(ctx.arena_shape, indices, grad_out), None
 
 
 def embedding_bag(arena: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """arena: (R, D128); indices: (N, P) int32 arena rows -> pooled sums
     (N, D128) float32."""
     return _EmbeddingBag.apply(arena, indices)
+
+
+def embedding_bag_grad(arena_shape, indices: torch.Tensor,
+                       grad_out: torch.Tensor) -> torch.Tensor:
+    """The arena's gradient (R, D) float32 with row 0 zero: the backward
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if grad_out.is_cuda:
+        return embedding_bag_grad_cuda(arena_shape, indices,
+                                       grad_out.contiguous())
+    return embedding_bag_grad_plain(arena_shape, indices, grad_out)
 
 
 def fused_embedding_lookup(arena, base_rows, indices):

@@ -1,12 +1,13 @@
 """Kernel micro-benchmark harness for the fused embedding bag (K1).
 
 The counterpart of ``repro/profiling/microbench.py``: times the fused
-forward (``ops.embedding_bag``: the CUDA kernel on CUDA tensors) and the
-plain ``index_add_`` backward at one ``(dim, rows, batch, pooling)`` shape
-or one fused multi-table shape, and ``measure_placement`` times a whole
-placement, one fused launch per device.  Inputs are drawn with the same
-numpy streams as the reference, so the indices are bitwise the JAX
-harness's.
+forward (``ops.embedding_bag``) and its backward
+(``ops.embedding_bag_grad``), each the CUDA kernel on CUDA tensors and
+the plain version on CPU tensors, at one ``(dim, rows, batch, pooling)``
+shape or one fused multi-table shape, and ``measure_placement`` times a
+whole placement, one fused forward and backward per device.  Inputs are
+drawn with the same numpy streams as the reference, so the indices are
+bitwise the JAX harness's.
 
 Times come from CUDA events on CUDA tensors (after warmup, median of
 repeats) and from the host clock on CPU tensors; a CPU time is a CPU
@@ -24,8 +25,8 @@ import torch
 
 from repro_torch.core import features as F
 from repro_torch.device import resolve_device
-from repro_torch.kernels.embedding_bag.ops import embedding_bag, pad_dim
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_grad_plain
+from repro_torch.kernels.embedding_bag.ops import (embedding_bag,
+                                                  embedding_bag_grad, pad_dim)
 from repro_torch.sim.costsim import CostSimulator, SimResult, placement_digest
 from repro_torch.sim.hardware import HardwareSpec, PAPER_GPU
 
@@ -94,8 +95,7 @@ def _time_fwd_bwd(arena, idx, g, *, warmup: int, repeats: int):
     with torch.no_grad():
         fwd_ms = median_time_ms(embedding_bag, (arena, idx),
                                 warmup=warmup, repeats=repeats)
-        bwd_ms = median_time_ms(embedding_bag_grad_plain,
-                                (arena.shape, idx, g),
+        bwd_ms = median_time_ms(embedding_bag_grad, (arena.shape, idx, g),
                                 warmup=warmup, repeats=repeats)
     return fwd_ms, bwd_ms
 
@@ -201,12 +201,12 @@ def measure_placement(raw: np.ndarray, assignment: np.ndarray,
     """LIVE per-placement measurement.
 
     Builds each device's arena (rows capped at ``max_rows``), synthesizes
-    zipf-ish lookups, and times one fused forward (K1 on a CUDA device)
-    and the backward for every device group, on the one device given.
-    Communication reuses the simulator's analytic model.  ``pooling=None``
-    takes each table's own pooling factor from ``raw`` (blocks padded to
-    the device's widest pooling with the zero row); an int forces that
-    factor everywhere.  Empty devices cost 0.
+    zipf-ish lookups, and times one fused forward and its backward (K1's
+    kernels on a CUDA device) for every device group, on the one device
+    given.  Communication reuses the simulator's analytic model.
+    ``pooling=None`` takes each table's own pooling factor from ``raw``
+    (blocks padded to the device's widest pooling with the zero row); an
+    int forces that factor everywhere.  Empty devices cost 0.
     """
     dev = resolve_device(device)
     raw = np.asarray(raw, dtype=np.float64)

@@ -1,11 +1,19 @@
 """Port tests that need an NVIDIA GPU (marker ``gpu``; skipped elsewhere).
 
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
-that has only PyTorch: K1 and K2 against their plain versions on the card
-(K2 in bf16 on its tensor-core kernel, in float32 on its CUDA-core one),
-K1's autograd op, the wrappers' input checks and launch counts, the LM on
-the card against the LM on the CPU, and the default device of the entry
-points.
+that has only PyTorch: K1's forward and backward and K2 against their
+plain versions on the card (K2 in bf16 on its tensor-core kernel, in
+float32 on its CUDA-core one), K1's autograd op, the wrappers' input
+checks and launch counts, the LM on the card against the LM on the CPU,
+and the default device of the entry points.
+
+K1's forward adds in the plain version's order, so the two are held bit
+for bit.  Its backward adds in another order (by row, in chunks), so it is
+held bit for bit to the plain replay of that order
+(``ref.embedding_bag_grad_replay``) and to the plain ``index_add_`` on
+integer-valued gradients (every sum exact), and otherwise to a float64
+``index_add_``: its max |err| at most twice the plain float32 version's
+own plus 1e-6.
 """
 
 import numpy as np
@@ -13,8 +21,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.embedding_bag import ops
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_cuda,
+                                                     embedding_bag_grad_cuda)
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grad_plain,
+                                                   embedding_bag_grad_replay,
                                                    embedding_bag_plain)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -45,6 +55,152 @@ def test_kernel_matches_plain(cuda, dim, pool, dtype):
     # same float32 additions in the same order as the plain version
     torch.testing.assert_close(out, embedding_bag_plain(arena, idx),
                                rtol=0, atol=0)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _assert_bits_equal(out, ref):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert torch.equal(_bits(out), _bits(ref))      # +0 and -0 differ here
+
+
+@pytest.mark.parametrize("pool", [1, 31, 32, 33, 199])
+@pytest.mark.parametrize("dim", [128, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row0", ["random", "+0", "-0", "mixed"])
+def test_kernel_bit_equal_with_padding_anywhere(cuda, pool, dim, dtype, row0):
+    # padding slots (index 0) at arbitrary positions, over a non-zero, a
+    # zero, a negative-zero and a mixed-sign-zero row 0
+    rng = np.random.default_rng(pool * dim)
+    arena = torch.as_tensor(rng.normal(size=(400, dim)), dtype=torch.float32,
+                            device=cuda).to(dtype)
+    if row0 != "random":
+        arena[0] = -0.0 if row0 == "-0" else 0.0
+    if row0 == "mixed":
+        arena[0, ::3] = -0.0
+    idx = rng.integers(1, 400, (257, pool))
+    idx[rng.random(idx.shape) < 0.6] = 0
+    idx[0] = 0                                     # all padding
+    idx[1, :pool // 2] = 0                         # padded in front
+    idx[2, pool // 2:] = 0                         # padded behind
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    _assert_bits_equal(embedding_bag_cuda(arena, idx),
+                       embedding_bag_plain(arena, idx))
+
+
+def _grad_f64(shape, idx, grad_out):
+    g = torch.zeros(shape, dtype=torch.float64, device=grad_out.device)
+    for j in range(idx.shape[1]):
+        g.index_add_(0, idx[:, j], grad_out.double())
+    g[0] = 0.0
+    return g
+
+
+def _grad_inputs(seed, rows, bags, pool, hot, pad, dim, dtype, integer,
+                 device):
+    """Indices with one hot row taking a ``hot`` share of the slots (a
+    run longer than the chunk), a ``pad`` share of padding and three
+    all-padding bags, and a gradient (integer-valued or normal)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(1, rows, (bags, pool))
+    idx[rng.random(idx.shape) < hot] = 1 + rng.integers(0, rows - 1)
+    idx[rng.random(idx.shape) < pad] = 0
+    idx[:3] = 0
+    g = (rng.integers(-2, 3, (bags, dim)) if integer
+         else rng.normal(size=(bags, dim)))
+    return (torch.as_tensor(idx, dtype=torch.int32, device=device),
+            torch.as_tensor(g, dtype=torch.float32, device=device).to(dtype))
+
+
+GRAD_CASES = [  # rows, bags, pool, hot share, padding share, dim
+    (1000, 512, 8, 0.0, 0.3, 128),
+    (1000, 4096, 33, 0.5, 0.5, 384),
+    (300, 20000, 40, 0.9, 0.2, 128),               # a run past 64^2 slots
+    (70000, 2048, 199, 0.3, 0.9, 128),             # the main path's mix
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("integer", [True, False])
+def test_grad_kernel_matches_plain(cuda, case, dtype, integer):
+    rows, bags, pool, hot, pad, dim = case
+    idx, g = _grad_inputs(sum(case[:3]), rows, bags, pool, hot, pad, dim,
+                          dtype, integer, cuda)
+    out = embedding_bag_grad_cuda((rows, dim), idx, g)
+    ref = embedding_bag_grad_plain((rows, dim), idx, g)
+    assert out.dtype == torch.float32 and not out[0].any()
+    _assert_bits_equal(out, embedding_bag_grad_replay((rows, dim), idx, g))
+    if integer:
+        _assert_bits_equal(out, ref)
+    else:
+        ref64 = _grad_f64((rows, dim), idx, g)
+        err = float((out.double() - ref64).abs().max())
+        plain_err = float((ref.double() - ref64).abs().max())
+        assert err <= 2 * plain_err + 1e-6
+
+
+def test_grad_kernel_is_deterministic(cuda):
+    idx, g = _grad_inputs(9, 300, 20000, 40, 0.9, 0.2, 128, torch.float32,
+                          False, cuda)
+    first = embedding_bag_grad_cuda((300, 128), idx, g)
+    _assert_bits_equal(embedding_bag_grad_cuda((300, 128), idx, g), first)
+
+
+def test_grad_kernel_past_2_31_elements(cuda):
+    # row * D overflows 32 bits in the gradient's rows here
+    n_rows = 2 ** 24 + 2 ** 20
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    idx = torch.randint(n_rows - 2 ** 21, n_rows, (8192, 8), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    idx[:, -1] = 0
+    g = torch.randint(-2, 3, (8192, 128), generator=gen, device=cuda).float()
+    out = embedding_bag_grad_cuda((n_rows, 128), idx, g)
+    _assert_bits_equal(out, embedding_bag_grad_plain((n_rows, 128), idx, g))
+
+
+def test_grad_kernel_all_padding_launches_nothing(cuda):
+    n0 = embedding_bag_grad_cuda.launches
+    out = embedding_bag_grad_cuda((10, 128),
+                                  torch.zeros((4, 3), dtype=torch.int32,
+                                              device=cuda),
+                                  torch.ones((4, 128), device=cuda))
+    assert not out.any() and embedding_bag_grad_cuda.launches == n0
+
+
+def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    idx = torch.ones((4, 2), dtype=torch.int32, device=cuda)
+    g = torch.ones((4, 128), device=cuda)
+    with pytest.raises(TypeError):
+        embedding_bag_grad_cuda((10, 128), idx.long(), g)
+    with pytest.raises(TypeError):
+        embedding_bag_grad_cuda((10, 128), idx, g.half())
+    with pytest.raises(ValueError):
+        embedding_bag_grad_cuda((10, 64), idx, g[:, :64].contiguous())
+    with pytest.raises(ValueError):
+        embedding_bag_grad_cuda((10, 256), idx, g)
+    with pytest.raises(ValueError):
+        embedding_bag_grad_cuda((10, 128), idx, g.cpu())
+    with pytest.raises(ValueError):
+        embedding_bag_grad_cuda((10, 128), idx.t().contiguous().t(), g)
+
+
+def test_autograd_routes_to_both_kernels(cuda):
+    rng = np.random.default_rng(5)
+    arena = torch.as_tensor(rng.normal(size=(300, 128)), dtype=torch.float32,
+                            device=cuda).requires_grad_()
+    idx = torch.as_tensor(rng.integers(0, 300, (64, 9)), dtype=torch.int32,
+                          device=cuda)
+    fwd0, bwd0 = embedding_bag_cuda.launches, embedding_bag_grad_cuda.launches
+    (ops.embedding_bag(arena, idx) * 3).sum().backward()
+    assert embedding_bag_cuda.launches == fwd0 + 1
+    assert embedding_bag_grad_cuda.launches == bwd0 + 1
+    grad = torch.full((64, 128), 3.0, device=cuda)  # integer-valued: exact
+    _assert_bits_equal(arena.grad,
+                       embedding_bag_grad_plain(arena.shape, idx, grad))
 
 
 def test_autograd_on_cuda(cuda):

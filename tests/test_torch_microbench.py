@@ -76,6 +76,21 @@ def test_measure_placement_indices_follow_the_reference_stream(monkeypatch):
         np.testing.assert_array_equal(idx, ref)
 
 
+def test_measure_placement_times_the_ops_backward(monkeypatch):
+    """The backward timed is the op's (the kernel on a card), not the
+    plain ``index_add_`` loop."""
+    calls = []
+    op = mb.embedding_bag_grad
+    monkeypatch.setattr(mb, "embedding_bag_grad",
+                        lambda *a: calls.append(a[0]) or op(*a))
+    raw = make_dlrm_pool(seed=0)[:5]
+    a = np.array([0, 1, 0, 1, 1])
+    mb.measure_placement(raw, a, 2, batch_size=8, pooling=None, max_rows=50,
+                         repeats=2, device="cpu")
+    assert len(calls) == 2 * (1 + 2)               # devices x (warm-up + 2)
+    assert not hasattr(mb, "embedding_bag_grad_plain")
+
+
 def test_bench_shapes_on_cpu():
     pt = mb.bench_shape(16, 200, 8, 3, repeats=1, device="cpu")
     assert pt.dim == 128 and pt.fwd_ms > 0 and pt.bwd_ms > 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of DreamShard once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out summary.json]
+    python3 chip_smoke.py [--out summary.json] [--artifact calibration.npz]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -44,16 +44,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of 8192 tokens, one warm-up prefill, a timed prefill and 31 greedy
    decode steps -- 24 K2 launches per prefill -- then a torch.profiler
    window over one prefill and over 4 decode steps;
-8. the same path at full width with 2 layers in float32, on the card (K2)
+7c. the same path at full width with 2 layers in float32, on the card (K2)
    and on the CPU (plain): logits and greedy tokens must agree;
 9. the yardstick: K2 (bf16, tensor cores), its plain version and
    ``F.scaled_dot_product_attention`` timed at the main-path layer shape,
    beside the operations bound; K2's float32 (CUDA-core) kernel is timed
-   on the same values on a line of its own.
+   on the same values on a line of its own;
+8. (run last) Algorithm 1 on measured costs: ``KernelOracle(batch_size=
+   65536, max_rows=2^20)`` calibrates on the card (K1's forward and
+   backward over the kernel grid, the fused and the sharded sweeps; the
+   artifact saved, reloaded and held to price the same placements bit for
+   bit), then ``DreamShard`` trains on DLRM-50 (4) (16 training tasks, the
+   paper's budget: 10 iterations of 10 collects, 300 cost steps, 10 RL
+   steps of 10 episodes) against it; the trained agent, the untrained one
+   and random place the 20 test tasks, and the trained agent must cost
+   least by the card's ``MeasuredOracle``; two trained placements are
+   timed live with K1 (``measure_placement``) beside the oracle's
+   estimate; one cost stage of 50 fused steps from the same weights,
+   ring and slots must give the same losses on the card and on the CPU
+   within 1e-4 relative; and torch.profiler counts the device ops of a
+   cost step and of a REINFORCE step and their busy share.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
-``kernels`` list) and then, as its last line, ``{"ok": true, "device":
-{...}}``.  Without a CUDA device it exits 1 and prints no result.
+``kernels`` list; each kernel's launches summed over the paths it serves,
+each path's counted from zero) and then, as its last line, ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -81,6 +97,10 @@ ARCH = "h2o-danube-1.8b"
 SERVE_BATCH = 2                  # two prompts of two windows each
 SERVE_PROMPT = 8192
 SERVE_TOKENS = 32
+TRAIN_TASKS = 16                 # the table1_main quick regime
+CROSS_STEPS = 50
+PROFILE_COST_STEPS = 30          # phase 8's profile of the training stages
+PROFILE_RL_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -960,6 +980,289 @@ def phase_k2_yardstick(torch, FA, plain, summary: dict) -> dict:
     return row
 
 
+def _stage_seconds(tele) -> dict:
+    """Each iteration's wall seconds of the trainer's three stages, from
+    its ``train.*`` spans: ``{iteration: {stage: s}}``."""
+    out: dict = {}
+    for name, _ts, dur_us, *_rest, args in tele.get_tracer().snapshot_events():
+        if name.startswith("train."):
+            out.setdefault(args["iteration"], {})[name[6:]] = dur_us / 1e6
+    return out
+
+
+def train_and_place(oracle, measured, train, test, seed: int,
+                    device: str | None) -> dict:
+    """Train DreamShard (``seed``, the paper's budget) against ``oracle``
+    and place ``test`` with the trained agent, the untrained agent of the
+    same seed and random (16 decode candidates each), priced by
+    ``measured``.  Phase 8 runs it once on the card; ``tools/train_margin.py``
+    runs it for several seeds against a saved calibration artifact."""
+    import numpy as np
+    import torch
+    from repro_torch.api import RandomPlacer, measure_placements
+    from repro_torch.core.trainer import DreamShard, DreamShardConfig
+
+    agent = DreamShard(train, oracle, DreamShardConfig(seed=seed),
+                       device=device)
+    t0 = time.perf_counter()
+    history = agent.train()
+    if agent.device.type == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    untrained = DreamShard(train, oracle, DreamShardConfig(seed=seed),
+                           device=device)
+    placements = {
+        "trained": agent.as_placer(n_candidates=16).place_many(test),
+        "untrained": untrained.as_placer(n_candidates=16).place_many(test),
+        "random": RandomPlacer(measured, seed=0).place_many(test)}
+    costs = {k: measure_placements(measured, test, v)
+             for k, v in placements.items()}
+    mean = {k: float(np.mean(v)) for k, v in costs.items()}
+    margin = {k: mean[k] / mean["trained"] - 1 for k in ("untrained",
+                                                           "random")}
+    return {"agent": agent, "untrained": untrained, "history": history,
+            "train_s": train_s, "placements": placements, "costs": costs,
+            "mean": mean, "margin": margin}
+
+
+def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
+    """Algorithm 1 on measured costs: calibrate K1 on the card through
+    ``KernelOracle``, train DreamShard on DLRM-50 (4) against it, place the
+    test tasks with the trained agent, the untrained one and random, and
+    measure two trained placements live with K1."""
+    import tempfile
+    from repro_torch import telemetry as tele
+    from repro_torch.api import KernelOracle, MeasuredOracle
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import make_benchmark_suite
+    from repro_torch.profiling.calibration import CalibrationTable
+    from repro_torch.profiling.microbench import measure_placement
+
+    pool = make_dlrm_pool(seed=0)
+    train, _ = make_benchmark_suite(pool, n_tables=50, n_devices=4,
+                                    n_tasks=TRAIN_TASKS)
+    _, test = make_benchmark_suite(pool, n_tables=50, n_devices=4,
+                                   n_tasks=20)
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    tele.reset()
+    tele.enable()
+
+    # 1. calibrate K1's forward and backward on the card
+    oracle = KernelOracle(batch_size=BATCH, max_rows=MAX_ROWS, device="cuda")
+    t0 = time.perf_counter()
+    measured = oracle.measured()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    table = measured.table
+    calib = {"fwd": K.embedding_bag_cuda.launches,
+             "bwd": K.embedding_bag_grad_cuda.launches}
+    check(calib["fwd"] > 0 and calib["bwd"] > 0,
+          f"the calibration launched K1 {calib}")
+    check(table.fingerprint["device_kind"] == torch.cuda.get_device_name(0),
+          "the artifact names the card")
+    grid = {k: getattr(table, k).astype(int).tolist()
+            for k in ("dims", "rows", "batches", "poolings")}
+    log(f"[calibrate] grid {grid}; {table.fwd_ms.size} kernel points, "
+        f"{len(table.fusion_sweep['k'])} fused, "
+        f"{len(table.shard_sweep['frac'])} sharded; {calib_s:.1f} s")
+    log(f"[calibrate] K1 launches in the sweeps: {calib['fwd']} forward, "
+        f"{calib['bwd']} backward")
+    log(f"[calibrate] fwd ms per grid point "
+        f"{np.round(table.fwd_ms.reshape(-1), 4).tolist()}; bwd ms "
+        f"{np.round(table.bwd_ms.reshape(-1), 4).tolist()}")
+    for name in ("fusion_fwd", "fusion_bwd", "shard_fwd", "shard_bwd"):
+        log(f"[calibrate] {name}: {getattr(table, name).summary()}")
+    # the artifact round trip prices the same placements bit for bit
+    rng = np.random.default_rng(0)
+    probe = [(t, rng.integers(0, t.n_devices, (8, t.n_tables)))
+             for t in test[:4]]
+    with tempfile.TemporaryDirectory() as tmp:
+        reloaded = MeasuredOracle(CalibrationTable.load(table.save(
+            os.path.join(tmp, "calibration.npz"))), batch_size=BATCH)
+        for t, a in probe:
+            for x, y in zip(measured.evaluate_many(t.raw_features, a, 4),
+                            reloaded.evaluate_many(t.raw_features, a, 4)):
+                check(x.overall == y.overall and np.array_equal(
+                    x.cost_features, y.cost_features),
+                    "the reloaded artifact prices differently")
+    log("[calibrate] saved and reloaded: same prices bit for bit")
+    if artifact:
+        table.save(artifact)
+        log(f"[calibrate] artifact written to {artifact}")
+
+    # 2. Algorithm 1 against the card's measured costs, and 3. Algorithm 2
+    # with the trained agent, the untrained one and random
+    tele.reset()
+    out = train_and_place(oracle, measured, train, test, 0, "cuda")
+    agent, untrained, history = out["agent"], out["untrained"], out["history"]
+    train_s, placements = out["train_s"], out["placements"]
+    costs, mean, margin = out["costs"], out["mean"], out["margin"]
+    stages = _stage_seconds(tele)
+    for h in history:
+        it = h["iteration"]
+        check(math.isfinite(h["cost_loss"])
+              and math.isfinite(h["mean_est_reward"]), "finite training")
+        log(f"[train] iter {it}: cost loss {h['cost_loss']:.5f}, est reward "
+            f"{h['mean_est_reward']:.4f} ms, collect "
+            f"{stages[it]['collect']:.3f} s, cost update "
+            f"{stages[it]['cost_update']:.3f} s, rl update "
+            f"{stages[it]['rl_update']:.3f} s, dispatches {h['dispatches']}")
+    log(f"[train] {len(history)} iterations in {train_s:.1f} s, "
+        f"{agent.num_dispatches} dispatches, {agent.oracle.num_evaluations} "
+        "oracle evaluations")
+    check(len(agent.buffer) == agent.cfg.n_iterations * agent.cfg.n_collect,
+          "every collected placement was measured")
+
+    for k, v in mean.items():
+        check(bool(np.isfinite(costs[k]).all()), f"{k}: finite costs")
+        log(f"[place] {k:9s} mean MeasuredOracle cost over {len(test)} test "
+            f"tasks {v:.4f} ms")
+    log(f"[place] trained beats untrained by {margin['untrained']:.2%}, "
+        f"random by {margin['random']:.2%}")
+    check(mean["trained"] < mean["untrained"] and
+          mean["trained"] < mean["random"],
+          f"the trained agent does not beat the untrained one and random: "
+          f"{mean}")
+
+    # 4. sim-to-real: live K1 timing of two trained placements
+    live = []
+    for ti, task in enumerate(test[:N_MEASURED_TASKS]):
+        a = placements["trained"][ti].assignment
+        est = measured.evaluate(task.raw_features, a, task.n_devices)
+        for pooling in (None, 4):
+            res = measure_placement(task.raw_features, a, task.n_devices,
+                                    batch_size=BATCH, pooling=pooling,
+                                    max_rows=MAX_ROWS, device="cuda")
+            rel = est.overall / res.overall - 1
+            check(math.isfinite(res.overall), "finite live cost")
+            live.append({"task": ti, "pooling": pooling,
+                         "live_ms": res.overall, "oracle_ms": est.overall,
+                         "rel_err": rel,
+                         "live_fwd_ms": res.fwd_comp.tolist(),
+                         "live_bwd_ms": res.bwd_comp.tolist(),
+                         "oracle_fwd_ms": est.fwd_comp.tolist(),
+                         "oracle_bwd_ms": est.bwd_comp.tolist()})
+            log(f"[sim2real] task {ti} pooling "
+                f"{'own' if pooling is None else pooling}: live "
+                f"{res.overall:.4f} ms (fwd "
+                f"{np.round(res.fwd_comp, 3).tolist()}, bwd "
+                f"{np.round(res.bwd_comp, 3).tolist()}), MeasuredOracle "
+                f"{est.overall:.4f} ms (fwd "
+                f"{np.round(est.fwd_comp, 3).tolist()}, bwd "
+                f"{np.round(est.bwd_comp, 3).tolist()}): error {rel:+.2%}")
+    launches = {"fwd": K.embedding_bag_cuda.launches,
+                "bwd": K.embedding_bag_grad_cuda.launches}
+    tele.disable()
+    log(f"[train] K1 launches on the training path: {launches['fwd']} "
+        f"forward, {launches['bwd']} backward ({calib['fwd']} and "
+        f"{calib['bwd']} in the calibration)")
+
+    # 5. one cost stage on the card and on the CPU from the same state
+    cross = cost_stage_cross_device(torch, np, agent, untrained)
+    # 6. what a step of each stage asks of the card
+    stage_profile = profile_stages(torch, agent)
+    summary["train"] = {
+        "calibration_s": calib_s, "grid": grid,
+        "calibration_launches": calib,
+        "fusion_fwd": table.fusion_fwd.to_dict(),
+        "fusion_bwd": table.fusion_bwd.to_dict(),
+        "shard_fwd": table.shard_fwd.to_dict(),
+        "shard_bwd": table.shard_bwd.to_dict(),
+        "kernel_fwd_ms": table.fwd_ms.reshape(-1).tolist(),
+        "kernel_bwd_ms": table.bwd_ms.reshape(-1).tolist(),
+        "train_s": train_s, "history": history, "stages_s": stages,
+        "num_dispatches": agent.num_dispatches,
+        "mean_cost_ms": mean, "margin": margin, "sim2real": live,
+        "launches": launches, "stage_profile": stage_profile,
+        "cost_stage_cross_device": cross}
+    return launches
+
+
+def profile_stages(torch, agent) -> dict:
+    """What one step of each training stage asks of the card: the trained
+    agent runs PROFILE_COST_STEPS more Eq.-1 steps and PROFILE_RL_STEPS
+    more REINFORCE steps under torch.profiler.  A step's device ops are
+    the kernel, copy and memset records of the window over its steps; the
+    busy share is their summed device time over the window's wall time
+    (the profiler slows the host, so the idle share is an upper bound).
+    ``num_dispatches`` counts the reference's jitted calls, one a stage,
+    so it cannot see these launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, fn, steps in (
+            ("cost_update", agent.update_cost, PROFILE_COST_STEPS),
+            ("rl_update", agent.update_policy, PROFILE_RL_STEPS)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        ops = sum(e.count for e in rows)
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        out[name] = {"steps": steps, "wall_ms": wall_ms,
+                     "device_ops_per_step": ops / steps,
+                     "device_busy_ms": busy,
+                     "idle_share": 1 - busy / wall_ms if busy else None}
+        log(f"[train profile] {name}: {steps} steps, wall {wall_ms:.1f} ms "
+            f"under the profiler, {ops / steps:.0f} device ops a step, "
+            f"kernels {busy:.1f} ms"
+            + (f" (idle share <= {1 - busy / wall_ms:.3f})" if busy
+               else " (no device time recorded: not measured)"))
+    return out
+
+
+def cost_stage_cross_device(torch, np, agent, untrained) -> dict:
+    """The trainer's first cost stage, 50 fused steps, on the card and on
+    the CPU (float32, TF32 off) from the same state: the agent's initial
+    weights (``untrained``, the same seed), a fresh Adam with the
+    trainer's schedule, the trained run's ring and one set of host-drawn
+    slots.  The losses must agree within 1e-4 relative.  (A fresh Adam
+    from the trained weights instead kicks the loss up ~100x in its first
+    step, and float32 alone then strays from float64 by ~4e-4.)"""
+    from repro_torch.core import networks as N
+    from repro_torch.core import replay as RB
+    from repro_torch.optim import adam, linear_decay
+    ring = agent._ring
+    rng = np.random.default_rng(1)
+    size = ring.size
+    b = min(agent.cfg.n_batch, size)
+    idx = np.zeros((CROSS_STEPS, agent.cfg.n_batch), np.int32)
+    w = np.zeros((CROSS_STEPS, agent.cfg.n_batch), np.float32)
+    for t in range(CROSS_STEPS):
+        idx[t, :b] = ring.slots(rng.integers(size, size=b))
+        w[t, :b] = 1.0
+    weights = N.params_to_jax(untrained.cost_net)
+    cfg = agent.cfg
+    out = {}
+    for dev in ("cuda", "cpu"):
+        net = N.params_from_jax(weights).to(dev)
+        opt = adam(linear_decay(cfg.lr, cfg.n_iterations * cfg.n_cost))
+        buf = {k: v.to(dev) for k, v in ring.data.items()}
+        _, _, losses = RB.make_fused_cost_update(opt)(
+            net, opt.init(list(net.parameters())), buf, idx, w)
+        out[dev] = (losses.cpu().numpy(),
+                    [p.detach().cpu().numpy() for p in net.parameters()])
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    prel = max(float(np.max(np.abs(a - c)) / np.max(np.abs(c)))
+               for a, c in zip(pg, pc))
+    log(f"[cross] first cost stage, {CROSS_STEPS} fused steps from the "
+        f"initial weights over the trained ring ({size} samples): losses "
+        f"cuda vs cpu max rel "
+        f"err {rel:.3g} (limit 1e-4), params max err / max |param| "
+        f"{prel:.3g}; loss {lc[0]:.5f} -> {lc[-1]:.5f}")
+    check(rel <= 1e-4, f"cost stage cuda vs cpu: {rel:.3g} > 1e-4")
+    return {"steps": CROSS_STEPS, "loss_max_rel_err": rel,
+            "param_max_rel_err": prel, "first_loss": float(lc[0]),
+            "last_loss": float(lc[-1])}
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -971,6 +1274,8 @@ def run(name: str, fn, *args, phases: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write a JSON summary of the run here")
+    ap.add_argument("--artifact", help="also write phase 8's calibration "
+                    "artifact (.npz) here")
     args = ap.parse_args()
 
     import torch
@@ -1026,13 +1331,22 @@ def main() -> int:
     run("7b LM profile", phase_profile, torch, res, summary, phases=phases)
     del res
     torch.cuda.empty_cache()
-    run("8 cuda vs cpu", phase_cross_device, torch, np, summary,
+    run("7c LM cuda vs cpu", phase_cross_device, torch, np, summary,
         phases=phases)
     k2_row = run("9 K2 yardstick", phase_k2_yardstick, torch, FA,
                  attention_plain, summary, phases=phases)
-    rows = [{**k1_row, "launches": k1_launches},
-            {**bwd_row, "launches": bwd_launches},
-            {**k2_row, "launches": k2_launches}]
+    torch.cuda.empty_cache()
+    train_launches = run("8 train on measured costs", phase_train, torch, np,
+                         K, counters, summary, args.artifact, phases=phases)
+    # each kernel's launches on each path it serves, summed
+    rows = [{**k1_row, "launches": k1_launches + train_launches["fwd"],
+             "launches_by_path": {"place and measure": k1_launches,
+                                  "train": train_launches["fwd"]}},
+            {**bwd_row, "launches": bwd_launches + train_launches["bwd"],
+             "launches_by_path": {"place and measure": bwd_launches,
+                                  "train": train_launches["bwd"]}},
+            {**k2_row, "launches": k2_launches,
+             "launches_by_path": {"serve": k2_launches}}]
     summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_start
     if args.out:

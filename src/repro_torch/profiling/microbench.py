@@ -11,8 +11,12 @@ bitwise the JAX harness's.
 
 Times come from CUDA events on CUDA tensors (after warmup, median of
 repeats) and from the host clock on CPU tensors; a CPU time is a CPU
-time, never a device metric.  The sweeps and the calibration wait for the
-measured-oracle slice of the port.
+time, never a device metric.  ``sweep``, ``sweep_fused`` and
+``sweep_sharded`` time grids of such shapes for the calibration artifact
+(``repro_torch.profiling.calibration``), with the reference's numpy
+streams: the same shapes, seeds and indices.  The kernel times the
+feature dim padded to its 128 lanes, so the sweeps follow the reference's
+padded (Pallas) branch.
 """
 
 from __future__ import annotations
@@ -114,6 +118,31 @@ def bench_shape(dim: int, rows: int, batch: int, pooling: int, *,
                       pooling=int(pooling), fwd_ms=fwd_ms, bwd_ms=bwd_ms)
 
 
+def sweep(dims, rows, batches, poolings, *, warmup: int = 1,
+          repeats: int = 5, seed: int = 0, progress=None,
+          device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Dense grid sweep -> ``(fwd_ms, bwd_ms)`` arrays of shape
+    ``(len(dims), len(rows), len(batches), len(poolings))``.
+
+    ``progress`` (optional) is called with each finished ``BenchPoint``.
+    """
+    shape = (len(dims), len(rows), len(batches), len(poolings))
+    fwd = np.zeros(shape)
+    bwd = np.zeros(shape)
+    for i, d in enumerate(dims):
+        for j, r in enumerate(rows):
+            for k, b in enumerate(batches):
+                for n, p in enumerate(poolings):
+                    pt = bench_shape(int(d), int(r), int(b), int(p),
+                                     warmup=warmup, repeats=repeats,
+                                     seed=seed, device=device)
+                    fwd[i, j, k, n] = pt.fwd_ms
+                    bwd[i, j, k, n] = pt.bwd_ms
+                    if progress is not None:
+                        progress(pt)
+    return fwd, bwd
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedBenchPoint:
     """One measured fused multi-table op (times in milliseconds)."""
@@ -178,6 +207,98 @@ def bench_fused_shape(dims, rows, batch: int, poolings, *, warmup: int = 1,
                            rows=tuple(int(r) for r in rows),
                            poolings=tuple(int(p) for p in poolings),
                            batch=int(batch), fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+
+def sweep_fused(dims, rows, poolings, batch: int, *, ks=(2, 4, 8),
+                per_k: int = 4, warmup: int = 1, repeats: int = 5,
+                seed: int = 0, progress=None,
+                device=None) -> list[FusedBenchPoint]:
+    """Fused multi-table sweep: for each fusion depth K, time ``per_k``
+    ops over heterogeneous ``(rows, pooling)`` draws from the grid axes
+    (with replacement, seeded), so the single-table baseline each op is
+    compared to is interpolation-exact.  Each op's K tables share ONE dim
+    (drawn per op): a mixed-dim group would fold arena-padding inflation
+    into the ``FusionModel`` fit."""
+    rng = np.random.default_rng(seed)
+    dims = np.asarray(dims)
+    rows = np.asarray(rows)
+    poolings = np.asarray(poolings)
+    points = []
+    for k in ks:
+        for _ in range(per_k):
+            dim = dims[rng.integers(0, dims.size)]
+            pt = bench_fused_shape(
+                np.full(k, dim),
+                rows[rng.integers(0, rows.size, size=k)],
+                batch, poolings[rng.integers(0, poolings.size, size=k)],
+                warmup=warmup, repeats=repeats,
+                seed=int(rng.integers(0, 2**31)), device=device)
+            points.append(pt)
+            if progress is not None:
+                progress(pt)
+    return points
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardBenchPoint:
+    """One measured partial-width (column-shard) gather vs its full table.
+
+    ``frac`` is the measured column fraction ``width / dim``, both after
+    the kernel's lane padding, so the ratio describes the shapes timed."""
+
+    dim: int            # full table width
+    width: int          # shard width actually timed
+    rows: int
+    batch: int
+    pooling: int
+    frac: float         # width / dim
+    fwd_ms: float       # shard gather time
+    bwd_ms: float
+    full_fwd_ms: float  # same shape at full width (the K=1 baseline)
+    full_bwd_ms: float
+
+
+def sweep_sharded(dims, rows, poolings, batch: int, *,
+                  fracs=(0.25, 0.5, 0.75), per_frac: int = 3,
+                  warmup: int = 1, repeats: int = 5, seed: int = 0,
+                  progress=None, device=None) -> list[ShardBenchPoint]:
+    """Sharded-gather sweep: time partial-width lookups against their
+    full-width baselines.
+
+    For each column fraction, ``per_frac`` heterogeneous ``(dim, rows,
+    pooling)`` draws from the grid axes are timed twice -- at the shard
+    width ``max(1, round(dim * frac))`` and at the full ``dim`` (a grid
+    point), with the same index stream.  The pairs feed
+    ``ShardModel.fit``.  Both widths go through the kernel's 128-lane
+    padding, and ``frac`` reports the padded ratio.
+    """
+    rng = np.random.default_rng(seed)
+    dims = np.asarray(dims)
+    rows = np.asarray(rows)
+    poolings = np.asarray(poolings)
+    # only dims wide enough to split are worth drawing
+    wide = dims[dims >= 2] if (dims >= 2).any() else dims
+    points = []
+    for frac in fracs:
+        for _ in range(per_frac):
+            d = int(wide[rng.integers(0, wide.size)])
+            r = int(rows[rng.integers(0, rows.size)])
+            p = int(poolings[rng.integers(0, poolings.size)])
+            width = max(1, int(round(d * float(frac))))
+            s = int(rng.integers(0, 2**31))
+            part = bench_shape(width, r, batch, p, warmup=warmup,
+                               repeats=repeats, seed=s, device=device)
+            full = bench_shape(d, r, batch, p, warmup=warmup,
+                               repeats=repeats, seed=s, device=device)
+            pt = ShardBenchPoint(
+                dim=full.dim, width=part.dim, rows=r, batch=batch,
+                pooling=p, frac=part.dim / full.dim,
+                fwd_ms=part.fwd_ms, bwd_ms=part.bwd_ms,
+                full_fwd_ms=full.fwd_ms, full_bwd_ms=full.bwd_ms)
+            points.append(pt)
+            if progress is not None:
+                progress(pt)
+    return points
 
 
 def device_tables(raw: np.ndarray, max_rows: int, pooling: int | None):

@@ -5,7 +5,9 @@ that has only PyTorch: K1's forward and backward and K2 against their
 plain versions on the card (K2 in bf16 on its tensor-core kernel, in
 float32 on its CUDA-core one), K1's autograd op, the wrappers' input
 checks and launch counts, the LM on the card against the LM on the CPU,
-and the default device of the entry points.
+the default device of the entry points, a tiny ``KernelOracle``
+calibration on the card (it launches K1), and one training iteration on
+the card against the CPU on the cost stage.
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -447,3 +449,60 @@ def test_lm_on_cuda_matches_cpu(cuda):
         torch.testing.assert_close(logits.cpu(), clogits, rtol=1e-4,
                                    atol=1e-4)
         tok = clogits[:, -1].argmax(-1, keepdim=True)
+
+
+def test_tiny_kernel_oracle_calibration_launches_k1(cuda, tmp_path):
+    from repro_torch.api import KernelOracle, MeasuredOracle
+    from repro_torch.profiling.calibration import CalibrationTable
+    n_fwd = embedding_bag_cuda.launches
+    n_bwd = embedding_bag_grad_cuda.launches
+    oracle = KernelOracle(batch_size=256, max_rows=2048, max_dim=256)
+    table = oracle.measured().table
+    # 4 grid points, 6 fused and 9 x 2 sharded shapes, 1 + 2 calls each
+    assert embedding_bag_cuda.launches - n_fwd == 84
+    assert embedding_bag_grad_cuda.launches - n_bwd == 84
+    assert table.fingerprint["device_kind"] == torch.cuda.get_device_name()
+    assert table.meta["device"] == "cuda"
+    assert (table.fwd_ms > 0).all() and (table.bwd_ms > 0).all()
+    raw = np.tile(np.random.default_rng(0).uniform(1, 64, (1, 21)), (6, 1))
+    a = np.array([[0, 1, 0, 1, 0, 1]])
+    loaded = MeasuredOracle(CalibrationTable.load(
+        table.save(str(tmp_path / "art.npz"))))
+    assert oracle.evaluate_many(raw, a, 2)[0].overall == \
+        loaded.evaluate_many(raw, a, 2)[0].overall
+
+
+def test_training_iteration_on_cuda_matches_cpu_on_the_cost_stage(cuda):
+    """One iteration's collect on each device from the same seed (the
+    same host-drawn noise), then the cost stage over the same samples and
+    host-drawn slots: losses and weights within 1e-4 relative."""
+    from repro_torch.api import SimOracle
+    from repro_torch.core import networks as N
+    from repro_torch.core.trainer import DreamShard, DreamShardConfig
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import make_benchmark_suite
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train, _ = make_benchmark_suite(make_dlrm_pool(seed=0), 20, 4,
+                                    n_tasks=4)
+    cfg = DreamShardConfig(n_iterations=1, n_cost=50, n_rl=2, n_episode=4)
+    gpu = DreamShard(train, SimOracle(seed=0), cfg)
+    cpu = DreamShard(train, SimOracle(seed=0), cfg, device="cpu")
+    for agent in (gpu, cpu):
+        agent.collect()
+    same = [np.array_equal(a.assignment, b.assignment)
+            for a, b in zip(gpu.buffer, cpu.buffer)]
+    assert np.mean(same) >= 0.5
+    gpu.buffer = list(cpu.buffer)               # one ring for both
+    losses = {}
+    for name, agent in (("gpu", gpu), ("cpu", cpu)):
+        agent._sync_ring()
+        idx, w = agent._cost_slots(50)
+        _, agent.cost_opt_state, losses[name] = agent._fused_cost_update(
+            agent.cost_net, agent.cost_opt_state, agent._ring.data, idx, w)
+    torch.testing.assert_close(losses["gpu"].cpu(), losses["cpu"],
+                               rtol=1e-4, atol=0)
+    for a, b in zip(N.params_to_jax(gpu.cost_net)["table_mlp"],
+                    N.params_to_jax(cpu.cost_net)["table_mlp"]):
+        np.testing.assert_allclose(a["w"], b["w"], rtol=1e-4,
+                                   atol=1e-4 * np.abs(b["w"]).max())
+    assert np.isfinite(gpu.update_policy())

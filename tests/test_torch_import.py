@@ -39,6 +39,9 @@ def test_port_modules_found():
     assert "repro_torch.kernels.embedding_bag.ops" in MODULES
     assert "repro_torch.kernels.flash_attention.ops" in MODULES
     assert "repro_torch.launch.serve" in MODULES
+    assert "repro_torch.optim.optimizers" in MODULES
+    assert "repro_torch.core.replay" in MODULES
+    assert "repro_torch.profiling.calibration" in MODULES
     assert len(MODULES) >= 25
 
 
@@ -94,8 +97,11 @@ def _measure_placement(**kw):
 
 
 def _entry(name):
+    from repro_torch.api import KernelOracle
     from repro_torch.configs import get_smoke
+    from repro_torch.core.replay import ReplayBuffer
     from repro_torch.launch.serve import serve
+    from repro_torch.profiling.collectives import calibrate_comm
     from repro_torch.launch.steps import build_model
     from repro_torch.models.transformer import LM
     from repro_torch.profiling import microbench as mb
@@ -110,6 +116,9 @@ def _entry(name):
                                                    **kw),
         "bench_fused_shape": lambda **kw: mb.bench_fused_shape(
             [16], [10], 4, [2], repeats=1, **kw),
+        "KernelOracle": lambda **kw: KernelOracle(**kw),
+        "ReplayBuffer": lambda **kw: ReplayBuffer(2, 3, 2, **kw),
+        "calibrate_comm": lambda **kw: calibrate_comm(**kw),
         "build_model": lambda **kw: build_model(cfg, **kw),
         "LM.init_params": lambda **kw: LM(cfg, **kw).init_params(0),
         "serve": lambda **kw: serve(batch=1, prompt_len=4, tokens=2, **kw),
@@ -119,7 +128,9 @@ def _entry(name):
 @pytest.mark.parametrize("name", ["DreamShard", "measure_placement",
                                   "make_inputs", "make_fused_inputs",
                                   "bench_shape", "bench_fused_shape",
-                                  "build_model", "LM.init_params", "serve"])
+                                  "KernelOracle", "ReplayBuffer",
+                                  "calibrate_comm", "build_model",
+                                  "LM.init_params", "serve"])
 def test_entry_points_raise_without_a_card_unless_given_cpu(name):
     entry = _entry(name)
     entry(device="cpu")                        # runs on the CPU when asked

@@ -63,7 +63,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    estimate; one cost stage of 50 fused steps from the same weights,
    ring and slots must give the same losses on the card and on the CPU
    within 1e-4 relative; and torch.profiler counts the device ops of a
-   cost step and of a REINFORCE step and their busy share.
+   cost step and of a REINFORCE step and their busy share;
+10. (after phase 8) the DLRM training step over DreamShard's placement:
+   (a) ``make_sharded_lookup`` over NCCL at one rank (NCCL takes one rank
+   a card) bit-equal to ``lookup_unsharded`` on the card, forward and
+   arena gradient; (b) DLRM at ``configs/dlrm.FULL``'s widths over test
+   task 0's 50 tables (rows capped at 2^20), batch 65536, float32, the
+   four shards' arenas on this one card through ``lookup_unsharded`` (K1
+   forward and backward per shard and step), row-wise Adagrad on the
+   arenas and Adam on the dense nets: 2 warm-up and 8 timed steps for
+   phase 8's trained placement and its random one, on the same batches
+   (``DLRMBatchStream`` through ``Prefetcher``, made once); first, on the
+   trained placement's first batch, K1 forward and backward per shard at
+   the step's own indices, arenas and upstream gradient against their
+   plain versions (forward bit for bit; backward bit for bit to its
+   plain replay and by phase 3b's float64 rule); median step ms (CUDA
+   events, indices on the card to updated parameters: the sum of the
+   shards, not the slowest device's time), host seconds a batch, peak
+   memory, arena bytes, K1 launches, losses (finite; printed beside the
+   labels' entropy, the least mean loss any model reaches on them) and
+   the placement's ``MeasuredOracle`` cost; torch.profiler over one step;
+   (c) SMOKE's widths, 3 steps on the card and on the CPU from the same
+   weights and batches: logits, losses and parameters within 1e-5
+   relative.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -101,6 +123,8 @@ TRAIN_TASKS = 16                 # the table1_main quick regime
 CROSS_STEPS = 50
 PROFILE_COST_STEPS = 30          # phase 8's profile of the training stages
 PROFILE_RL_STEPS = 2
+DLRM_STEPS = 10                  # phase 10: 2 warm-up + 8 timed steps
+DLRM_WARMUP = 2
 
 
 def log(msg: str) -> None:
@@ -1176,7 +1200,11 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
         "mean_cost_ms": mean, "margin": margin, "sim2real": live,
         "launches": launches, "stage_profile": stage_profile,
         "cost_stage_cross_device": cross}
-    return launches
+    # test task 0 and its trained and random placements, for phase 10
+    task0 = {"task": test[0], "oracle": measured,
+             "placements": {k: placements[k][0].assignment
+                            for k in ("trained", "random")}}
+    return launches, task0
 
 
 def profile_stages(torch, agent) -> dict:
@@ -1263,6 +1291,327 @@ def cost_stage_cross_device(torch, np, agent, untrained) -> dict:
             "last_loss": float(lc[-1])}
 
 
+def dlrm_nccl_check(torch, np) -> dict:
+    """(a) ``make_sharded_lookup`` over NCCL at one rank (NCCL takes one
+    rank a card) against ``lookup_unsharded`` on the card, bit for bit:
+    forward and arena gradient.  8 tables of <= 2^16 rows on one shard,
+    batch 4096."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DLRMBatchStream
+    from repro_torch.embedding import sharded as E
+    from repro_torch.launch.train_dlrm import smoke_tables
+    raw, plan = smoke_tables(1, 2 ** 16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    (arena,) = E.init_arenas(plan, generator=gen, device="cuda")
+    batch = DLRMBatchStream(raw, 4096, seed=0).batch_at(0)
+    gidx = E.group_indices(plan, torch.from_numpy(batch["indices"]).cuda())
+    w = torch.randn((4096, plan.k_max, plan.dim), generator=gen,
+                    device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            lookup = E.make_sharded_lookup(plan, model_group=dist.group.WORLD)
+            leaf = arena.clone().requires_grad_()
+            out = lookup([leaf], plan.base_rows, gidx)
+            out.backward(w)
+            torch.cuda.synchronize()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    ref_leaf = arena.clone().requires_grad_()
+    ref = E.lookup_unsharded([ref_leaf], plan.base_rows, gidx, plan)
+    ref.backward(w)
+    check(backend == "nccl", f"the process group runs {backend}")
+    check(bits_equal(torch, out, ref), "sharded lookup over NCCL: forward")
+    check(bits_equal(torch, leaf.grad, ref_leaf.grad),
+          "sharded lookup over NCCL: arena gradient")
+    log(f"[dlrm nccl] make_sharded_lookup over {backend} at 1 rank "
+        f"(8 tables, {int(plan.shard_rows[0])} rows, batch 4096): forward "
+        f"{tuple(out.shape)} and arena gradient bit-equal to "
+        "lookup_unsharded")
+    return {"backend": backend, "rows": int(plan.shard_rows[0]),
+            "bit_equal": True}
+
+
+def dlrm_profile(torch, train, inputs) -> dict:
+    """One training step under torch.profiler: device time by kernel name
+    and the idle share of the window (an upper bound: the profiler slows
+    the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    by_kernel = [{"name": re.sub(r"void |at::native::|\(anonymous "
+                                 r"namespace\)::", "", e.key)[:100],
+                  "ms": e.self_device_time_total / 1e3, "count": e.count}
+                 for e in rows]
+    k1 = {k: sum(r["ms"] for r in by_kernel if k in r["name"])
+          for k in ("bag_kernel", "segment_sum_kernel")}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_ops": sum(e.count for e in rows),
+           "idle_share": 1 - busy / wall_ms if busy else None,
+           "k1_fwd_ms": k1["bag_kernel"],
+           "k1_bwd_passes_ms": k1["segment_sum_kernel"],
+           "by_kernel": by_kernel}
+    log(f"[dlrm profile] one step (trained placement): wall {wall_ms:.2f} "
+        f"ms under the profiler, kernels {busy:.2f} ms, "
+        f"{out['device_ops']} device ops, "
+        + (f"idle share <= {out['idle_share']:.3f}; " if busy else
+           "no device time recorded (not measured); ")
+        + f"K1 forward {k1['bag_kernel']:.2f} ms, K1 backward's passes "
+        f"{k1['segment_sum_kernel']:.2f} ms; by kernel: "
+        + "; ".join(f"{t['name']} {t['ms']:.2f} ms x{t['count']}"
+                    for t in by_kernel[:12]))
+    return out
+
+
+def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
+    """K1 and its backward at the full-width step's own shapes, shard by
+    shard: the step's rebased ``(B*K, P)`` indices, its arenas and the
+    upstream gradient the step's loss sends each shard's lookup.  The
+    forward must equal plain bit for bit; the backward must keep row 0
+    zero, equal its plain replay bit for bit (its order, any scale) and
+    keep its max |err| against float64 within 2x plain's + 1e-6 (the rule
+    of phase 3b).  The launches made here are taken back off the counts,
+    so those count the training path alone."""
+    from repro_torch.embedding import sharded as E
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_grad_plain, embedding_bag_grad_replay,
+        embedding_bag_plain)
+    from repro_torch.models.dlrm import DLRM
+    counts = (K.embedding_bag_cuda.launches,
+              K.embedding_bag_grad_cuda.launches)
+    gidx, dense, labels = inputs
+    held = {}
+
+    def capture(arenas, bases, g):
+        held["out"] = E.lookup_unsharded(
+            [a.detach() for a in arenas], bases, g, plan).requires_grad_()
+        return held["out"]
+
+    (upstream,) = torch.autograd.grad(
+        DLRM.loss(model(dense, gidx, capture), labels), held["out"])
+    del held
+    kk, shards = plan.k_max, []
+    for s, arena in enumerate(model.arenas):
+        arena = arena.detach()
+        rows = E.shard_rows_of(plan.base_rows[s],
+                               gidx[:, s * kk:(s + 1) * kk])
+        g = upstream[:, s * kk:(s + 1) * kk].reshape(rows.shape[0], -1)
+        g = g.contiguous()
+        fwd_equal = bits_equal(torch, K.embedding_bag_cuda(arena, rows),
+                               embedding_bag_plain(arena, rows))
+        shape = tuple(arena.shape)
+        got = K.embedding_bag_grad_cuda(shape, rows, g)
+        replay_equal = bits_equal(torch, got, embedding_bag_grad_replay(
+            shape, rows, g))
+        plain = embedding_bag_grad_plain(shape, rows, g)
+        torch.cuda.synchronize()
+        what = f"shard {s} ({shape} arena, {tuple(rows.shape)} indices)"
+        check(fwd_equal, f"K1 != plain on the DLRM step: {what}")
+        check(not bool(got[0].any()), f"K1 backward row 0 not zero: {what}")
+        check(replay_equal, f"K1 backward != its plain replay: {what}")
+        live = int((rows > 0).sum())
+        hot = int(torch.bincount(rows[rows > 0].long()).max()) if live else 0
+        ref64 = grad_f64(torch, shape, rows, g)
+        err, plain_err = grad_errs(torch, got, plain, ref64)
+        shards.append({"rows": shape[0], "bags": int(rows.shape[0]),
+                       "pool": int(rows.shape[1]), "live_slots": live,
+                       "hottest_row_slots": hot, "fwd_bit_equal": True,
+                       "bwd_replay_bit_equal": True,
+                       "grad_max_abs": float(ref64.abs().max()),
+                       "bwd_err_vs_f64": err,
+                       "plain_bwd_err_vs_f64": plain_err})
+        del got, plain, ref64, rows, g
+        torch.cuda.empty_cache()
+    K.embedding_bag_cuda.launches, K.embedding_bag_grad_cuda.launches = counts
+    log("[dlrm kernels] K1 at the step's shapes (trained placement, batch "
+        "0), per shard: forward bit-equal to plain, backward bit-equal to "
+        "its plain replay; backward max |err| against float64 (plain's; "
+        "limit 2x plain's + 1e-6) beside the gradient's max |value|: "
+        + "; ".join(
+            f"{r['rows']} rows, {r['bags']} x {r['pool']} bags, "
+            f"{r['live_slots']} live slots, hottest row {r['hottest_row_slots']}"
+            f": {r['bwd_err_vs_f64']:.3g} ({r['plain_bwd_err_vs_f64']:.3g}) "
+            f"of {r['grad_max_abs']:.3g}" for r in shards))
+    return {"shards": shards}
+
+
+def dlrm_full_width(torch, np, K, counters, task0, summary) -> dict:
+    """(b) DLRM at FULL's widths over test task 0's 50 tables (rows capped
+    at 2^20), batch 65536, float32, every shard's arena on this card
+    through ``lookup_unsharded``: K1 against plain at the step's shapes
+    (``dlrm_kernel_checks``), then 2 warm-up and 8 timed steps for the
+    trained placement and for the random one, on the same batches.
+    Returns the K1 launches of these steps (and of the profiled one)."""
+    from repro_torch.configs import dlrm as CD
+    from repro_torch.core import features as FEAT
+    from repro_torch.data.pipeline import DLRMBatchStream, Prefetcher
+    from repro_torch.embedding.plan import build_plan
+    from repro_torch.launch import train_dlrm as TD
+    from repro_torch.models.dlrm import DLRM
+    task, oracle = task0["task"], task0["oracle"]
+    raw = task.raw_features.copy()
+    raw[:, FEAT.HASH_SIZE] = np.minimum(raw[:, FEAT.HASH_SIZE], MAX_ROWS)
+    cfg = dataclasses.replace(CD.FULL, n_tables=raw.shape[0])
+    t0 = time.perf_counter()
+    prefetch = Prefetcher(DLRMBatchStream(raw, BATCH, seed=0))
+    try:
+        batches = [prefetch.next() for _ in range(DLRM_STEPS)]
+    finally:
+        prefetch.close()
+    host_s = (time.perf_counter() - t0) / DLRM_STEPS
+    log(f"[dlrm] {DLRM_STEPS} batches of {BATCH} over {raw.shape[0]} tables "
+        f"({int(raw[:, FEAT.HASH_SIZE].sum())} rows) from DLRMBatchStream "
+        f"through Prefetcher: {host_s:.3f} s of host time a batch")
+    # the labels are Bernoulli draws independent of the features: no
+    # model's mean BCE goes below their entropy at the batches' click rate
+    rate = float(np.mean([b["labels"].mean() for b in batches]))
+    floor = -(rate * np.log(rate) + (1 - rate) * np.log1p(-rate))
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    out = {"host_s_per_batch": host_s, "loss_floor": floor,
+           "placements": {}}
+    steps_run = 0
+    for name, assignment in task0["placements"].items():
+        plan = build_plan(raw, assignment, task.n_devices)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = (K.embedding_bag_cuda.launches,
+                  K.embedding_bag_grad_cuda.launches)
+        model = DLRM(cfg, plan, seed=0, device="cuda")
+        if name == "trained":
+            out["kernel_checks"] = dlrm_kernel_checks(
+                torch, K, model, plan, TD.to_device(batches[0], plan,
+                                                    "cuda"))
+            torch.cuda.reset_peak_memory_stats()
+        train = TD.make_trainer(model, plan)
+        arena_bytes = sum(a.numel() * a.element_size() for a in model.arenas)
+        ms, losses = [], []
+        for batch in batches:
+            inputs = TD.to_device(batch, plan, "cuda")
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = train(*inputs)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        steps_run += len(batches)
+        peak = torch.cuda.max_memory_allocated()
+        launches = (K.embedding_bag_cuda.launches - before[0],
+                    K.embedding_bag_grad_cuda.launches - before[1])
+        cost = float(oracle.evaluate(task.raw_features, assignment,
+                                     task.n_devices).overall)
+        timed = ms[DLRM_WARMUP:]
+        row = {"tables_per_shard": np.bincount(
+                   assignment, minlength=task.n_devices).tolist(),
+               "shard_rows": plan.shard_rows.tolist(),
+               "step_ms": ms, "median_step_ms": float(np.median(timed)),
+               "peak_bytes": peak, "arena_bytes": arena_bytes,
+               "k1_launches": launches, "losses": losses,
+               "measured_oracle_ms": cost}
+        out["placements"][name] = row
+        log(f"[dlrm] {name}: tables/shard {row['tables_per_shard']}, shard "
+            f"rows {row['shard_rows']}, arenas {arena_bytes} bytes; median "
+            f"step {row['median_step_ms']:.3f} ms over {len(timed)} timed "
+            f"steps (CUDA events, indices on the card to updated "
+            f"parameters; all 4 shards on this one card, so a step sums "
+            f"the shards: not the slowest device's time), steps "
+            f"{np.round(ms, 3).tolist()} ms; peak "
+            f"{peak} bytes (max_memory_allocated); K1 launches "
+            f"{launches[0]} forward, {launches[1]} backward over "
+            f"{len(batches)} steps; losses {np.round(losses, 5).tolist()} "
+            f"(floor {floor:.5f}); MeasuredOracle cost {cost:.4f} ms; host "
+            f"{host_s:.3f} s a batch")
+        check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
+        used = int((np.bincount(assignment,
+                                minlength=task.n_devices) > 0).sum())
+        check(launches == (task.n_devices * len(batches),
+                           used * len(batches)),
+              f"{name}: K1 launches {launches}, expected "
+              f"{task.n_devices} forward and {used} backward a step")
+        if name == "trained":
+            out["profile"] = dlrm_profile(torch, train, TD.to_device(
+                batches[0], plan, "cuda"))
+            steps_run += 1
+        del model, train, inputs
+    out["launches"] = {"fwd": K.embedding_bag_cuda.launches,
+                       "bwd": K.embedding_bag_grad_cuda.launches}
+    out["steps"] = steps_run
+    return out
+
+
+def dlrm_cross_device(torch, np) -> dict:
+    """(c) SMOKE's widths over 8 tables on 4 shards, batch 64: 3 training
+    steps from the same weights and batches on the card (K1) and on the
+    CPU (plain).  Logits, losses and every parameter must agree within
+    1e-5 relative (max |err| over max |cpu value|)."""
+    from repro_torch.configs import dlrm as CD
+    from repro_torch.data.pipeline import DLRMBatchStream
+    from repro_torch.launch import train_dlrm as TD
+    from repro_torch.models.dlrm import DLRM
+    raw, plan = TD.smoke_tables(4, 500)
+    stream = DLRMBatchStream(raw, CD.SMOKE_BATCH, n_dense=4, seed=0)
+    batches = [stream.batch_at(i) for i in range(3)]
+    weights = DLRM(CD.SMOKE, plan, seed=0, device="cpu").state_dict()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = DLRM(CD.SMOKE, plan, device=dev)
+        model.load_state_dict(weights)
+        gidx, dense, _ = TD.to_device(batches[0], plan, dev)
+        with torch.no_grad():
+            logits = model(dense, gidx, TD.unsharded_lookup(plan))
+        train = TD.make_trainer(model, plan)
+        losses = [float(train(*TD.to_device(b, plan, dev))) for b in batches]
+        res[dev] = (logits.cpu(), np.asarray(losses),
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    (lg, sg, pg), (lc, sc, pc) = res["cuda"], res["cpu"]
+    errs = {"logits": rel(lg, lc),
+            "loss": float(np.max(np.abs(sg - sc) / np.abs(sc))),
+            "params": max(rel(pg[k], pc[k]) for k in pc)}
+    log(f"[dlrm cross] SMOKE, 3 steps cuda (K1) vs cpu (plain): logits "
+        f"{errs['logits']:.3g}, losses {errs['loss']:.3g}, parameters "
+        f"{errs['params']:.3g} max relative error (limit 1e-5); losses "
+        f"{np.round(sc, 5).tolist()}")
+    for what, e in errs.items():
+        check(e <= 1e-5, f"DLRM cuda vs cpu: {what} {e:.3g} > 1e-5")
+    return errs
+
+
+def phase_dlrm(torch, np, K, counters, task0, summary: dict) -> dict:
+    """The DLRM training step over DreamShard's placement: (a) the sharded
+    lookup over NCCL, (b) the full-width step, (c) card against CPU.
+    Returns K1's launches in (b)."""
+    nccl = dlrm_nccl_check(torch, np)
+    torch.cuda.empty_cache()
+    full = dlrm_full_width(torch, np, K, counters, task0, summary)
+    torch.cuda.empty_cache()
+    cross = dlrm_cross_device(torch, np)
+    summary["dlrm"] = {"nccl": nccl, "full_width": full, "cross": cross}
+    log(f"[dlrm] K1 launches on the DLRM training path: "
+        f"{full['launches']['fwd']} forward, {full['launches']['bwd']} "
+        f"backward over {full['steps']} steps")
+    return full["launches"]
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1336,15 +1685,23 @@ def main() -> int:
     k2_row = run("9 K2 yardstick", phase_k2_yardstick, torch, FA,
                  attention_plain, summary, phases=phases)
     torch.cuda.empty_cache()
-    train_launches = run("8 train on measured costs", phase_train, torch, np,
-                         K, counters, summary, args.artifact, phases=phases)
+    train_launches, task0 = run("8 train on measured costs", phase_train,
+                                torch, np, K, counters, summary,
+                                args.artifact, phases=phases)
+    torch.cuda.empty_cache()
+    dlrm_launches = run("10 DLRM training step", phase_dlrm, torch, np, K,
+                        counters, task0, summary, phases=phases)
     # each kernel's launches on each path it serves, summed
-    rows = [{**k1_row, "launches": k1_launches + train_launches["fwd"],
-             "launches_by_path": {"place and measure": k1_launches,
-                                  "train": train_launches["fwd"]}},
-            {**bwd_row, "launches": bwd_launches + train_launches["bwd"],
-             "launches_by_path": {"place and measure": bwd_launches,
-                                  "train": train_launches["bwd"]}},
+    k1_paths = {"place and measure": k1_launches,
+                "train": train_launches["fwd"],
+                "dlrm train": dlrm_launches["fwd"]}
+    bwd_paths = {"place and measure": bwd_launches,
+                 "train": train_launches["bwd"],
+                 "dlrm train": dlrm_launches["bwd"]}
+    rows = [{**k1_row, "launches": sum(k1_paths.values()),
+             "launches_by_path": k1_paths},
+            {**bwd_row, "launches": sum(bwd_paths.values()),
+             "launches_by_path": bwd_paths},
             {**k2_row, "launches": k2_launches,
              "launches_by_path": {"serve": k2_launches}}]
     summary["kernels"] = rows

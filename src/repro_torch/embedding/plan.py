@@ -36,6 +36,13 @@ class PlacementPlan:
     def n_tables(self) -> int:
         return self.assignment.shape[0]
 
+    @property
+    def shard_rows(self) -> np.ndarray:
+        """(n_shards,) rows of each shard's own arena: its zero row plus
+        its tables' rows (``rows_max`` is the largest)."""
+        return np.asarray([1 + int(self.table_rows[g].sum())
+                           for g in self.groups], np.int64)
+
     def grouped_index_order(self) -> np.ndarray:
         """(n_shards * k_max,) table id per grouped slot (-1 = padding)."""
         return self.slot_table.reshape(-1)

@@ -1,0 +1,206 @@
+"""Table-wise model-parallel embedding bags with all-to-all redistribution.
+
+The counterpart of ``repro/embedding/sharded.py`` (the DLRM distributed
+embedding pattern of paper App. A.1): tables live on model-group shards,
+grouped by a ``PlacementPlan`` (DreamShard's placement); each shard runs
+one fused lookup (K1) for its tables over its data-parallel batch slice,
+and an all-to-all over the model group trades batch rows for table
+groups, so the data-parallel dense net sees every table's pooled
+embedding for its rows -- the paper's forward all-to-all.  Its transpose
+in the backward pass is the backward all-to-all, and K1's backward gives
+each shard's arena gradient.
+
+Layout: one arena per shard, ``(plan.shard_rows[s], D)`` with row 0 the
+zero row -- what each rank of the distributed step holds -- not the
+reference's ``(S, rows_max, D)`` stack, which pads every shard to the
+fullest one (a ``shard_map`` artifact).
+
+Reference quirk, not copied: the reference draws row 0 of each shard from
+the normal and its autodiff lookup trains it by the padded slots.  Here
+``init_arenas`` zeroes row 0 and K1's backward leaves its gradient 0 (the
+op contract of ``repro/kernels/embedding_bag/ref.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.embedding.plan import PlacementPlan
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+
+
+def init_arenas(plan: PlacementPlan, *, generator: torch.Generator | None
+                = None, device=None, dtype=torch.float32,
+                scale: float = 0.01) -> list[torch.Tensor]:
+    """One ``(shard_rows[s], dim)`` arena per shard, normal times
+    ``scale``, with row 0 zero.  ``generator`` must live on ``device``."""
+    arenas = []
+    for rows in plan.shard_rows:
+        a = torch.randn((int(rows), plan.dim), generator=generator,
+                        device=device, dtype=dtype)
+        a.mul_(scale)
+        a[0] = 0.0
+        arenas.append(a)
+    return arenas
+
+
+def group_indices(plan: PlacementPlan, indices):
+    """(B, M, P) per-table rows (-1 pad) -> (B, S*K, P) grouped by shard.
+
+    numpy in, numpy out (bit for bit the reference's); a torch tensor is
+    grouped on its own device."""
+    order = plan.grouped_index_order()
+    B, _, Pp = indices.shape
+    live = order >= 0
+    if isinstance(indices, np.ndarray):
+        out = np.full((B, order.shape[0], Pp), -1, indices.dtype)
+        out[:, live] = indices[:, order[live]]
+        return out
+    out = indices.new_full((B, order.shape[0], Pp), -1)
+    slots = torch.as_tensor(np.flatnonzero(live), device=indices.device)
+    tables = torch.as_tensor(order[live], device=indices.device)
+    out[:, slots] = indices[:, tables]
+    return out
+
+
+def shard_rows_of(bases, idx):
+    """bases: (K,); idx: (B, K, P) one shard's slots (-1 pad) -> (B*K, P)
+    rows of its arena, padding at row 0: the indices K1 is given."""
+    B, K, Pp = idx.shape
+    bases = torch.as_tensor(bases, dtype=idx.dtype, device=idx.device)
+    return torch.where(idx >= 0, idx + bases[None, :, None],
+                       0).reshape(B * K, Pp)
+
+
+def _local_lookup(arena, bases, idx):
+    """arena: (R, D); bases: (K,); idx: (B, K, P) -> (B, K, D) with K1."""
+    B, K, _ = idx.shape
+    return embedding_bag(arena, shard_rows_of(bases, idx)).reshape(B, K, -1)
+
+
+def lookup_unsharded(arenas, bases, indices, plan: PlacementPlan):
+    """Every shard on one device: one K1 per shard over its slots of
+    ``indices`` (B, S*K, P), -1 rebased to that shard's row 0.  Returns
+    (B, S*K, D)."""
+    K = plan.k_max
+    return torch.cat([
+        _local_lookup(arenas[s], bases[s], indices[:, s * K:(s + 1) * K])
+        for s in range(plan.n_shards)], dim=1)
+
+
+def table_slots(plan: PlacementPlan) -> np.ndarray:
+    """(M,) the grouped slot of each table, in table order (the
+    reference's ``inv``): ``grouped[:, table_slots(plan)]`` drops the
+    padded slots."""
+    if getattr(plan, "slot_cols", None) is not None:
+        raise NotImplementedError(
+            "column-sharded plans wait for ROADMAP queue item 5 (sharding "
+            "placer)")
+    order = plan.grouped_index_order()
+    keep = np.flatnonzero(order >= 0)
+    return keep[np.argsort(order[keep], kind="stable")]
+
+
+def combine_shard_outputs(plan: PlacementPlan, grouped: torch.Tensor):
+    """(B, S*K, D) per-slot pooled outputs -> (B, M, D) indexed by table
+    id.  Whole-table plans only: a slot is its table."""
+    return grouped.index_select(1, torch.as_tensor(table_slots(plan),
+                                                   device=grouped.device))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over equal chunks of dim 0; its transpose, the
+    backward all-to-all, is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = torch.empty_like(grad)
+        dist.all_to_all_single(out, grad, group=ctx.group)
+        return out, None
+
+
+class _SumGradOver(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group`` (an
+    arena replicated over the data group, as a ``shard_map`` transpose
+    sums it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def grid_groups(n_data: int, n_model: int):
+    """This rank's ``(model_group, data_group)`` on a ``(data, model)``
+    grid of the world's ranks, rank ``d * n_model + m``.  Every rank must
+    call it (``new_group`` is collective)."""
+    world = dist.get_world_size()
+    if world != n_data * n_model:
+        raise ValueError(f"a {n_data} x {n_model} grid needs "
+                         f"{n_data * n_model} ranks, the world has {world}")
+    rank = dist.get_rank()
+    model = data = None
+    for d in range(n_data):
+        g = dist.new_group([d * n_model + m for m in range(n_model)])
+        if rank // n_model == d:
+            model = g
+    for m in range(n_model):
+        g = dist.new_group([d * n_model + m for d in range(n_data)])
+        if rank % n_model == m:
+            data = g
+    return model, data
+
+
+def make_sharded_lookup(plan: PlacementPlan, *, model_group,
+                        data_group=None):
+    """The distributed lookup of one rank.
+
+    ``fn(arenas, bases, indices)``: ``arenas`` holds this rank's one
+    arena (the shard of its place ``m`` in ``model_group``), ``bases`` is
+    the plan's (S, K) base rows and ``indices`` this rank's data slice
+    (B_loc, S*K, P).  The rank looks up its own group ``[m*K, (m+1)*K)``
+    with K1 and trades batch rows for table groups over ``model_group``;
+    it returns (B_loc/S, S*K, D): batch sub-slice ``m`` of every table.
+    Concatenated in rank order (rank = d * S + m), the outputs are the
+    global batch.  With ``data_group`` the arena's gradient is summed
+    over it.
+    """
+    S, K, D = plan.n_shards, plan.k_max, plan.dim
+    if dist.get_world_size(model_group) != S:
+        raise ValueError(f"the plan has {S} shards, the model group "
+                         f"{dist.get_world_size(model_group)} ranks")
+    m = dist.get_rank(model_group)
+    sum_grad = data_group is not None and dist.get_world_size(data_group) > 1
+
+    def fn(arenas, bases, indices):
+        (arena,) = arenas
+        if sum_grad:
+            arena = _SumGradOver.apply(arena, data_group)
+        B_loc, _, Pp = indices.shape
+        if B_loc % S:
+            raise ValueError(f"the batch slice {B_loc} is not a multiple of "
+                             f"the {S} shards")
+        own = indices.reshape(B_loc, S, K, Pp)[:, m]
+        out = _local_lookup(arena, bases[m], own)         # (B_loc, K, D)
+        out = _AllToAll.apply(out.reshape(S, B_loc // S, K, D), model_group)
+        # (S, B_loc/S, K, D) -> (B_loc/S, S*K, D)
+        return out.transpose(0, 1).reshape(B_loc // S, S * K, D)
+
+    return fn

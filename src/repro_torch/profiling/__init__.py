@@ -6,8 +6,9 @@ those measurements at search/training speed:
 * ``microbench``   -- times K1 (the fused embedding bag) and its backward
   at one shape, one fused shape, a whole placement, or a grid of them
   (``sweep``, ``sweep_fused``, ``sweep_sharded``);
-* ``collectives``  -- the alpha-beta all-to-all model (a seeded synthetic
-  trace on one device);
+* ``collectives``  -- the alpha-beta all-to-all model, fitted to
+  ``all_to_all_single`` timed over a process group of >= 2 ranks, or to a
+  seeded synthetic trace at one rank;
 * ``calibration``  -- the persisted, versioned ``CalibrationTable``
   artifact (the reference's npz format, with a torch/CUDA fingerprint)
   with log2-multilinear interpolation;

@@ -7,12 +7,14 @@ sweep of payload sizes is fitted to
 
     t(p) = alpha_ms + beta_ms_per_mb * p          (p = per-device MB sent)
 
-so a measured oracle prices communication with two scalars.  With one
-device there is no collective to time: ``calibrate_comm`` takes the
-reference's single-device branch, a *seeded synthetic trace* from a
-``HardwareSpec``'s analytic bandwidth, fitted the same way and labelled
-``source="synthetic"``.  Timing the all-to-all over NCCL across several
-cards waits for the sharded-execution slice of the port.
+so a measured oracle prices communication with two scalars.
+``measure_all_to_all`` times ``all_to_all_single`` over a
+``torch.distributed`` process group (the default one unless one is
+given): NCCL on the cards, gloo on the CPU (a gloo time is a host
+number, not a device one).  With one rank there is no collective to
+time: ``calibrate_comm`` takes the reference's single-device branch, a
+*seeded synthetic trace* from a ``HardwareSpec``'s analytic bandwidth,
+fitted the same way and labelled ``source="synthetic"``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.profiling.microbench import median_time_ms
 from repro_torch.sim.hardware import HardwareSpec, PAPER_GPU
 
 # per-device payload sizes (MB) swept by default
@@ -88,46 +92,74 @@ def synthetic_trace(payload_mb, *, spec: HardwareSpec = PAPER_GPU,
     return base * np.exp(rng.normal(0.0, noise_std, size=base.shape))
 
 
-def measure_all_to_all(payload_mb, *, devices=None, warmup: int = 1,
+def payload_rows(payload_mb: float, n: int, dim: int = 128) -> int:
+    """Rows of width ``dim`` (float32) that each of ``n`` ranks holds so
+    that it sends ``payload_mb`` MB: it keeps 1/n of them (the
+    reference's sizing)."""
+    send_bytes = payload_mb * 1e6
+    rows = max(n, int(send_bytes * n / max(n - 1, 1) / (4 * dim)))
+    rows -= rows % n                      # all_to_all splits rows n-ways
+    return max(rows, n)
+
+
+def measure_all_to_all(payload_mb, *, group=None, warmup: int = 1,
                        repeats: int = 5, dim: int = 128) -> np.ndarray:
-    """Time the all-to-all across ``devices`` at each per-device payload
-    (MB sent per device).  Needs >= 2 devices; over NCCL it waits for
-    ROADMAP queue item 3 (sharded execution over NCCL)."""
-    n = 1 if devices is None else len(devices)
+    """Median ms of ``all_to_all_single`` over ``group`` (every rank calls
+    it) at each per-rank payload (MB sent per rank).  Needs >= 2 ranks.
+    The tensors live on this rank's card over NCCL, on the CPU otherwise."""
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
     if n < 2:
         raise ValueError(
-            f"all-to-all needs >= 2 devices, have {n}; use synthetic_trace")
-    raise NotImplementedError(
-        "the all-to-all over NCCL waits for ROADMAP queue item 3 "
-        "(sharded execution over NCCL)")
+            f"all-to-all needs >= 2 ranks, have {n}; use synthetic_trace")
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
 
+    def exchange(x, out):
+        dist.all_to_all_single(out, x, group=group)
 
-def _devices(device) -> list:
-    """Every visible card for a CUDA device, else the one device named."""
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [dev]
+    times = []
+    for mb in payload_mb:
+        x = torch.zeros((payload_rows(mb, n, dim), dim), device=device)
+        times.append(median_time_ms(exchange, (x, torch.empty_like(x)),
+                                    warmup=warmup, repeats=repeats))
+    return np.asarray(times)
 
 
 def calibrate_comm(*, spec: HardwareSpec = PAPER_GPU, payload_mb=None,
-                   devices=None, warmup: int = 1, repeats: int = 5,
+                   group=None, warmup: int = 1, repeats: int = 5,
                    seed: int = 0, device=None) -> CommModel:
-    """Measure (several devices) or synthesize (one device) an all-to-all
-    trace and fit the alpha-beta model.  ``devices`` defaults to every
-    card (``device`` cuda, the default) or to the CPU (``device="cpu"``)."""
+    """Measure (a process group of >= 2 ranks, the default group unless
+    ``group`` is given) or synthesize (one rank) an all-to-all trace and
+    fit the alpha-beta model.  ``device`` (``cuda`` unless told otherwise)
+    must exist: a run meant for the card does not go on without one.  On
+    the card the trace is measured over NCCL or not at all: a group of
+    another backend raises, and so do several cards with no process group
+    (a one-rank group takes the synthetic trace)."""
+    dev = resolve_device(device)
     payload_mb = DEFAULT_PAYLOAD_MB if payload_mb is None else payload_mb
-    devices = _devices(device) if devices is None else list(devices)
-    if len(devices) >= 2:
-        times = measure_all_to_all(payload_mb, devices=devices,
-                                   warmup=warmup, repeats=repeats)
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    if dev.type == "cuda":
+        if n >= 2 and dist.get_backend(group) != "nccl":
+            raise ValueError(
+                f"calibrating for the card over a {dist.get_backend(group)} "
+                "group: the cards' all-to-all is measured over NCCL "
+                "(init_process_group('nccl', ...))")
+        cards = torch.cuda.device_count()
+        if not dist.is_initialized() and cards >= 2:
+            raise RuntimeError(
+                f"{cards} cards and no process group: start one rank a card "
+                "with torch.distributed.init_process_group('nccl', ...) to "
+                "measure the all-to-all, or a one-rank group to take the "
+                "synthetic trace")
+    if n >= 2:
+        times = measure_all_to_all(payload_mb, group=group, warmup=warmup,
+                                   repeats=repeats)
         source = "measured"
     else:
         times = synthetic_trace(payload_mb, spec=spec, seed=seed)
         source = "synthetic"
     alpha, beta = fit_alpha_beta(payload_mb, times)
     return CommModel(alpha_ms=alpha, beta_ms_per_mb=beta,
-                     n_devices=len(devices), source=source,
+                     n_devices=n, source=source,
                      payload_mb=tuple(float(p) for p in payload_mb),
                      times_ms=tuple(float(t) for t in times))

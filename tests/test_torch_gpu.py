@@ -6,8 +6,10 @@ plain versions on the card (K2 in bf16 on its tensor-core kernel, in
 float32 on its CUDA-core one), K1's autograd op, the wrappers' input
 checks and launch counts, the LM on the card against the LM on the CPU,
 the default device of the entry points, a tiny ``KernelOracle``
-calibration on the card (it launches K1), and one training iteration on
-the card against the CPU on the cost stage.
+calibration on the card (it launches K1), one training iteration on
+the card against the CPU on the cost stage, the distributed embedding
+lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``) and
+three DLRM training steps on the card against the CPU (1e-5 relative).
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -40,6 +42,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 matmuls without TF32 for one test, restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 @pytest.mark.parametrize("dim", [128, 384])
@@ -426,10 +440,9 @@ def test_bf16_causal_does_not_depend_on_tile_order(cuda):
     _assert_bf16_limits(full, attention_plain(q, k, v, window=300))
 
 
-def test_lm_on_cuda_matches_cpu(cuda):
+def test_lm_on_cuda_matches_cpu(cuda, no_tf32):
     from repro_torch.configs import get_smoke
     from repro_torch.models.transformer import LM, map_params
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke("h2o-danube-1.8b").resolve(1)
     gpu = LM(cfg, dtype=torch.float32)
     cpu = LM(cfg, dtype=torch.float32, device="cpu")
@@ -472,7 +485,8 @@ def test_tiny_kernel_oracle_calibration_launches_k1(cuda, tmp_path):
         loaded.evaluate_many(raw, a, 2)[0].overall
 
 
-def test_training_iteration_on_cuda_matches_cpu_on_the_cost_stage(cuda):
+def test_training_iteration_on_cuda_matches_cpu_on_the_cost_stage(cuda,
+                                                                  no_tf32):
     """One iteration's collect on each device from the same seed (the
     same host-drawn noise), then the cost stage over the same samples and
     host-drawn slots: losses and weights within 1e-4 relative."""
@@ -481,7 +495,6 @@ def test_training_iteration_on_cuda_matches_cpu_on_the_cost_stage(cuda):
     from repro_torch.core.trainer import DreamShard, DreamShardConfig
     from repro_torch.data.synthetic import make_dlrm_pool
     from repro_torch.data.tasks import make_benchmark_suite
-    torch.backends.cuda.matmul.allow_tf32 = False
     train, _ = make_benchmark_suite(make_dlrm_pool(seed=0), 20, 4,
                                     n_tasks=4)
     cfg = DreamShardConfig(n_iterations=1, n_cost=50, n_rl=2, n_episode=4)
@@ -506,3 +519,69 @@ def test_training_iteration_on_cuda_matches_cpu_on_the_cost_stage(cuda):
         np.testing.assert_allclose(a["w"], b["w"], rtol=1e-4,
                                    atol=1e-4 * np.abs(b["w"]).max())
     assert np.isfinite(gpu.update_policy())
+
+
+def test_sharded_lookup_over_nccl_at_one_rank_is_bit_equal(cuda, tmp_path):
+    """NCCL takes one rank a card: at world size 1 the distributed lookup
+    (K1 + the all-to-all and its transpose) equals ``lookup_unsharded``
+    bit for bit, forward and arena gradient."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DLRMBatchStream
+    from repro_torch.embedding import sharded as E
+    from repro_torch.launch.train_dlrm import smoke_tables
+    raw, plan = smoke_tables(1, 2 ** 12)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    (arena,) = E.init_arenas(plan, generator=gen, device=cuda)
+    gidx = E.group_indices(plan, torch.from_numpy(
+        DLRMBatchStream(raw, 256, seed=0).batch_at(0)["indices"]).to(cuda))
+    w = torch.randn((256, plan.k_max, plan.dim), generator=gen, device=cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        leaf = arena.clone().requires_grad_()
+        n0 = embedding_bag_cuda.launches, embedding_bag_grad_cuda.launches
+        out = E.make_sharded_lookup(plan, model_group=dist.group.WORLD)(
+            [leaf], plan.base_rows, gidx)
+        out.backward(w)
+        torch.cuda.synchronize()
+        assert (embedding_bag_cuda.launches - n0[0],
+                embedding_bag_grad_cuda.launches - n0[1]) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+    ref_leaf = arena.clone().requires_grad_()
+    ref = E.lookup_unsharded([ref_leaf], plan.base_rows, gidx, plan)
+    ref.backward(w)
+    assert torch.equal(out, ref)
+    assert torch.equal(leaf.grad, ref_leaf.grad)
+
+
+def test_dlrm_training_on_cuda_matches_cpu(cuda, no_tf32):
+    """SMOKE's widths, 8 tables on 4 shards, batch 64: 3 steps of
+    row-wise Adagrad and Adam from the same weights and batches on the
+    card (K1 forward and backward per shard) and on the CPU (plain):
+    losses and parameters within 1e-5 relative to their largest value."""
+    from repro_torch.configs import dlrm as CD
+    from repro_torch.data.pipeline import DLRMBatchStream
+    from repro_torch.launch import train_dlrm as TD
+    from repro_torch.models.dlrm import DLRM
+    raw, plan = TD.smoke_tables(4, 500)
+    stream = DLRMBatchStream(raw, CD.SMOKE_BATCH, n_dense=4, seed=0)
+    weights = DLRM(CD.SMOKE, plan, device="cpu").state_dict()
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = DLRM(CD.SMOKE, plan, device=dev)
+        model.load_state_dict(weights)
+        train = TD.make_trainer(model, plan)
+        n0 = embedding_bag_cuda.launches, embedding_bag_grad_cuda.launches
+        losses = [float(train(*TD.to_device(stream.batch_at(i), plan, dev)))
+                  for i in range(3)]
+        n = (embedding_bag_cuda.launches - n0[0],
+             embedding_bag_grad_cuda.launches - n0[1])
+        assert n == ((12, 12) if dev.type == "cuda" else (0, 0))
+        res[dev.type] = losses, {k: v.cpu() for k, v in
+                                 model.state_dict().items()}
+    (lg, pg), (lc, pc) = res["cuda"], res["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for k in pc:
+        assert float((pg[k] - pc[k]).abs().max()) <= \
+            1e-5 * float(pc[k].abs().max()), k

@@ -42,7 +42,10 @@ def test_port_modules_found():
     assert "repro_torch.optim.optimizers" in MODULES
     assert "repro_torch.core.replay" in MODULES
     assert "repro_torch.profiling.calibration" in MODULES
-    assert len(MODULES) >= 25
+    for m in ("configs.dlrm", "data.pipeline", "embedding.sharded",
+              "models.dlrm", "launch.train_dlrm", "profiling.collectives"):
+        assert f"repro_torch.{m}" in MODULES
+    assert len(MODULES) >= 30
 
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
@@ -96,6 +99,34 @@ def _measure_placement(**kw):
                              max_rows=64, **kw)
 
 
+def _small_pool(n):
+    from repro_torch.core import features as F
+    from repro_torch.data.synthetic import make_pool
+    raw = make_pool(n, seed=0)
+    raw[:, F.HASH_SIZE] = 64
+    return raw
+
+
+def _train_dlrm(**kw):
+    import argparse
+    from repro_torch.api import RandomPlacer, SimOracle
+    from repro_torch.data.tasks import Task
+    from repro_torch.launch.train_dlrm import train_with_placement
+    task = Task.of(_small_pool(4), 2)
+    oracle = SimOracle(seed=0)
+    args = argparse.Namespace(steps=1, batch=4, device=kw.get("device"))
+    return train_with_placement("random", task,
+                                RandomPlacer(oracle, seed=0).place(task),
+                                args, oracle)
+
+
+def _dlrm(**kw):
+    from repro_torch.configs.dlrm import SMOKE
+    from repro_torch.embedding.plan import build_plan
+    from repro_torch.models.dlrm import DLRM
+    return DLRM(SMOKE, build_plan(_small_pool(8), np.arange(8) % 2, 2), **kw)
+
+
 def _entry(name):
     from repro_torch.api import KernelOracle
     from repro_torch.configs import get_smoke
@@ -122,6 +153,8 @@ def _entry(name):
         "build_model": lambda **kw: build_model(cfg, **kw),
         "LM.init_params": lambda **kw: LM(cfg, **kw).init_params(0),
         "serve": lambda **kw: serve(batch=1, prompt_len=4, tokens=2, **kw),
+        "train_with_placement": _train_dlrm,
+        "DLRM": _dlrm,
     }[name]
 
 
@@ -130,7 +163,8 @@ def _entry(name):
                                   "bench_shape", "bench_fused_shape",
                                   "KernelOracle", "ReplayBuffer",
                                   "calibrate_comm", "build_model",
-                                  "LM.init_params", "serve"])
+                                  "LM.init_params", "serve",
+                                  "train_with_placement", "DLRM"])
 def test_entry_points_raise_without_a_card_unless_given_cpu(name):
     entry = _entry(name)
     entry(device="cpu")                        # runs on the CPU when asked

@@ -20,8 +20,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    for bit on integer-valued gradients, and on normal ones within twice the
    plain version's own error against a float64 ``index_add_`` plus 1e-6;
    bit for bit against the plain replay of its own order; two launches
-   bit-equal; runs longer than the chunk, all-padding bags, bf16
-   ``grad_out`` and a gradient of more than 2^31 elements;
+   bit-equal; its plan on the card equal to ``backward_plan`` array for
+   array; no host sync inside a call (``set_sync_debug_mode("error")``);
+   runs longer than the chunk, all-padding bags, bf16 ``grad_out`` and a
+   gradient of more than 2^31 elements (4 radix passes);
 4. the main path: place the paper's DLRM-50 (4) test tasks with an
    untrained DreamShard agent (seed 0, 16 candidates) through
    ``as_placer().place_many`` on ``cuda``, run the baseline placers, then
@@ -32,7 +34,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. the yardstick: K1's forward, its plain version and ``F.embedding_bag``,
    then K1's backward, its plain version and the backward of
    ``F.embedding_bag``, timed at the largest main-path device shape, beside
-   the memory bound; it fails unless K1's forward beats ``F.embedding_bag``;
+   the memory bound; the backward's stages (the plan on the card, pass 1,
+   the write pass) each by its own CUDA events, beside ``backward_plan``'s
+   torch time and the scratch bytes; it fails unless K1's forward beats
+   ``F.embedding_bag``;
 6. K2 against its plain PyTorch version on the card -- bf16 through the
    tensor-core kernel, float32 through the CUDA-core one: S x hd x dtype x
    window x GQA group, non-causal attention over ragged key lengths, and
@@ -77,8 +82,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    trained placement's first batch, K1 forward and backward per shard at
    the step's own indices, arenas and upstream gradient against their
    plain versions (forward bit for bit; backward bit for bit to its
-   plain replay and by phase 3b's float64 rule); median step ms (CUDA
-   events, indices on the card to updated parameters: the sum of the
+   plain replay and by phase 3b's float64 rule, its plan equal to
+   ``backward_plan``; its ms and scratch bytes per shard); median step ms
+   (CUDA events, indices on the card to updated parameters: the sum of the
    shards, not the slowest device's time), host seconds a batch, peak
    memory, arena bytes, K1 launches, losses (finite; printed beside the
    labels' entropy, the least mean loss any model reaches on them) and
@@ -125,6 +131,9 @@ PROFILE_COST_STEPS = 30          # phase 8's profile of the training stages
 PROFILE_RL_STEPS = 2
 DLRM_STEPS = 10                  # phase 10: 2 warm-up + 8 timed steps
 DLRM_WARMUP = 2
+K1_BWD_KERNELS = ("compact_kernel", "radix_hist_kernel", "radix_scan_kernel",
+                  "radix_scatter_kernel", "runs_kernel", "chunks_kernel",
+                  "pass1_kernel", "zero_rows_kernel", "long_runs_kernel")
 
 
 def log(msg: str) -> None:
@@ -351,6 +360,25 @@ def grad_errs(torch, out, plain_out, ref64) -> tuple:
     return err, plain_err
 
 
+def plan_equal(torch, K, shape, idx) -> bool:
+    """The backward's plan built on the card equals ``backward_plan``'s,
+    array for array."""
+    got = K.embedding_bag_grad_cuda.plan(shape, idx).to_backward_plan()
+    ref = K.backward_plan(idx, K.CHUNK)
+    return all(a.shape == b.shape and torch.equal(a.long(), b.long())
+               for a, b in zip(got, ref))
+
+
+def grad_no_sync(torch, K, shape, idx, g):
+    """K1's backward under ``set_sync_debug_mode("error")``: a host sync
+    inside it raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return K.embedding_bag_grad_cuda(shape, idx, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def phase_grad_checks(torch, np, K, grad_plain, replay) -> dict:
     """K1's backward against the plain version (and float64) on the card;
     returns the worst errors."""
@@ -375,7 +403,7 @@ def phase_grad_checks(torch, np, K, grad_plain, replay) -> dict:
                      if integer else torch.as_tensor(
                          rng.normal(size=(N, shape[1]))))
                 g = g.to(device="cuda", dtype=torch.float32).to(dtype)
-                out = K.embedding_bag_grad_cuda(shape, idx, g)
+                out = grad_no_sync(torch, K, shape, idx, g)
                 again = K.embedding_bag_grad_cuda(shape, idx, g)
                 ref = grad_plain(shape, idx, g)
                 again_plain = replay(shape, idx, g)
@@ -386,6 +414,8 @@ def phase_grad_checks(torch, np, K, grad_plain, replay) -> dict:
                 check(bits_equal(torch, out, again_plain),
                       f"backward != its plain replay: {what}")
                 check(not bool(out[0].any()), f"row 0 not zero: {what}")
+                check(plan_equal(torch, K, shape, idx),
+                      f"the plan on the card != backward_plan: {what}")
                 if integer:
                     check(bits_equal(torch, out, ref),
                           f"backward != plain on integers: {what}")
@@ -406,13 +436,16 @@ def phase_grad_checks(torch, np, K, grad_plain, replay) -> dict:
                         device="cuda", dtype=torch.int32)
     idx[:, -1] = 0
     g = torch.randint(-2, 3, (8192, 128), generator=gen, device="cuda").float()
-    out = K.embedding_bag_grad_cuda((n_rows, 128), idx, g)
+    out = grad_no_sync(torch, K, (n_rows, 128), idx, g)
     check(bits_equal(torch, out, grad_plain((n_rows, 128), idx, g)),
           "backward != plain on a gradient past 2^31 elements")
+    check(plan_equal(torch, K, (n_rows, 128), idx),
+          "the plan on the card != backward_plan past 2^31 elements")
     worst["cases"] += 1
     del out
     torch.cuda.empty_cache()
-    log(f"[kernel] K1 backward on {worst['cases']} cases: bit-equal to its "
+    log(f"[kernel] K1 backward on {worst['cases']} cases: no host sync, its "
+        "plan on the card equal to backward_plan, bit-equal to its "
         "plain replay and across launches, to plain on integer gradients; "
         f"max |err| against float64 {worst['err_vs_f64']:.3g} (plain's "
         f"{worst['plain_err_vs_f64']:.3g}), against plain "
@@ -630,15 +663,34 @@ def phase_grad_yardstick(torch, K, grad_plain, inputs,
                                    grad_f64(torch, shape, idx, g))
         del out
         torch.cuda.empty_cache()
+        check(plan_equal(torch, K, shape, idx),
+              "the plan on the card != backward_plan at the yardstick")
+        grad_no_sync(torch, K, shape, idx, g)
+        torch.cuda.empty_cache()
         ms = median_time_ms(K.embedding_bag_grad_cuda, (shape, idx, g),
                             warmup=2, repeats=10)
-        # its parts: the dense zeros, the plan; the two passes are the rest
-        zeros_ms = median_time_ms(
-            lambda t: torch.zeros(shape, dtype=torch.float32,
-                                  device=t.device), (g,), warmup=2,
-            repeats=10)
-        plan_ms = median_time_ms(lambda i: K.backward_plan(i, K.CHUNK),
-                                 (idx,), warmup=2, repeats=10)
+        # its stages, each by its own events: the plan, pass 1 and the
+        # write pass, on one plan and one set of partials
+        kern = K.embedding_bag_grad_cuda
+        plan = kern.plan(shape, idx)
+        grad = torch.empty(shape, dtype=torch.float32, device="cuda")
+        partials = kern.pass1(grad, plan, g)
+        stage_ms = {
+            "plan": median_time_ms(lambda i: kern.plan(shape, i), (idx,),
+                                   warmup=2, repeats=10),
+            "pass1": median_time_ms(lambda x: kern.pass1(grad, plan, x),
+                                    (g,), warmup=2, repeats=10),
+            "write": median_time_ms(
+                lambda x: kern.write(grad, plan, partials), (g,),
+                warmup=2, repeats=10)}
+        live = dict(zip(("slots", "runs", "chunks", "partials"),
+                        plan.counts.tolist()))
+        sizes = plan.sizes
+        scratch = K.scratch_bytes(sizes, dim)
+        del plan, partials, grad
+        torch.cuda.empty_cache()
+        torch_plan_ms = median_time_ms(lambda i: K.backward_plan(i, K.CHUNK),
+                                       (idx,), warmup=2, repeats=10)
         plain_ms = median_time_ms(grad_plain, (shape, idx, g), warmup=1,
                                   repeats=3)
     weight = arena.requires_grad_()
@@ -670,16 +722,22 @@ def phase_grad_yardstick(torch, K, grad_plain, inputs,
            "library_ms": library_ms}
     summary["grad_yardstick"] = {
         "bytes": int(nbytes), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "bound_share": row["bound_ms"] / ms, "zeros_ms": zeros_ms,
-        "plan_ms": plan_ms, "library_err_vs_plain": lib_err, **row}
+        "bound_share": row["bound_ms"] / ms, "stage_ms": stage_ms,
+        "backward_plan_ms": torch_plan_ms, "live": live,
+        "radix_passes": sizes.passes, "scratch_bytes": scratch,
+        "library_err_vs_plain": lib_err, **row}
     log(f"[yardstick] K1 backward, grad ({n}, {dim}) f32 into ({shape[0]}, "
         f"{dim}): {ms:.3f} ms (plan included; {row['bound_ms'] / ms:.1%} of "
         f"the bound), plain {plain_ms:.3f} ms, F.embedding_bag backward "
         f"{library_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
         f"({row['bound_by']})")
-    log(f"[yardstick] K1 backward's parts: torch.zeros {zeros_ms:.3f} ms, "
-        f"plan {plan_ms:.3f} ms, the two passes the rest "
-        f"({ms - zeros_ms - plan_ms:.3f} ms)")
+    log(f"[yardstick] K1 backward's stages, each by its own events: the "
+        f"plan on the card {stage_ms['plan']:.3f} ms ({sizes.passes} radix "
+        f"passes), pass 1 {stage_ms['pass1']:.3f} ms, the write pass "
+        f"{stage_ms['write']:.3f} ms; backward_plan in torch "
+        f"{torch_plan_ms:.3f} ms; live {live}; scratch {scratch} bytes "
+        f"beside the {shape[0] * dim * 4}-byte gradient; no host sync, the "
+        "plan equal to backward_plan")
     log(f"[yardstick] K1 backward max |err| against float64 {err:.3g} "
         f"(plain's {plain_err:.3g}; limit 2 x plain's + 1e-6), against plain "
         f"{err_vs_plain:.3g}; bit-equal to plain on integers and across "
@@ -1356,21 +1414,21 @@ def dlrm_profile(torch, train, inputs) -> dict:
                                  r"namespace\)::", "", e.key)[:100],
                   "ms": e.self_device_time_total / 1e3, "count": e.count}
                  for e in rows]
-    k1 = {k: sum(r["ms"] for r in by_kernel if k in r["name"])
-          for k in ("bag_kernel", "segment_sum_kernel")}
+    k1_fwd = sum(r["ms"] for r in by_kernel if "bag_kernel" in r["name"])
+    k1_bwd = sum(r["ms"] for r in by_kernel
+                 if r["name"].split("(")[0].split("<")[0] in K1_BWD_KERNELS)
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "device_ops": sum(e.count for e in rows),
            "idle_share": 1 - busy / wall_ms if busy else None,
-           "k1_fwd_ms": k1["bag_kernel"],
-           "k1_bwd_passes_ms": k1["segment_sum_kernel"],
+           "k1_fwd_ms": k1_fwd, "k1_bwd_ms": k1_bwd,
            "by_kernel": by_kernel}
     log(f"[dlrm profile] one step (trained placement): wall {wall_ms:.2f} "
         f"ms under the profiler, kernels {busy:.2f} ms, "
         f"{out['device_ops']} device ops, "
         + (f"idle share <= {out['idle_share']:.3f}; " if busy else
            "no device time recorded (not measured); ")
-        + f"K1 forward {k1['bag_kernel']:.2f} ms, K1 backward's passes "
-        f"{k1['segment_sum_kernel']:.2f} ms; by kernel: "
+        + f"K1 forward {k1_fwd:.2f} ms, K1 backward's kernels "
+        f"{k1_bwd:.2f} ms; by kernel: "
         + "; ".join(f"{t['name']} {t['ms']:.2f} ms x{t['count']}"
                     for t in by_kernel[:12]))
     return out
@@ -1390,6 +1448,7 @@ def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
         embedding_bag_grad_plain, embedding_bag_grad_replay,
         embedding_bag_plain)
     from repro_torch.models.dlrm import DLRM
+    from repro_torch.profiling.microbench import median_time_ms
     counts = (K.embedding_bag_cuda.launches,
               K.embedding_bag_grad_cuda.launches)
     gidx, dense, labels = inputs
@@ -1422,6 +1481,12 @@ def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
         check(fwd_equal, f"K1 != plain on the DLRM step: {what}")
         check(not bool(got[0].any()), f"K1 backward row 0 not zero: {what}")
         check(replay_equal, f"K1 backward != its plain replay: {what}")
+        check(plan_equal(torch, K, shape, rows),
+              f"the plan on the card != backward_plan: {what}")
+        bwd_ms = median_time_ms(K.embedding_bag_grad_cuda, (shape, rows, g),
+                                warmup=1, repeats=5)
+        scratch = K.scratch_bytes(K.embedding_bag_grad_cuda.sizes(
+            shape, rows), shape[1])
         live = int((rows > 0).sum())
         hot = int(torch.bincount(rows[rows > 0].long()).max()) if live else 0
         ref64 = grad_f64(torch, shape, rows, g)
@@ -1431,6 +1496,7 @@ def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
                        "hottest_row_slots": hot, "fwd_bit_equal": True,
                        "bwd_replay_bit_equal": True,
                        "grad_max_abs": float(ref64.abs().max()),
+                       "bwd_ms": bwd_ms, "scratch_bytes": scratch,
                        "bwd_err_vs_f64": err,
                        "plain_bwd_err_vs_f64": plain_err})
         del got, plain, ref64, rows, g
@@ -1438,12 +1504,14 @@ def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
     K.embedding_bag_cuda.launches, K.embedding_bag_grad_cuda.launches = counts
     log("[dlrm kernels] K1 at the step's shapes (trained placement, batch "
         "0), per shard: forward bit-equal to plain, backward bit-equal to "
-        "its plain replay; backward max |err| against float64 (plain's; "
-        "limit 2x plain's + 1e-6) beside the gradient's max |value|: "
-        + "; ".join(
+        "its plain replay and its plan on the card to backward_plan; "
+        "backward ms (median of 5, CUDA events) and scratch bytes; backward "
+        "max |err| against float64 (plain's; limit 2x plain's + 1e-6) beside "
+        "the gradient's max |value|: " + "; ".join(
             f"{r['rows']} rows, {r['bags']} x {r['pool']} bags, "
             f"{r['live_slots']} live slots, hottest row {r['hottest_row_slots']}"
-            f": {r['bwd_err_vs_f64']:.3g} ({r['plain_bwd_err_vs_f64']:.3g}) "
+            f": {r['bwd_ms']:.3f} ms, scratch {r['scratch_bytes']}, "
+            f"{r['bwd_err_vs_f64']:.3g} ({r['plain_bwd_err_vs_f64']:.3g}) "
             f"of {r['grad_max_abs']:.3g}" for r in shards))
     return {"shards": shards}
 

@@ -17,7 +17,8 @@ held bit for bit to the plain replay of that order
 (``ref.embedding_bag_grad_replay``) and to the plain ``index_add_`` on
 integer-valued gradients (every sum exact), and otherwise to a float64
 ``index_add_``: its max |err| at most twice the plain float32 version's
-own plus 1e-6.
+own plus 1e-6.  The plan it builds on the card equals ``backward_plan``
+array for array, and a call makes no host sync.
 """
 
 import numpy as np
@@ -25,7 +26,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.embedding_bag import ops
-from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_cuda,
+from repro_torch.kernels.embedding_bag.kernel import (CHUNK, backward_plan,
+                                                     embedding_bag_cuda,
                                                      embedding_bag_grad_cuda)
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grad_plain,
                                                    embedding_bag_grad_replay,
@@ -139,6 +141,15 @@ GRAD_CASES = [  # rows, bags, pool, hot share, padding share, dim
 ]
 
 
+def _assert_plan_equal(arena_shape, idx):
+    """The plan built on the card equals ``backward_plan``'s, array for
+    array."""
+    got = embedding_bag_grad_cuda.plan(arena_shape, idx).to_backward_plan()
+    ref = backward_plan(idx, CHUNK)
+    for name, a, b in zip(ref._fields, got, ref):
+        assert a.shape == b.shape and torch.equal(a.long(), b.long()), name
+
+
 @pytest.mark.parametrize("case", GRAD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("integer", [True, False])
@@ -159,6 +170,14 @@ def test_grad_kernel_matches_plain(cuda, case, dtype, integer):
         assert err <= 2 * plain_err + 1e-6
 
 
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_grad_plan_on_the_card_is_backward_plan(cuda, case):
+    rows, bags, pool, hot, pad, dim = case
+    idx, _ = _grad_inputs(sum(case[:3]), rows, bags, pool, hot, pad, dim,
+                          torch.float32, True, cuda)
+    _assert_plan_equal((rows, dim), idx)
+
+
 def test_grad_kernel_is_deterministic(cuda):
     idx, g = _grad_inputs(9, 300, 20000, 40, 0.9, 0.2, 128, torch.float32,
                           False, cuda)
@@ -166,25 +185,68 @@ def test_grad_kernel_is_deterministic(cuda):
     _assert_bits_equal(embedding_bag_grad_cuda((300, 128), idx, g), first)
 
 
-def test_grad_kernel_past_2_31_elements(cuda):
-    # row * D overflows 32 bits in the gradient's rows here
+def _past_2_31_inputs(cuda):
     n_rows = 2 ** 24 + 2 ** 20
     gen = torch.Generator(device=cuda).manual_seed(3)
     idx = torch.randint(n_rows - 2 ** 21, n_rows, (8192, 8), generator=gen,
                         device=cuda, dtype=torch.int32)
     idx[:, -1] = 0
     g = torch.randint(-2, 3, (8192, 128), generator=gen, device=cuda).float()
+    return n_rows, idx, g
+
+
+def test_grad_kernel_past_2_31_elements(cuda):
+    # row * D overflows 32 bits in the gradient's rows here; R needs 4
+    # radix passes
+    n_rows, idx, g = _past_2_31_inputs(cuda)
     out = embedding_bag_grad_cuda((n_rows, 128), idx, g)
     _assert_bits_equal(out, embedding_bag_grad_plain((n_rows, 128), idx, g))
+    _assert_plan_equal((n_rows, 128), idx)
 
 
-def test_grad_kernel_all_padding_launches_nothing(cuda):
+def test_grad_kernel_makes_no_host_sync(cuda):
+    idx, g = _grad_inputs(9, 300, 20000, 40, 0.9, 0.2, 128, torch.float32,
+                          True, cuda)
+    embedding_bag_grad_cuda((300, 128), idx, g)      # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = embedding_bag_grad_cuda((300, 128), idx, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_bits_equal(out, embedding_bag_grad_plain((300, 128), idx, g))
+
+
+def test_grad_kernel_writes_every_row(cuda):
+    """The gradient is not zeroed first: a freed block full of NaN, of the
+    gradient's size, is handed back by the caching allocator as the output
+    (the call's first allocation), and must come back zero in every row
+    that no slot touches."""
+    rows, dim = 5000, 128
+    idx, g = _grad_inputs(4, rows, 64, 3, 0.0, 0.5, dim, torch.float32,
+                          True, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nan = torch.full((rows, dim), float("nan"), device=cuda)
+    ptr = nan.data_ptr()
+    del nan
+    out = embedding_bag_grad_cuda((rows, dim), idx, g)
+    assert out.data_ptr() == ptr
+    touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    touched[idx.reshape(-1).long()] = True
+    touched[0] = False
+    assert not out.isnan().any()
+    assert not out[~touched].any()
+    _assert_bits_equal(out, embedding_bag_grad_plain((rows, dim), idx, g))
+
+
+def test_grad_kernel_all_padding_is_zero_in_one_launch(cuda):
     n0 = embedding_bag_grad_cuda.launches
     out = embedding_bag_grad_cuda((10, 128),
                                   torch.zeros((4, 3), dtype=torch.int32,
                                               device=cuda),
                                   torch.ones((4, 128), device=cuda))
-    assert not out.any() and embedding_bag_grad_cuda.launches == n0
+    assert not out.any() and embedding_bag_grad_cuda.launches == n0 + 1
 
 
 def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -17,6 +17,11 @@ sum exact, whatever the order), and otherwise against a float64
 ``index_add_``, where its max |err| must be at most twice the float32
 plain version's own plus 1e-6 (the two add in different orders, so they
 cannot be bit-equal).
+
+On the card the backward builds that plan itself, with launches sized
+from N, P and R alone; the pure-Python helpers that size them
+(``radix_passes``, ``chunk_size``, ``partial_bound``, ``grad_sizes``) are
+held here to ``backward_plan``.
 """
 
 import jax
@@ -29,6 +34,7 @@ from repro.kernels.embedding_bag import ops as jops
 from repro.kernels.embedding_bag.kernel import embedding_bag_fused
 from repro.kernels.embedding_bag.ref import embedding_bag_grad_ref
 from repro_torch.kernels.embedding_bag import ops
+from repro_torch.kernels.embedding_bag import kernel as K
 from repro_torch.kernels.embedding_bag.kernel import backward_plan
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grad_plain,
                                                    embedding_bag_grad_replay,
@@ -248,3 +254,58 @@ def test_grad_op_on_cpu_is_the_plain_version(dtype):
     out = ops.embedding_bag_grad((60, 128), idx, g)
     torch.testing.assert_close(
         out, embedding_bag_grad_plain((60, 128), idx, g), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_rows,passes", [
+    (1, 1), (2, 1), (256, 1), (257, 2), (70000, 3), (12464046, 3),
+    (2 ** 24, 3), (2 ** 24 + 1, 4), (2 ** 24 + 2 ** 20, 4), (2 ** 32, 4)])
+def test_radix_passes_cover_the_rows(n_rows, passes):
+    assert K.radix_passes(n_rows) == passes
+    assert (n_rows - 1) >> (K.RADIX_BITS * passes) == 0
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 64])
+def test_chunk_size_is_backward_plans_rule_up_to_2_31(chunk):
+    roots = np.arange(1, 46342, dtype=np.int64)
+    lengths = np.unique(np.concatenate([
+        np.arange(1, 100001), roots ** 2 - 1, roots ** 2, roots ** 2 + 1,
+        [2 ** 31 - 1, 2 ** 31]]))
+    lengths = lengths[(lengths >= 1) & (lengths <= 2 ** 31)]
+    ref = torch.as_tensor(lengths).double().sqrt().ceil().long().clamp(
+        min=chunk)
+    got = [K.chunk_size(int(n), chunk) for n in lengths]
+    assert got == ref.tolist()
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 64])
+def test_partial_bound_over_run_lengths(chunk):
+    # a run of L slots has n = ceil(L / chunk_size(L)) chunks; those of
+    # more than one chunk are the partials
+    for length in range(1, 20001):
+        n = -(-length // K.chunk_size(length, chunk))
+        assert n == 1 or n * (chunk + 1) <= 2 * length
+
+
+@pytest.mark.parametrize("seed", [5, 11, 12, 75])
+@pytest.mark.parametrize("chunk", [4, 64])
+def test_grad_sizes_bound_backward_plan(seed, chunk):
+    idx_np, _ = _grad_inputs(seed, True, rows=40 + seed, bags=900, pool=13)
+    idx = torch.as_tensor(idx_np)
+    plan = backward_plan(idx, chunk)
+    z = K.grad_sizes(900, 13, 40 + seed, sms=2, chunk=chunk)
+    n_chunks = plan.run_bounds.diff()
+    assert plan.bags.numel() <= z.slots
+    assert plan.run_rows.numel() <= z.max_runs
+    assert plan.chunk_bounds.numel() - 1 <= z.max_chunks
+    assert int(n_chunks[n_chunks > 1].sum()) <= z.max_partials
+    assert z.passes == K.radix_passes(40 + seed)
+    assert z.tiles * K.SLOT_TILE >= z.slots > (z.tiles - 1) * K.SLOT_TILE
+    assert 1 <= z.radix_grid <= K.BLOCKS_PER_SM * 2
+
+
+def test_grad_sizes_of_no_slots():
+    z = K.grad_sizes(0, 7, 100, sms=132)
+    assert (z.slots, z.tiles, z.max_runs, z.max_partials, z.max_chunks) == (
+        0, 0, 0, 0, 0)
+    assert z.radix_grid == 1
+    assert K.scratch_bytes(z, 128) > 0

@@ -55,7 +55,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``F.scaled_dot_product_attention`` timed at the main-path layer shape,
    beside the operations bound; K2's float32 (CUDA-core) kernel is timed
    on the same values on a line of its own;
-8. (run last) Algorithm 1 on measured costs: ``KernelOracle(batch_size=
+8. (after phase 9) Algorithm 1 on measured costs: ``KernelOracle(batch_size=
    65536, max_rows=2^20)`` calibrates on the card (K1's forward and
    backward over the kernel grid, the fused and the sharded sweeps; the
    artifact saved, reloaded and held to price the same placements bit for
@@ -92,6 +92,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (c) SMOKE's widths, 3 steps on the card and on the CPU from the same
    weights and batches: logits, losses and parameters within 1e-5
    relative.
+11. (after phase 10) search and the sharding placer over phase 8's
+   trained agent, its ``KernelOracle`` and its ``MeasuredOracle``: (a)
+   b9's paper regime on the 20 DLRM-50 (4) test tasks -- the agent's
+   placements (16 candidates) refined through ``DreamShardPlacer(agent,
+   refiner=SearchPlacer(measured, ...))`` by lns, evolution and beam+lns
+   at 256 oracle rows a task and by lns at 50 ms a task; every refined
+   cost at most its seed's; test task 0's seed and best refined placement
+   timed live with K1 (``measure_placement``) beside the oracle, and K1
+   and its backward held to plain at each of their devices' shapes and
+   indices (as phase 10 holds them per shard); (b)
+   b13's construction on the same tasks (the largest table inflated to
+   2.5 x one device's memory): every whole-table baseline placer illegal
+   on every task, ``ShardingPlacer`` legal on every task and
+   ``refine_sharded`` (lns, 192 rows) never worse, priced by
+   ``MeasuredOracle.evaluate_sharded`` (``KernelOracle`` agreeing); (c)
+   oversized task 0's column-sharded plan at batch 65536 (rows capped at
+   2^20), its arenas split by columns from a whole-table plan's:
+   ``lookup_unsharded`` + ``combine_shard_outputs`` bit-equal to the
+   whole-table lookup, each shard's K1 output bit-equal to plain on its
+   arena and rows, and from one upstream gradient K1's backward per
+   shard bit-equal to its plain replay and every slot held to its table's
+   float64 gradient columns by phase 3b's rule.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -1262,7 +1284,10 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
     task0 = {"task": test[0], "oracle": measured,
              "placements": {k: placements[k][0].assignment
                             for k in ("trained", "random")}}
-    return launches, task0
+    # the trained agent and its oracles, for phase 11
+    ctx = {"agent": agent, "oracle": oracle, "measured": measured,
+           "test": test}
+    return launches, task0, ctx
 
 
 def profile_stages(torch, agent) -> dict:
@@ -1434,19 +1459,44 @@ def dlrm_profile(torch, train, inputs) -> dict:
     return out
 
 
-def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
-    """K1 and its backward at the full-width step's own shapes, shard by
-    shard: the step's rebased ``(B*K, P)`` indices, its arenas and the
-    upstream gradient the step's loss sends each shard's lookup.  The
-    forward must equal plain bit for bit; the backward must keep row 0
-    zero, equal its plain replay bit for bit (its order, any scale) and
-    keep its max |err| against float64 within 2x plain's + 1e-6 (the rule
-    of phase 3b).  The launches made here are taken back off the counts,
-    so those count the training path alone."""
-    from repro_torch.embedding import sharded as E
+def k1_case_check(torch, K, arena, rows, g, what: str) -> dict:
+    """K1 and its backward on one arena, its ``(N, P)`` rows and an
+    upstream gradient ``(N, D)``, against plain: the forward bit for bit;
+    the backward keeps row 0 zero, equals its plain replay bit for bit
+    (its order, any scale), its plan on the card equals ``backward_plan``
+    and its max |err| against float64 is within 2x plain's + 1e-6 (the
+    rule of phase 3b).  Returns both errors and the gradient's max
+    |value|."""
     from repro_torch.kernels.embedding_bag.ref import (
         embedding_bag_grad_plain, embedding_bag_grad_replay,
         embedding_bag_plain)
+    fwd_equal = bits_equal(torch, K.embedding_bag_cuda(arena, rows),
+                           embedding_bag_plain(arena, rows))
+    shape = tuple(arena.shape)
+    got = K.embedding_bag_grad_cuda(shape, rows, g)
+    replay_equal = bits_equal(torch, got, embedding_bag_grad_replay(
+        shape, rows, g))
+    plain = embedding_bag_grad_plain(shape, rows, g)
+    torch.cuda.synchronize()
+    check(fwd_equal, f"K1 != plain: {what}")
+    check(not bool(got[0].any()), f"K1 backward row 0 not zero: {what}")
+    check(replay_equal, f"K1 backward != its plain replay: {what}")
+    check(plan_equal(torch, K, shape, rows),
+          f"the plan on the card != backward_plan: {what}")
+    ref64 = grad_f64(torch, shape, rows, g)
+    err, plain_err = grad_errs(torch, got, plain, ref64)
+    return {"fwd_bit_equal": True, "bwd_replay_bit_equal": True,
+            "grad_max_abs": float(ref64.abs().max()),
+            "bwd_err_vs_f64": err, "plain_bwd_err_vs_f64": plain_err}
+
+
+def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
+    """K1 and its backward at the full-width step's own shapes, shard by
+    shard (``k1_case_check``): the step's rebased ``(B*K, P)`` indices,
+    its arenas and the upstream gradient the step's loss sends each
+    shard's lookup.  The launches made here are taken back off the counts,
+    so those count the training path alone."""
+    from repro_torch.embedding import sharded as E
     from repro_torch.models.dlrm import DLRM
     from repro_torch.profiling.microbench import median_time_ms
     counts = (K.embedding_bag_cuda.launches,
@@ -1469,37 +1519,21 @@ def dlrm_kernel_checks(torch, K, model, plan, inputs) -> dict:
                                gidx[:, s * kk:(s + 1) * kk])
         g = upstream[:, s * kk:(s + 1) * kk].reshape(rows.shape[0], -1)
         g = g.contiguous()
-        fwd_equal = bits_equal(torch, K.embedding_bag_cuda(arena, rows),
-                               embedding_bag_plain(arena, rows))
         shape = tuple(arena.shape)
-        got = K.embedding_bag_grad_cuda(shape, rows, g)
-        replay_equal = bits_equal(torch, got, embedding_bag_grad_replay(
-            shape, rows, g))
-        plain = embedding_bag_grad_plain(shape, rows, g)
-        torch.cuda.synchronize()
-        what = f"shard {s} ({shape} arena, {tuple(rows.shape)} indices)"
-        check(fwd_equal, f"K1 != plain on the DLRM step: {what}")
-        check(not bool(got[0].any()), f"K1 backward row 0 not zero: {what}")
-        check(replay_equal, f"K1 backward != its plain replay: {what}")
-        check(plan_equal(torch, K, shape, rows),
-              f"the plan on the card != backward_plan: {what}")
+        errs = k1_case_check(torch, K, arena, rows, g, f"the DLRM step's "
+                             f"shard {s} ({shape} arena, "
+                             f"{tuple(rows.shape)} indices)")
         bwd_ms = median_time_ms(K.embedding_bag_grad_cuda, (shape, rows, g),
                                 warmup=1, repeats=5)
         scratch = K.scratch_bytes(K.embedding_bag_grad_cuda.sizes(
             shape, rows), shape[1])
         live = int((rows > 0).sum())
         hot = int(torch.bincount(rows[rows > 0].long()).max()) if live else 0
-        ref64 = grad_f64(torch, shape, rows, g)
-        err, plain_err = grad_errs(torch, got, plain, ref64)
         shards.append({"rows": shape[0], "bags": int(rows.shape[0]),
                        "pool": int(rows.shape[1]), "live_slots": live,
-                       "hottest_row_slots": hot, "fwd_bit_equal": True,
-                       "bwd_replay_bit_equal": True,
-                       "grad_max_abs": float(ref64.abs().max()),
-                       "bwd_ms": bwd_ms, "scratch_bytes": scratch,
-                       "bwd_err_vs_f64": err,
-                       "plain_bwd_err_vs_f64": plain_err})
-        del got, plain, ref64, rows, g
+                       "hottest_row_slots": hot, "bwd_ms": bwd_ms,
+                       "scratch_bytes": scratch, **errs})
+        del rows, g
         torch.cuda.empty_cache()
     K.embedding_bag_cuda.launches, K.embedding_bag_grad_cuda.launches = counts
     log("[dlrm kernels] K1 at the step's shapes (trained placement, batch "
@@ -1680,6 +1714,449 @@ def phase_dlrm(torch, np, K, counters, task0, summary: dict) -> dict:
     return full["launches"]
 
 
+SEARCH_MAX_EVALS = 256           # phase 11 (a): rows a task, lns/evolution/beam
+SEARCH_BUDGET_MS = 50.0          # b9's headline budget a task
+SHARD_REFINE_EVALS = 192         # phase 11 (b): b13's paper-regime refine rows
+OVERSIZE_SCALE = 2.5             # b13's largest table over one device's memory
+
+
+def _search_spend(np, placements, seeds) -> dict:
+    """Mean oracle rows and hardware evaluations a refined placement
+    spent, from its provenance (``SearchPlacer.refine`` adds its scorer's
+    ``evals - 1`` to ``candidates`` and ``hardware_evals`` to
+    ``oracle_evals``)."""
+    evals = [p.candidates - s.candidates + 1 for p, s in zip(placements,
+                                                             seeds)]
+    hw = [p.oracle_evals - s.oracle_evals for p, s in zip(placements, seeds)]
+    return {"evals": float(np.mean(evals)), "hardware_evals": float(
+        np.mean(hw))}
+
+
+def placement_kernel_checks(torch, K, task, assignment) -> list:
+    """K1 and its backward at the shapes ``measure_placement`` gives them
+    for one placement (batch 65536, each table's own pooling, rows capped
+    at 2^20): each used device's arena shape and its very indices
+    (``placement_inputs``), with a normal arena (row 0 zero) and a normal
+    upstream gradient in place of the zeros and ones it times, held by
+    ``k1_case_check``.  The launches made here are taken back off the
+    counts."""
+    from repro_torch.profiling.microbench import placement_inputs
+    counts = (K.embedding_bag_cuda.launches,
+              K.embedding_bag_grad_cuda.launches)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for d, _, shape, idx in placement_inputs(
+            task.raw_features, assignment, task.n_devices, batch_size=BATCH,
+            pooling=None, max_rows=MAX_ROWS):
+        arena = torch.randn(shape, generator=gen, device="cuda")
+        arena[0] = 0.0
+        idx = torch.as_tensor(idx, device="cuda")
+        g = torch.randn((idx.shape[0], shape[1]), generator=gen,
+                        device="cuda")
+        out.append({"device": d, "rows": shape[0],
+                    "bags": int(idx.shape[0]), "pool": int(idx.shape[1]),
+                    **k1_case_check(torch, K, arena, idx, g, f"device {d} "
+                                    f"of a search placement ({shape} arena, "
+                                    f"{tuple(idx.shape)} indices)")})
+        del arena, idx, g
+        torch.cuda.empty_cache()
+    K.embedding_bag_cuda.launches, K.embedding_bag_grad_cuda.launches = counts
+    return out
+
+
+def search_refine(torch, np, K, ctx) -> dict:
+    """(a) b9's paper regime on DLRM-50 (4) over the 20 test tasks: the
+    trained agent's placements refined by ``DreamShardPlacer(agent,
+    refiner=SearchPlacer(measured, ...))`` for lns, evolution and beam+lns
+    at a fixed row budget and lns at b9's 50 ms a task; every refined
+    cost at most its seed's by the card's ``MeasuredOracle``; then test
+    task 0's seed and its best refined placement timed live with K1, and
+    K1 held to plain at each of their devices' shapes."""
+    from repro_torch.api import (DreamShardPlacer, SearchConfig,
+                                 SearchPlacer, measure_placements)
+    from repro_torch.profiling.microbench import measure_placement
+    agent, measured, test = ctx["agent"], ctx["measured"], ctx["test"]
+    seeds = agent.as_placer(n_candidates=16).place_many(test)
+    seed_costs = measure_placements(measured, test, seeds)
+    rows = {}
+    best = (float(seed_costs[0]), seeds[0], "seed")
+    for name, kw in (("lns", {"max_evals": SEARCH_MAX_EVALS}),
+                     ("evolution", {"max_evals": SEARCH_MAX_EVALS}),
+                     ("beam+lns", {"max_evals": SEARCH_MAX_EVALS}),
+                     ("lns@50ms", {"budget_ms": SEARCH_BUDGET_MS})):
+        cfg = SearchConfig(strategy=name.split("@")[0], seed=0,
+                           **{"budget_ms": None, **kw})
+        placer = DreamShardPlacer(agent, n_candidates=16, refiner=SearchPlacer(
+            measured, config=cfg, agent=agent))
+        t0 = time.perf_counter()
+        refined = placer.place_many(test)
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(test)
+        costs = measure_placements(measured, test, refined)
+        check(bool(np.array_equal(costs, [p.est_cost_ms for p in refined])),
+              f"search {name}: the refined estimate is not the oracle's")
+        worse = np.flatnonzero(costs > seed_costs)
+        check(worse.size == 0, f"search {name}: refined costs more than its "
+              f"seed on tasks {worse.tolist()}")
+        for p, s in zip(refined, seeds):
+            check(p.strategy == placer.session.refiner.name
+                  and p.n_devices == s.n_devices,
+                  f"search {name}: provenance {p.strategy}")
+        row = {"placer": placer.name, "mean_seed_ms": float(seed_costs.mean()),
+               "mean_refined_ms": float(costs.mean()),
+               "gain": float(seed_costs.mean() / costs.mean() - 1),
+               "improved_tasks": int((costs < seed_costs).sum()),
+               "host_ms_per_task": host_ms,
+               **_search_spend(np, refined, seeds)}
+        rows[name] = row
+        log(f"[search] {placer.name}: mean MeasuredOracle cost over "
+            f"{len(test)} tasks {row['mean_seed_ms']:.4f} -> "
+            f"{row['mean_refined_ms']:.4f} ms ({row['gain']:+.2%}; "
+            f"{row['improved_tasks']} tasks improved, none worse); "
+            f"evals {row['evals']:.1f}, hardware_evals "
+            f"{row['hardware_evals']:.1f} a task; host "
+            f"{host_ms:.2f} ms a task (decode included)")
+        if costs[0] < best[0]:
+            best = (float(costs[0]), refined[0], name)
+    # live K1 timing of test task 0's seed and its best refined placement
+    task, live = test[0], []
+    for label, p in (("seed", seeds[0]), (f"best refined ({best[2]})",
+                                          best[1])):
+        est = measured.evaluate(task.raw_features, p.assignment,
+                                task.n_devices)
+        res = measure_placement(task.raw_features, p.assignment,
+                                task.n_devices, batch_size=BATCH,
+                                pooling=None, max_rows=MAX_ROWS,
+                                device="cuda")
+        check(math.isfinite(res.overall), "finite live cost")
+        checks = placement_kernel_checks(torch, K, task, p.assignment)
+        live.append({"placement": label, "live_ms": res.overall,
+                     "oracle_ms": est.overall,
+                     "live_fwd_ms": res.fwd_comp.tolist(),
+                     "live_bwd_ms": res.bwd_comp.tolist(),
+                     "kernel_checks": checks})
+        log(f"[search live] task 0 {label}: live {res.overall:.4f} ms (fwd "
+            f"{np.round(res.fwd_comp, 3).tolist()}, bwd "
+            f"{np.round(res.bwd_comp, 3).tolist()}), MeasuredOracle "
+            f"{est.overall:.4f} ms; K1 at each device's shapes: forward "
+            "bit-equal to plain, backward bit-equal to its replay, its plan "
+            "to backward_plan, max |err| against float64 (plain's) " +
+            ", ".join(f"{c['bwd_err_vs_f64']:.3g} "
+                      f"({c['plain_bwd_err_vs_f64']:.3g})" for c in checks))
+    return {"strategies": rows, "live": live}
+
+
+def oversized_tasks(np, test, capacity_gb: float) -> list:
+    """b13's construction: each task with its largest table inflated to
+    ``OVERSIZE_SCALE`` x one device's memory, illegal for every
+    whole-table placement."""
+    from repro_torch.core import features as FEAT
+    from repro_torch.data.tasks import Task
+    out = []
+    for t in test:
+        raw = np.array(t.raw_features, dtype=np.float64)
+        raw[int(np.argmax(raw[:, FEAT.TABLE_SIZE_GB])),
+            FEAT.TABLE_SIZE_GB] = OVERSIZE_SCALE * capacity_gb
+        out.append(Task.of(raw, t.n_devices, name=t.name + "-over"))
+    return out
+
+
+def sharding_oversized(np, ctx) -> dict:
+    """(b) b13's construction on the 20 DLRM-50 (4) test tasks: every
+    whole-table baseline placer is illegal on every task,
+    ``ShardingPlacer`` is legal on every task, and ``refine_sharded`` is
+    never worse than its seed, all priced by the card's
+    ``MeasuredOracle.evaluate_sharded`` (``KernelOracle`` gives the same
+    prices and verdicts)."""
+    from repro_torch.api import (ShardingPlacer, legal_batch, legal_sharded,
+                                 make_baseline_placers, measure_placements,
+                                 SearchConfig, refine_sharded)
+    measured, kernel_oracle = ctx["measured"], ctx["oracle"]
+    tasks = oversized_tasks(np, ctx["test"], measured.mem_capacity_gb)
+    baselines = make_baseline_placers(measured, include_portfolio=True)
+    for name, placer in baselines.items():
+        for t, p in zip(tasks, placer.place_many(tasks)):
+            check(not bool(legal_batch(measured, t.raw_features,
+                                       p.assignment[None], t.n_devices)[0]),
+                  f"sharding: whole-table {name} is legal on {t.name}")
+    sharder = ShardingPlacer(measured)
+    cfg = SearchConfig(strategy="lns", budget_ms=None,
+                       max_evals=SHARD_REFINE_EVALS, seed=0)
+    placed, refined, host_s = [], [], [0.0, 0.0]
+    for t in tasks:
+        t0 = time.perf_counter()
+        p = sharder.place(t)
+        t1 = time.perf_counter()
+        r = refine_sharded(measured, t, p, cfg)
+        host_s[0] += t1 - t0
+        host_s[1] += time.perf_counter() - t1
+        for q, what in ((p, "ShardingPlacer"), (r, "refine_sharded")):
+            a = q.shard_assignment[None]
+            legal = legal_sharded(measured, t.raw_features, q.sharding, a,
+                                  t.n_devices)
+            check(q.is_sharded and bool(legal[0]),
+                  f"sharding: {what} is not legal on {t.name}")
+            check(bool(np.array_equal(legal, kernel_oracle.legal_sharded(
+                t.raw_features, q.sharding, a, t.n_devices))),
+                "sharding: KernelOracle.legal_sharded disagrees")
+            kres = kernel_oracle.evaluate_sharded(t.raw_features, q.sharding,
+                                                  a, t.n_devices)[0]
+            check(kres.overall == q.est_cost_ms, "sharding: KernelOracle "
+                  "prices the placement differently")
+        check(r.est_cost_ms <= p.est_cost_ms,
+              f"sharding: refine_sharded is worse on {t.name}: "
+              f"{r.est_cost_ms} > {p.est_cost_ms}")
+        placed.append(p)
+        refined.append(r)
+    seed_ms = measure_placements(measured, tasks, placed)
+    ref_ms = measure_placements(measured, tasks, refined)
+    check(bool(np.array_equal(seed_ms, [p.est_cost_ms for p in placed])) and
+          bool(np.array_equal(ref_ms, [p.est_cost_ms for p in refined])),
+          "sharding: measure_placements disagrees with the placers")
+    out = {"tasks": len(tasks), "capacity_gb": measured.mem_capacity_gb,
+           "whole_table_placers": sorted(baselines),
+           "mean_shards": float(np.mean([p.n_shards for p in placed])),
+           "mean_refined_shards": float(np.mean([p.n_shards
+                                                 for p in refined])),
+           "max_k": int(max(p.sharding.shard_counts.max() for p in placed)),
+           "mean_sharded_ms": float(seed_ms.mean()),
+           "mean_refined_ms": float(ref_ms.mean()),
+           "improved_tasks": int((ref_ms < seed_ms).sum()),
+           "host_ms_per_task": [s * 1e3 / len(tasks) for s in host_s]}
+    log(f"[sharding] {len(tasks)} oversized DLRM-50 (4) tasks (largest "
+        f"table {OVERSIZE_SCALE} x {measured.mem_capacity_gb} GB): all "
+        f"{len(baselines)} whole-table placers illegal on every task; "
+        f"ShardingPlacer legal on all, {out['mean_shards']:.2f} shards a "
+        f"task (K up to {out['max_k']}), mean MeasuredOracle cost "
+        f"{out['mean_sharded_ms']:.4f} ms; refine_sharded (lns, "
+        f"{SHARD_REFINE_EVALS} rows) {out['mean_refined_ms']:.4f} ms, "
+        f"{out['mean_refined_shards']:.2f} shards, {out['improved_tasks']} "
+        f"tasks improved, none worse; host {out['host_ms_per_task'][0]:.2f}"
+        f" + {out['host_ms_per_task'][1]:.2f} ms a task")
+    return {"summary": out, "task": tasks[0], "placement": placed[0]}
+
+
+def split_arenas(torch, whole_plan, whole, plan, raw):
+    """The column-sharded plan's arenas filled from the whole-table plan's
+    arenas of the same weights: each slot's rows take its owner's rows,
+    columns ``[col_start, col_end)`` into lanes ``[0, width)``; the other
+    lanes and row 0 stay zero."""
+    from repro_torch.core import features as FEAT
+    rows = raw[:, FEAT.HASH_SIZE].astype(int)
+    where = {}                                  # table -> (shard, base row)
+    for s, g in enumerate(whole_plan.groups):
+        for j, t in enumerate(g):
+            where[int(t)] = (s, int(whole_plan.base_rows[s, j]))
+    out = []
+    for s, g in enumerate(plan.groups):
+        arena = torch.zeros((int(plan.shard_rows[s]), plan.dim),
+                            device=whole[0].device)
+        for j, i in enumerate(g):
+            t = int(plan.slot_table[s, j])
+            c0, c1 = (int(c) for c in plan.slot_cols[s, j])
+            ws, wb = where[t]
+            b = int(plan.base_rows[s, j])
+            arena[b:b + rows[t], :c1 - c0] = whole[ws][wb:wb + rows[t], c0:c1]
+        out.append(arena)
+    return out
+
+
+def table_grad_refs(torch, idx_t, g_t, n_rows: int):
+    """(float64, plain float32) gradient of one table's ``n_rows`` rows
+    from its ``(B, P)`` indices (-1 padding) and its columns of the
+    upstream gradient ``(B, w)``: the float64 ``index_add_`` and the
+    plain version's slot-by-slot float32 ``index_add_``."""
+    ref64 = torch.zeros((n_rows + 1, g_t.shape[1]), dtype=torch.float64,
+                        device=g_t.device)
+    plain = torch.zeros((n_rows + 1, g_t.shape[1]), device=g_t.device)
+    g64 = g_t.double()
+    for j in range(idx_t.shape[1]):
+        rows = torch.where(idx_t[:, j] >= 0, idx_t[:, j], n_rows).long()
+        ref64.index_add_(0, rows, g64)
+        plain.index_add_(0, rows, g_t)
+    return ref64[:n_rows], plain[:n_rows]
+
+
+def sharded_lookup(torch, np, K, counters, shard_ctx) -> dict:
+    """(c) The column-sharded lookup at full batch: oversized test task 0's
+    ``ShardingPlacer`` placement (rows capped at 2^20), its plan from
+    ``build_plan(sharding=)``, arenas split by columns from a whole-table
+    plan's arenas of the same weights, batch 65536 at each table's own
+    pooling.  ``lookup_unsharded`` + ``combine_shard_outputs`` (K1 forward
+    per shard) must equal the whole-table plan's lookup bit for bit, and
+    each shard's K1 output its plain version on the same arena and rebased
+    rows; from one upstream gradient, K1's backward per shard must equal
+    its plain replay bit for bit, keep row 0 and the lanes past each slot's width
+    zero, and hold every slot to its table's float64 gradient columns by
+    phase 3b's rule (the split tables' whole-table gradient columns too).
+    The whole-table reference runs first and only its output and the split
+    tables' gradient rows are kept."""
+    from repro_torch.core import features as FEAT
+    from repro_torch.data.pipeline import DLRMBatchStream
+    from repro_torch.embedding import sharded as E
+    from repro_torch.embedding.plan import build_plan
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_grad_replay, embedding_bag_plain)
+    task, placement = shard_ctx["task"], shard_ctx["placement"]
+    spec = placement.sharding
+    raw = task.raw_features.copy()
+    raw[:, FEAT.HASH_SIZE] = np.minimum(raw[:, FEAT.HASH_SIZE], MAX_ROWS)
+    rows = raw[:, FEAT.HASH_SIZE].astype(int)
+    dims = raw[:, FEAT.DIM].astype(int)
+    split = np.flatnonzero(spec.shard_counts > 1)
+    t0 = time.perf_counter()
+    idx = torch.from_numpy(DLRMBatchStream(raw, BATCH, seed=0).batch_at(0)[
+        "indices"]).cuda()
+    host_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    whole_plan = build_plan(raw, placement.assignment, task.n_devices)
+    plan = build_plan(raw, placement.shard_assignment, task.n_devices,
+                      sharding=spec)
+    whole = [a.requires_grad_() for a in E.init_arenas(
+        whole_plan, generator=gen, device="cuda")]
+    upstream = torch.randn((BATCH, raw.shape[0], plan.dim), generator=gen,
+                           device="cuda")
+    # the whole-table reference: keep its output and the split tables'
+    # gradient rows only
+    gidx = E.group_indices(whole_plan, idx)
+    out_w = E.combine_shard_outputs(whole_plan, E.lookup_unsharded(
+        whole, whole_plan.base_rows, gidx, whole_plan))
+    grads_w = torch.autograd.grad(out_w, whole, upstream)
+    out_w = out_w.detach()
+    kept = {}
+    for s, g in enumerate(whole_plan.groups):
+        for j, t in enumerate(g):
+            if int(t) in split:
+                b = int(whole_plan.base_rows[s, j])
+                kept[int(t)] = grads_w[s][b:b + rows[t], :dims[t]].clone()
+    del grads_w, gidx
+    arenas = [a.requires_grad_() for a in split_arenas(
+        torch, whole_plan, [a.detach() for a in whole], plan, raw)]
+    del whole
+    torch.cuda.empty_cache()
+    # the column-sharded lookup: the phase's path, counted from zero
+    gidx = E.group_indices(plan, idx)
+    for c in counters:
+        c.launches = 0
+    grouped = E.lookup_unsharded(arenas, plan.base_rows, gidx, plan)
+    out = E.combine_shard_outputs(plan, grouped)
+    *grads, g_grouped = torch.autograd.grad(out, [*arenas, grouped],
+                                            upstream)
+    torch.cuda.synchronize()
+    launches = {"fwd": K.embedding_bag_cuda.launches,
+                "bwd": K.embedding_bag_grad_cuda.launches}
+    check(launches == {"fwd": plan.n_shards, "bwd": plan.n_shards},
+          f"sharded lookup: K1 launches {launches}, expected one forward "
+          f"and one backward for each of the {plan.n_shards} shards")
+    out = out.detach()
+    lanes = torch.as_tensor(np.arange(plan.dim)[None, :] < dims[:, None],
+                            device="cuda")                 # (M, D)
+    check(bits_equal(torch, out[:, lanes], out_w[:, lanes]),
+          "sharded lookup: the column-sharded forward != the whole-table "
+          "plan's")
+    check(not bool(out[:, ~lanes].any()),
+          "sharded lookup: lanes past a table's dim are not zero")
+    del out, out_w
+    grouped = grouped.detach()
+    kk, shards, slots = plan.k_max, [], []
+    for s, g in enumerate(plan.groups):
+        if not len(g):
+            continue
+        grad = grads[s]
+        shape = tuple(grad.shape)
+        rows_s = E.shard_rows_of(plan.base_rows[s], gidx[:, s * kk:(s + 1) * kk])
+        fwd = grouped[:, s * kk:(s + 1) * kk].reshape(rows_s.shape[0], -1)
+        check(bits_equal(torch, fwd, embedding_bag_plain(
+            arenas[s].detach(), rows_s)),
+            f"sharded lookup: shard {s}'s K1 forward != plain")
+        g_s = g_grouped[:, s * kk:(s + 1) * kk].reshape(rows_s.shape[0], -1)
+        replay = embedding_bag_grad_replay(shape, rows_s, g_s.contiguous())
+        check(bits_equal(torch, grad, replay),
+              f"sharded lookup: shard {s}'s K1 backward != its plain replay")
+        check(not bool(grad[0].any()), f"shard {s}: row 0 not zero")
+        del fwd, replay, rows_s, g_s
+        width = int(spec.widths[g].max())
+        check(not bool(grad[:, width:].any()),
+              f"shard {s}: gradient past the widest slot's lanes")
+        for j, i in enumerate(g):
+            t = int(plan.slot_table[s, j])
+            c0, c1 = (int(c) for c in plan.slot_cols[s, j])
+            b = int(plan.base_rows[s, j])
+            ref64, plain = table_grad_refs(
+                torch, idx[:, t], upstream[:, t, c0:c1].contiguous(),
+                int(rows[t]))
+            got = grad[b:b + rows[t], :c1 - c0]
+            plain_err = float((plain.double() - ref64).abs().max())
+            err = float((got.double() - ref64).abs().max())
+            row = {"shard": s, "table": t, "cols": [c0, c1], "err": err,
+                   "plain_err": plain_err}
+            check(err <= 2 * plain_err + 1e-6, f"sharded lookup: shard {s} "
+                  f"table {t} cols {c0}:{c1} max |err| {err:.3g} against "
+                  f"float64 over 2 x plain's {plain_err:.3g} + 1e-6")
+            if t in kept:
+                whole_cols = kept[t][:, c0:c1]
+                row["whole_err"] = float((whole_cols.double() - ref64)
+                                         .abs().max())
+                row["vs_whole"] = float((got - whole_cols).abs().max())
+                check(row["whole_err"] <= 2 * plain_err + 1e-6,
+                      f"whole-table table {t}: max |err| "
+                      f"{row['whole_err']:.3g} over 2 x {plain_err:.3g}")
+            slots.append(row)
+            del ref64, plain
+        shards.append({"shard": s, "rows": shape[0], "slots": len(g)})
+    peak = torch.cuda.max_memory_allocated()
+    split_rows = [r for r in slots if "whole_err" in r]
+    out = {"spec_k": spec.shard_counts.tolist(), "n_shards": spec.n_shards,
+           "split_tables": split.tolist(), "shards": shards,
+           "launches": launches, "peak_bytes": peak, "host_s": host_s,
+           "max_err": max(r["err"] for r in slots),
+           "max_plain_err": max(r["plain_err"] for r in slots),
+           "split_slots": split_rows}
+    log(f"[sharded lookup] oversized task 0: {spec.n_shards} column shards "
+        f"of {raw.shape[0]} tables (K {spec.shard_counts[split].tolist()} "
+        f"for tables {split.tolist()}), shard rows "
+        f"{plan.shard_rows.tolist()}, batch {BATCH} ({host_s:.1f} s of host "
+        f"time for its indices): forward bit-equal to the whole-table "
+        f"plan's, K1 per shard bit-equal to plain; K1 backward per shard bit-equal to its plain replay, row "
+        f"0 and the lanes past each slot zero; {len(slots)} slots held to "
+        f"their float64 gradient columns, max |err| {out['max_err']:.3g} "
+        f"(plain's up to {out['max_plain_err']:.3g}); the split tables' "
+        "slots against the whole-table gradient: " + "; ".join(
+            f"table {r['table']} cols {r['cols']}: {r['err']:.3g} (whole "
+            f"{r['whole_err']:.3g}, max |shard - whole| {r['vs_whole']:.3g})"
+            for r in split_rows)
+        + f"; K1 launches {launches['fwd']} forward, {launches['bwd']} "
+        f"backward; peak {peak} bytes (max_memory_allocated)")
+    return out
+
+
+def phase_search_shard(torch, np, K, counters, ctx, summary: dict) -> dict:
+    """Search and the sharding placer on the card: (a) search-refined
+    placements and their live K1 timing, (b) oversized tasks placed by
+    column sharding, (c) the column-sharded lookup at full batch.  Returns
+    K1's launches on the search path ((a) and (b)) and on the sharded
+    lookup ((c)), each counted from zero."""
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    search = search_refine(torch, np, K, ctx)
+    shard = sharding_oversized(np, ctx)
+    search_launches = {"fwd": K.embedding_bag_cuda.launches,
+                       "bwd": K.embedding_bag_grad_cuda.launches}
+    check(search_launches["fwd"] > 0 and search_launches["bwd"] > 0,
+          f"the search path launched K1 {search_launches}")
+    torch.cuda.empty_cache()
+    lookup = sharded_lookup(torch, np, K, counters, shard)
+    torch.cuda.empty_cache()
+    summary["search_shard"] = {"search": search, "sharding": shard["summary"],
+                               "sharded_lookup": lookup,
+                               "search_launches": search_launches}
+    log(f"[search] K1 launches on the search path: {search_launches['fwd']} "
+        f"forward, {search_launches['bwd']} backward (live timing of 2 "
+        "placements)")
+    return {"search": search_launches, "sharded lookup": lookup["launches"]}
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1753,19 +2230,24 @@ def main() -> int:
     k2_row = run("9 K2 yardstick", phase_k2_yardstick, torch, FA,
                  attention_plain, summary, phases=phases)
     torch.cuda.empty_cache()
-    train_launches, task0 = run("8 train on measured costs", phase_train,
-                                torch, np, K, counters, summary,
-                                args.artifact, phases=phases)
+    train_launches, task0, ctx = run(
+        "8 train on measured costs", phase_train, torch, np, K, counters,
+        summary, args.artifact, phases=phases)
     torch.cuda.empty_cache()
     dlrm_launches = run("10 DLRM training step", phase_dlrm, torch, np, K,
                         counters, task0, summary, phases=phases)
+    torch.cuda.empty_cache()
+    shard_launches = run("11 search and sharding", phase_search_shard, torch,
+                         np, K, counters, ctx, summary, phases=phases)
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],
-                "dlrm train": dlrm_launches["fwd"]}
+                "dlrm train": dlrm_launches["fwd"],
+                **{k: v["fwd"] for k, v in shard_launches.items()}}
     bwd_paths = {"place and measure": bwd_launches,
                  "train": train_launches["bwd"],
-                 "dlrm train": dlrm_launches["bwd"]}
+                 "dlrm train": dlrm_launches["bwd"],
+                 **{k: v["bwd"] for k, v in shard_launches.items()}}
     rows = [{**k1_row, "launches": sum(k1_paths.values()),
              "launches_by_path": k1_paths},
             {**bwd_row, "launches": sum(bwd_paths.values()),

@@ -13,12 +13,12 @@ The counterpart of ``repro/api/oracle.py``:
   plain versions only on ``device="cpu"`` -- then delegates every
   ``evaluate`` to a ``MeasuredOracle``.
 
-Shard-level queries need the column-sharding spec (``ShardSpec``), which
-waits for ROADMAP queue item 5: ``evaluate_sharded`` / ``legal_sharded``
-and the oracles' ``legal_sharded`` raise ``NotImplementedError`` naming
-it.  ``MeasuredOracle.evaluate_sharded`` prices any spec-like object with
-``table`` / ``widths`` / ``n_shards``, as ``calibrate_sharding`` fits its
-``ShardModel``.
+Shard-level queries (``evaluate_sharded`` / ``legal_sharded``) take a
+``repro_torch.sharding.ShardSpec`` and ``(P, S)`` shard assignments on
+every oracle; for a trivial spec (K = 1) they are bitwise the whole-table
+paths.  ``MeasuredOracle.evaluate_sharded`` splits each table's kernel
+time across its shards through the ``ShardModel`` that
+``calibrate_sharding`` fits to K1's sharded-gather sweep.
 """
 
 from __future__ import annotations
@@ -29,20 +29,16 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 
 from repro_torch import telemetry as tele
-from repro_torch.api.digest import placement_key, placement_keys
+from repro_torch.api.digest import (placement_key, placement_keys,
+                                    sharded_placement_keys)
 from repro_torch.core import features as F
 from repro_torch.device import resolve_device
+from repro_torch.sharding.spec import shard_features, shard_sizes_gb
 from repro_torch.sim.costsim import (CostSimulator, SimResult,
                                      assignments_legal,
                                      check_assignment_batch,
                                      per_device_sums)
 from repro_torch.sim.hardware import HardwareSpec, PAPER_GPU
-
-
-def _sharding_waits(what: str):
-    raise NotImplementedError(
-        f"{what} needs the column-sharding spec (repro.sharding.spec), "
-        "which waits for ROADMAP queue item 5 (the sharding placer)")
 
 
 @runtime_checkable
@@ -115,14 +111,33 @@ def legal_batch(oracle, raw: np.ndarray, assignments: np.ndarray,
 def evaluate_sharded(oracle, raw: np.ndarray, spec,
                      assignments: np.ndarray,
                      n_devices: int) -> list[SimResult]:
-    """Batched shard-level measurement (waits for ROADMAP item 5)."""
-    _sharding_waits("evaluate_sharded")
+    """Batched *shard-level* measurement through any oracle.
+
+    ``assignments`` is ``(P, S)`` over the shards of a ``ShardSpec``.
+    Uses the oracle's own ``evaluate_sharded`` when it has one (the
+    simulator's per-shard cache curve, ``MeasuredOracle``'s calibrated
+    shard model); otherwise falls back to ``evaluate_many`` over the
+    expanded per-shard features, pricing each shard as a table of its
+    column width.  For a trivial spec every route is bitwise the
+    whole-table ``evaluate_many``.
+    """
+    assignments = check_assignment_batch(assignments, n_devices)
+    fn = getattr(oracle, "evaluate_sharded", None)
+    if fn is not None:
+        return fn(raw, spec, assignments, n_devices)
+    return evaluate_many(oracle, shard_features(raw, spec), assignments,
+                         n_devices)
 
 
 def legal_sharded(oracle, raw: np.ndarray, spec,
                   assignments: np.ndarray, n_devices: int) -> np.ndarray:
-    """Shard-level memory legality (waits for ROADMAP item 5)."""
-    _sharding_waits("legal_sharded")
+    """Vectorized ``(P,)`` memory legality of shard-level assignments:
+    per-device sums of per-shard bytes against the oracle's capacity."""
+    fn = getattr(oracle, "legal_sharded", None)
+    if fn is not None:
+        return fn(raw, spec, assignments, n_devices)
+    return assignments_legal(shard_sizes_gb(raw, spec), assignments,
+                             n_devices, oracle.mem_capacity_gb)
 
 
 class SimOracle:
@@ -164,6 +179,21 @@ class SimOracle:
     def legal_batch(self, raw, assignments, n_devices) -> np.ndarray:
         return self.sim.legal_batch(raw, assignments, n_devices)
 
+    def evaluate_sharded(self, raw, spec, assignments,
+                         n_devices) -> list[SimResult]:
+        P = len(assignments)
+        tele.count("oracle.sim.evaluate_sharded_calls")
+        tele.count("oracle.sim.rows", P)
+        with tele.span("oracle.sim.evaluate_sharded", P=P,
+                       S=spec.n_shards, n_devices=n_devices):
+            return self.sim.evaluate_sharded_batch(raw, spec, assignments,
+                                                   n_devices)
+
+    def legal_sharded(self, raw, spec, assignments,
+                      n_devices) -> np.ndarray:
+        return self.sim.legal_sharded_batch(raw, spec, assignments,
+                                            n_devices)
+
 
 class CachedOracle:
     """Memoizing wrapper: repeated placements are served from cache.
@@ -176,6 +206,11 @@ class CachedOracle:
     its entry to the back of the insertion order); the ``hits`` /
     ``misses`` counters and the ``oracle.cache.*`` telemetry expose the
     cache's behaviour.
+
+    Sharded queries (``evaluate_sharded``) share the same store under
+    ``sharded_placement_keys``: for a trivial spec those keys EQUAL the
+    whole-table keys, so K = 1 sharded lookups hit entries populated by
+    ``evaluate_many`` and vice versa.
     """
 
     def __init__(self, inner, max_entries: int = 100_000):
@@ -239,7 +274,20 @@ class CachedOracle:
 
     def evaluate_sharded(self, raw, spec, assignments,
                          n_devices) -> list[SimResult]:
-        _sharding_waits("CachedOracle.evaluate_sharded")
+        """Batched shard-level evaluation through the same LRU store:
+        misses forward to the inner oracle through the module-level
+        ``evaluate_sharded``, so a shard-aware inner backend prices them
+        with its own shard model."""
+        assignments = check_assignment_batch(assignments, n_devices)
+        sp = tele.span("oracle.cache.evaluate_sharded",
+                       P=len(assignments), S=spec.n_shards,
+                       n_devices=n_devices)
+        with sp:
+            keys = sharded_placement_keys(raw, spec, assignments, n_devices)
+            return self._serve_batch(
+                keys, assignments, sp,
+                lambda rows: evaluate_sharded(self.inner, raw, spec, rows,
+                                              n_devices))
 
     def _serve_batch(self, keys, assignments, sp, miss_fn):
         hits0, misses0 = self.hits, self.misses
@@ -286,7 +334,7 @@ class CachedOracle:
 
     def legal_sharded(self, raw, spec, assignments,
                       n_devices) -> np.ndarray:
-        _sharding_waits("CachedOracle.legal_sharded")
+        return legal_sharded(self.inner, raw, spec, assignments, n_devices)
 
 
 class MeasuredOracle:
@@ -396,10 +444,11 @@ class MeasuredOracle:
                          n_devices) -> list[SimResult]:
         """Shard-level pricing: each table's kernel time interpolates once
         at its full shape, then splits across its shards through the
-        calibrated ``ShardModel``; fusion and comm then price the
-        per-shard costs like per-table ones.  ``spec`` is any object with
-        the reference ``ShardSpec``'s ``table`` / ``widths`` /
-        ``n_shards``."""
+        calibrated ``ShardModel`` (per-gather overhead + the column
+        fraction of the streaming cost); fusion and comm then price the
+        per-shard costs like per-table ones.  For a trivial spec the
+        model returns the full-table times bitwise, so K = 1 results equal
+        ``evaluate_many``."""
         P = len(assignments)
         tele.count("oracle.measured.evaluate_sharded_calls")
         tele.count("oracle.measured.rows", P)
@@ -454,7 +503,8 @@ class MeasuredOracle:
 
     def legal_sharded(self, raw, spec, assignments,
                       n_devices) -> np.ndarray:
-        _sharding_waits("MeasuredOracle.legal_sharded")
+        return assignments_legal(shard_sizes_gb(raw, spec), assignments,
+                                 n_devices, self.mem_capacity_gb)
 
 
 class KernelOracle:
@@ -577,4 +627,6 @@ class KernelOracle:
 
     def legal_sharded(self, raw, spec, assignments,
                       n_devices) -> np.ndarray:
-        _sharding_waits("KernelOracle.legal_sharded")
+        # like legal_batch: spec arithmetic only, no lazy calibration
+        return assignments_legal(shard_sizes_gb(raw, spec), assignments,
+                                 n_devices, self.spec.mem_capacity_gb)

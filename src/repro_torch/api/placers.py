@@ -21,16 +21,21 @@ class DreamShardPlacer(BasePlacer):
 
     Both ``place`` and ``place_many`` route through a shared
     ``PlacementSession``, whose decoded assignments are identical to the
-    agent's per-task Algorithm-2 path.
+    agent's per-task Algorithm-2 path.  With a ``refiner`` (a
+    ``SearchPlacer``) each decode is refined and the placer is named
+    ``dreamshard+<refiner>``.
     """
 
     name = "dreamshard"
 
     def __init__(self, agent, n_candidates: int | None = None,
-                 bucket_tables: int = 8):
+                 bucket_tables: int = 8, refiner=None):
         self.agent = agent
         self.session = PlacementSession(agent, n_candidates=n_candidates,
-                                        bucket_tables=bucket_tables)
+                                        bucket_tables=bucket_tables,
+                                        refiner=refiner)
+        if refiner is not None:
+            self.name = f"dreamshard+{getattr(refiner, 'name', 'refined')}"
 
     def place(self, task: Task) -> Placement:
         return self.session.place(task)

@@ -10,6 +10,8 @@ The padded decode is exact, not approximate: masked rows contribute
 nothing to the policy/cost device sums or memory, and the Gumbel noise of
 the sampled candidates is drawn per step and shared by the bucket, so the
 session returns the *same* assignments as per-task ``DreamShard.place``.
+An optional ``refiner`` (a ``search.SearchPlacer``) then refines each
+decoded placement through the oracle.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry as tele
-from repro_torch.api.placement import Placement
+from repro_torch.api.placement import Placement, measure_placements
 from repro_torch.core import features as FEAT
 from repro_torch.core import rollout as R
 from repro_torch.data.tasks import Task
@@ -64,13 +66,19 @@ class PlacementSession:
         agent's ``inference_candidates``).
     bucket_tables: bucket granularity -- table counts are padded up to the
         next multiple.
+    refiner: optional post-decode refinement pass -- anything with a
+        ``refine(task, placement) -> Placement`` method (canonically a
+        ``repro_torch.search.SearchPlacer``).  Each decoded placement is
+        handed to the refiner before being returned; ``refiner=None`` (the
+        default) serves the raw decode.
     """
 
     def __init__(self, agent, n_candidates: int | None = None,
-                 bucket_tables: int = 8):
+                 bucket_tables: int = 8, refiner=None):
         self.agent = agent
         self._n_candidates_override = n_candidates
         self.bucket_tables = max(1, bucket_tables)
+        self.refiner = refiner
         # distinct (bucket, batch) shapes served; the reference compiles
         # one trace per shape, and the counter keeps its name
         self.num_compiles = 0
@@ -146,7 +154,19 @@ class PlacementSession:
                     n_devices=n_devices, strategy="dreamshard",
                     est_cost_ms=float(est[j, best]),
                     candidates=self.n_candidates, oracle_evals=0)
+        if self.refiner is not None:
+            out = [self.refiner.refine(t, p) for t, p in zip(tasks, out)]
         return out
 
     def place(self, task: Task) -> Placement:
         return self.place_many([task])[0]
+
+    def place_and_measure(self, tasks: list[Task], oracle
+                          ) -> tuple[list[Placement], np.ndarray]:
+        """Serve a suite end to end: bucketed decode (``place_many``, with
+        the refiner's pass when there is one), then one grouped
+        ``evaluate_many`` pass per distinct (raw features, device count,
+        sharding).  Returns ``(placements, per-task measured ms)``."""
+        tasks = list(tasks)
+        placements = self.place_many(tasks)
+        return placements, measure_placements(oracle, tasks, placements)

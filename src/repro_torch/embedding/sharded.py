@@ -10,6 +10,12 @@ embedding for its rows -- the paper's forward all-to-all.  Its transpose
 in the backward pass is the backward all-to-all, and K1's backward gives
 each shard's arena gradient.
 
+A column-sharded plan (``build_plan(sharding=)``) runs the same lookup:
+a slot holds one column shard of its owner in lanes ``[0, width)`` of its
+rows, K1 pools every lane, and ``combine_shard_outputs`` scatters each
+slot's live lanes into its owner's ``[col_start, col_end)``; the gradient
+flows back through that scatter to K1's backward per shard.
+
 Layout: one arena per shard, ``(plan.shard_rows[s], D)`` with row 0 the
 zero row -- what each rank of the distributed step holds -- not the
 reference's ``(S, rows_max, D)`` stack, which pads every shard to the
@@ -91,23 +97,47 @@ def lookup_unsharded(arenas, bases, indices, plan: PlacementPlan):
 
 
 def table_slots(plan: PlacementPlan) -> np.ndarray:
-    """(M,) the grouped slot of each table, in table order (the
-    reference's ``inv``): ``grouped[:, table_slots(plan)]`` drops the
-    padded slots."""
-    if getattr(plan, "slot_cols", None) is not None:
-        raise NotImplementedError(
-            "column-sharded plans wait for ROADMAP queue item 5 (sharding "
-            "placer)")
-    order = plan.grouped_index_order()
-    keep = np.flatnonzero(order >= 0)
-    return keep[np.argsort(order[keep], kind="stable")]
+    """The grouped slot of each placed item, in item order: ``(M,)`` one
+    per table for a whole-table plan (the reference's ``inv``:
+    ``grouped[:, table_slots(plan)]`` drops the padded slots), ``(S,)``
+    one per column shard, in the spec's shard order, for a sharded one."""
+    slots = np.empty(plan.assignment.shape[0], np.int64)
+    for s, g in enumerate(plan.groups):
+        slots[g] = s * plan.k_max + np.arange(len(g))
+    return slots
+
+
+def _column_map(plan: PlacementPlan) -> tuple[np.ndarray, np.ndarray]:
+    """(dst, src) flat lane indices of a column-sharded plan: output lane
+    ``dst[j]`` of the ``(M*D,)`` per-table row takes lane ``src[j]`` of
+    the ``(S*K*D,)`` grouped row.  Shards tile their owner's columns, so
+    ``dst`` has no repeats; lanes past a table's dim are in neither."""
+    spec, D = plan.sharding, plan.dim
+    slots = table_slots(plan)
+    dst, src = [], []
+    for i in range(spec.n_shards):
+        c0, c1 = int(spec.col_start[i]), int(spec.col_end[i])
+        dst.append(int(spec.table[i]) * D + np.arange(c0, c1))
+        src.append(int(slots[i]) * D + np.arange(c1 - c0))
+    return np.concatenate(dst), np.concatenate(src)
 
 
 def combine_shard_outputs(plan: PlacementPlan, grouped: torch.Tensor):
     """(B, S*K, D) per-slot pooled outputs -> (B, M, D) indexed by table
-    id.  Whole-table plans only: a slot is its table."""
-    return grouped.index_select(1, torch.as_tensor(table_slots(plan),
-                                                   device=grouped.device))
+    id.  For a whole-table plan each live slot IS its table (all D
+    lanes); for a column-sharded plan a slot's lanes ``[0, width)``
+    scatter into its owner's ``[col_start, col_end)`` and the lanes past
+    a table's dim stay zero, as in the reference.  Differentiable: the
+    gradient of each slot is its owner's columns (zero past its width)."""
+    dev = grouped.device
+    if plan.slot_cols is None:
+        return grouped.index_select(1, torch.as_tensor(table_slots(plan),
+                                                       device=dev))
+    B, D = grouped.shape[0], plan.dim
+    dst, src = (torch.as_tensor(x, device=dev) for x in _column_map(plan))
+    lanes = grouped.reshape(B, -1).index_select(1, src)
+    out = grouped.new_zeros((B, plan.n_tables * D)).index_copy(1, dst, lanes)
+    return out.reshape(B, plan.n_tables, D)
 
 
 class _AllToAll(torch.autograd.Function):

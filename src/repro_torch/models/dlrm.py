@@ -64,6 +64,10 @@ class DLRM(nn.Module):
     def __init__(self, cfg: DLRMConfig, plan: PlacementPlan, *,
                  seed: int = 0, device=None, dtype=torch.float32):
         super().__init__()
+        if plan.slot_cols is not None:
+            raise ValueError(
+                "DLRM takes a whole-table plan; the reference's model "
+                "cannot consume column shards either")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg

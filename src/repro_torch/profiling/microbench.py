@@ -314,6 +314,28 @@ def device_tables(raw: np.ndarray, max_rows: int, pooling: int | None):
     return rows, pools
 
 
+def placement_inputs(raw: np.ndarray, assignment: np.ndarray,
+                     n_devices: int, *, batch_size: int,
+                     pooling: int | None, max_rows: int, seed: int = 0):
+    """Yield ``(device, its tables' rows of raw, arena shape, indices)``
+    for each used device of a placement, in device order, with the draws
+    ``measure_placement`` times: rows capped at ``max_rows``, the arena at
+    the placement's widest dim padded to 128 lanes, the indices from one
+    numpy stream seeded by the placement's digest ``^ seed``."""
+    raw = np.asarray(raw, dtype=np.float64)
+    assignment = np.asarray(assignment)
+    rng = np.random.default_rng(
+        placement_digest(raw, assignment, n_devices) ^ seed)
+    dim = max(128, int(np.ceil(raw[:, F.DIM].max() / 128) * 128))
+    for d in range(n_devices):
+        sub = raw[assignment == d]
+        if sub.shape[0] == 0:
+            continue
+        rows, pools = device_tables(sub, max_rows, pooling)
+        n_rows, idx = fused_indices(rng, rows, batch_size, pools)
+        yield d, sub, (n_rows, dim), idx
+
+
 def measure_placement(raw: np.ndarray, assignment: np.ndarray,
                       n_devices: int, *, spec: HardwareSpec = PAPER_GPU,
                       batch_size: int = 64, pooling: int | None = 4,
@@ -324,30 +346,24 @@ def measure_placement(raw: np.ndarray, assignment: np.ndarray,
     Builds each device's arena (rows capped at ``max_rows``), synthesizes
     zipf-ish lookups, and times one fused forward and its backward (K1's
     kernels on a CUDA device) for every device group, on the one device
-    given.  Communication reuses the simulator's analytic model.
+    given (``placement_inputs`` gives the shapes and indices).
+    Communication reuses the simulator's analytic model.
     ``pooling=None`` takes each table's own pooling factor from ``raw``
     (blocks padded to the device's widest pooling with the zero row); an
     int forces that factor everywhere.  Empty devices cost 0.
     """
     dev = resolve_device(device)
-    raw = np.asarray(raw, dtype=np.float64)
-    assignment = np.asarray(assignment)
-    rng = np.random.default_rng(
-        placement_digest(raw, assignment, n_devices) ^ seed)
-    dim = max(128, int(np.ceil(raw[:, F.DIM].max() / 128) * 128))
     fwd = np.zeros(n_devices)
     bwd = np.zeros(n_devices)
     dim_sums = np.zeros(n_devices)
 
-    for d in range(n_devices):
-        sub = raw[assignment == d]
-        if sub.shape[0] == 0:
-            continue
-        rows, pools = device_tables(sub, max_rows, pooling)
-        n_rows, idx = fused_indices(rng, rows, batch_size, pools)
-        arena = torch.zeros((n_rows, dim), dtype=torch.float32, device=dev)
+    for d, sub, shape, idx in placement_inputs(
+            raw, assignment, n_devices, batch_size=batch_size,
+            pooling=pooling, max_rows=max_rows, seed=seed):
+        arena = torch.zeros(shape, dtype=torch.float32, device=dev)
         idx = torch.as_tensor(idx, device=dev)
-        g = torch.ones((idx.shape[0], dim), dtype=torch.float32, device=dev)
+        g = torch.ones((idx.shape[0], shape[1]), dtype=torch.float32,
+                       device=dev)
         fwd[d], bwd[d] = _time_fwd_bwd(arena, idx, g, warmup=1,
                                        repeats=repeats)
         dim_sums[d] = sub[:, F.DIM].sum()

@@ -33,6 +33,7 @@ import zlib
 import numpy as np
 
 from repro_torch.core import features as F
+from repro_torch.sharding.spec import shard_features, shard_sizes_gb
 from repro_torch.sim.hardware import HardwareSpec, PAPER_GPU
 
 DEFAULT_BATCH = 65536
@@ -427,6 +428,41 @@ class CostSimulator:
               n_devices: int) -> bool:
         return bool(self.legal_batch(
             raw, np.asarray(assignment)[None, :], n_devices)[0])
+
+
+    # ---- column-wise sharding ------------------------------------------------
+
+    def evaluate_sharded_batch(self, raw: np.ndarray, spec,
+                               assignments: np.ndarray,
+                               n_devices: int) -> list[SimResult]:
+        """Measure P *shard-level* placements: ``assignments`` is
+        ``(P, S)`` over the shards of a ``repro_torch.sharding.ShardSpec``.
+
+        Pricing is ``evaluate_batch`` over the expanded per-shard feature
+        matrix (``shard_features``): each shard flows through the cache-hit
+        curve at its own column width, and the comm payload sums shard
+        widths per device.  A trivial spec expands byte-identically to
+        ``raw``, so K = 1 sharded costs (noise digests included) are
+        bitwise the whole-table costs.
+        """
+        return self.evaluate_batch(shard_features(raw, spec), assignments,
+                                   n_devices)
+
+    def evaluate_sharded(self, raw: np.ndarray, spec,
+                         shard_assignment: np.ndarray,
+                         n_devices: int) -> SimResult:
+        """Single-placement view of ``evaluate_sharded_batch`` (P = 1)."""
+        return self.evaluate_sharded_batch(
+            raw, spec, np.asarray(shard_assignment)[None, :], n_devices)[0]
+
+    def legal_sharded_batch(self, raw: np.ndarray, spec,
+                            assignments: np.ndarray,
+                            n_devices: int) -> np.ndarray:
+        """Memory legality of ``(P, S)`` shard assignments: per-device
+        sums of per-shard bytes (``table_size_gb`` scaled by column
+        fraction) against capacity."""
+        return assignments_legal(shard_sizes_gb(raw, spec), assignments,
+                                 n_devices, self.spec.mem_capacity_gb)
 
 
 def assignments_legal(sizes_gb: np.ndarray, assignments: np.ndarray,

@@ -168,19 +168,30 @@ def test_measured_oracle_prices_shards_as_the_reference(tasks):
 
 
 def test_sharded_helpers_wait_for_the_sharding_spec(tasks):
+    """The sharded helpers no longer wait for the spec: over the
+    reference's ``ShardSpec`` (duck-typed) they price and bound-check as
+    the reference's do, bitwise, and a trivial spec gives the whole-table
+    answers."""
     t = tasks[0]
     spec = ShardSpec.trivial(t.raw_features)
-    a = np.zeros((1, t.n_tables), np.int64)
-    oracle = api.MeasuredOracle(_tables()[0])
-    for call in (lambda: api.evaluate_sharded(oracle, t.raw_features, spec,
-                                              a, 4),
-                 lambda: api.legal_sharded(oracle, t.raw_features, spec, a,
-                                           4),
-                 lambda: oracle.legal_sharded(t.raw_features, spec, a, 4),
-                 lambda: api.CachedOracle(oracle).evaluate_sharded(
-                     t.raw_features, spec, a, 4)):
-        with pytest.raises(NotImplementedError, match="queue item 5"):
-            call()
+    a = np.random.default_rng(8).integers(0, 4, (3, t.n_tables))
+    port, ref = _tables()
+    oracle, joracle = api.MeasuredOracle(port), japi.MeasuredOracle(ref)
+    for got, want in (
+            (api.evaluate_sharded(oracle, t.raw_features, spec, a, 4),
+             japi.evaluate_sharded(joracle, t.raw_features, spec, a, 4)),
+            (api.CachedOracle(oracle).evaluate_sharded(
+                t.raw_features, spec, a, 4),
+             oracle.evaluate_many(t.raw_features, a, 4))):
+        for x, y in zip(got, want, strict=True):
+            assert x.overall == y.overall
+            np.testing.assert_array_equal(x.cost_features, y.cost_features)
+    for legal in (api.legal_sharded(oracle, t.raw_features, spec, a, 4),
+                  oracle.legal_sharded(t.raw_features, spec, a, 4)):
+        np.testing.assert_array_equal(
+            legal, japi.legal_sharded(joracle, t.raw_features, spec, a, 4))
+        np.testing.assert_array_equal(
+            legal, oracle.legal_batch(t.raw_features, a, 4))
     with pytest.raises(ValueError, match=">= 2 ranks"):
         CO.measure_all_to_all([1.0])           # one rank: no process group
 

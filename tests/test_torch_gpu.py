@@ -8,8 +8,9 @@ checks and launch counts, the LM on the card against the LM on the CPU,
 the default device of the entry points, a tiny ``KernelOracle``
 calibration on the card (it launches K1), one training iteration on
 the card against the CPU on the cost stage, the distributed embedding
-lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``) and
-three DLRM training steps on the card against the CPU (1e-5 relative).
+lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``),
+three DLRM training steps on the card against the CPU (1e-5 relative)
+and a column-sharded lookup against the whole-table plan's.
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -20,6 +21,9 @@ integer-valued gradients (every sum exact), and otherwise to a float64
 own plus 1e-6.  The plan it builds on the card equals ``backward_plan``
 array for array, and a call makes no host sync.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -647,3 +651,88 @@ def test_dlrm_training_on_cuda_matches_cpu(cuda, no_tf32):
     for k in pc:
         assert float((pg[k] - pc[k]).abs().max()) <= \
             1e-5 * float(pc[k].abs().max()), k
+
+
+@pytest.mark.parametrize("k", [(1, 3, 1, 2, 1, 1, 2, 1), (4,) * 8],
+                         ids=["mixed", "four"])
+def test_column_sharded_lookup_on_cuda(cuda, k):
+    """What ``chip_smoke.py`` phase 11(c) checks at full batch, at a few
+    thousand rows: ``lookup_unsharded`` + ``combine_shard_outputs`` over a
+    column-sharded plan equals the whole-table plan's lookup bit for bit
+    (K1 pools each lane in bag order either way) and each shard's K1
+    output equals plain on its arena and rows; from one upstream
+    gradient, K1's backward per shard equals its plain replay bit for bit,
+    and every slot's gradient is held to its whole-table plan's float64
+    gradient columns by the rule above (twice plain's error + 1e-6).  The
+    column split of the arenas and the per-table gradient references are
+    the smoke's own helpers, so this test pins what it checks."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from chip_smoke import split_arenas, table_grad_refs
+    from repro_torch.core import features as F
+    from repro_torch.data.pipeline import DLRMBatchStream
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.embedding import sharded as E
+    from repro_torch.embedding.plan import build_plan
+    from repro_torch.sharding import ShardSpec
+    from repro_torch.sharding.placer import pack_shards
+    raw = make_dlrm_pool(seed=0)[:8].copy()
+    raw[:, F.HASH_SIZE] = np.minimum(raw[:, F.HASH_SIZE], 3000)
+    rows = raw[:, F.HASH_SIZE].astype(int)
+    dims = raw[:, F.DIM].astype(int)
+    spec = ShardSpec.even(raw, np.asarray(k))
+    whole_plan = build_plan(raw, np.arange(8) % 4, 4)
+    plan = build_plan(raw, pack_shards(raw, spec, 4, 1e9), 4, sharding=spec)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    whole = [a.requires_grad_() for a in E.init_arenas(
+        whole_plan, generator=gen, device=cuda)]
+    arenas = [a.requires_grad_() for a in split_arenas(
+        torch, whole_plan, [a.detach() for a in whole], plan, raw)]
+    idx = torch.from_numpy(DLRMBatchStream(raw, 1024, seed=0).batch_at(0)[
+        "indices"]).to(cuda)
+    up = torch.randn((1024, 8, plan.dim), generator=gen, device=cuda)
+
+    gidx_w = E.group_indices(whole_plan, idx)
+    out_w = E.combine_shard_outputs(whole_plan, E.lookup_unsharded(
+        whole, whole_plan.base_rows, gidx_w, whole_plan))
+    grads_w = torch.autograd.grad(out_w, whole, up)
+    gidx = E.group_indices(plan, idx)
+    n0 = embedding_bag_cuda.launches, embedding_bag_grad_cuda.launches
+    grouped = E.lookup_unsharded(arenas, plan.base_rows, gidx, plan)
+    out = E.combine_shard_outputs(plan, grouped)
+    *grads, g_grouped = torch.autograd.grad(out, [*arenas, grouped], up)
+    torch.cuda.synchronize()
+    assert (embedding_bag_cuda.launches - n0[0],
+            embedding_bag_grad_cuda.launches - n0[1]) == (4, 4)
+
+    lanes = torch.as_tensor(np.arange(plan.dim)[None, :] < dims[:, None],
+                            device=cuda)
+    _assert_bits_equal(out[:, lanes], out_w[:, lanes])
+    assert not out[:, ~lanes].any()
+
+    kk = plan.k_max
+    where = {int(t): (s, int(whole_plan.base_rows[s, j]))
+             for s, g in enumerate(whole_plan.groups) for j, t in enumerate(g)}
+    for s, g in enumerate(plan.groups):
+        shape = tuple(grads[s].shape)
+        rows_s = E.shard_rows_of(plan.base_rows[s], gidx[:, s * kk:(s + 1) * kk])
+        _assert_bits_equal(
+            grouped.detach()[:, s * kk:(s + 1) * kk].reshape(
+                rows_s.shape[0], -1),
+            embedding_bag_plain(arenas[s].detach(), rows_s))
+        g_s = g_grouped[:, s * kk:(s + 1) * kk].reshape(rows_s.shape[0], -1)
+        _assert_bits_equal(grads[s], embedding_bag_grad_replay(
+            shape, rows_s, g_s.contiguous()))
+        assert not grads[s][0].any()
+        for j in range(len(g)):
+            t = int(plan.slot_table[s, j])
+            c0, c1 = (int(c) for c in plan.slot_cols[s, j])
+            ws, wb = where[t]
+            b = int(plan.base_rows[s, j])
+            got = grads[s][b:b + rows[t], :c1 - c0]
+            whole_cols = grads_w[ws][wb:wb + rows[t], c0:c1]
+            ref64, plain = table_grad_refs(
+                torch, idx[:, t], up[:, t, c0:c1].contiguous(), int(rows[t]))
+            plain_err = float((plain.double() - ref64).abs().max())
+            for cand in (got, whole_cols):
+                err = float((cand.double() - ref64).abs().max())
+                assert err <= 2 * plain_err + 1e-6, (s, t, c0, c1)

@@ -43,7 +43,10 @@ def test_port_modules_found():
     assert "repro_torch.core.replay" in MODULES
     assert "repro_torch.profiling.calibration" in MODULES
     for m in ("configs.dlrm", "data.pipeline", "embedding.sharded",
-              "models.dlrm", "launch.train_dlrm", "profiling.collectives"):
+              "models.dlrm", "launch.train_dlrm", "profiling.collectives",
+              "core.mdp", "search", "search.scoring", "search.strategies",
+              "search.placer", "sharding", "sharding.spec",
+              "sharding.placer"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 

@@ -23,7 +23,6 @@ import os
 import subprocess
 import sys
 import time
-import types
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +35,13 @@ from repro.data.synthetic import make_dlrm_pool as j_make_dlrm_pool
 from repro.embedding import sharded as JE
 from repro.embedding.plan import build_plan as j_build_plan
 from repro.profiling import collectives as JCO
+from repro.sharding import ShardSpec as JShardSpec
 from repro_torch.core import features as F
 from repro_torch.data.synthetic import make_dlrm_pool
 from repro_torch.embedding import sharded as E
 from repro_torch.embedding.plan import build_plan
 from repro_torch.profiling import collectives as CO
+from repro_torch.sharding import ShardSpec
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 M, B, P = 8, 16, 5
@@ -158,10 +159,18 @@ def test_combine_shard_outputs_matches_the_reference(setup):
     want = np.asarray(JE.combine_shard_outputs(jplan, jnp.asarray(grouped)))
     got = E.combine_shard_outputs(plan, torch.from_numpy(grouped))
     np.testing.assert_array_equal(got.numpy(), want)
-    sharded = types.SimpleNamespace(**vars(plan),
-                                    slot_cols=np.zeros((4, plan.k_max, 2)))
-    with pytest.raises(NotImplementedError, match="queue item 5"):
-        E.combine_shard_outputs(sharded, torch.from_numpy(grouped))
+    # the same tables as column shards that span them (the trivial spec)
+    # take the reference's column scatter: the lanes past a table's dim
+    # come back zero
+    raw = _raw()
+    sharded = build_plan(raw, plan.assignment, 4,
+                         sharding=ShardSpec.trivial(raw))
+    jsharded = j_build_plan(raw, plan.assignment, 4,
+                            sharding=JShardSpec.trivial(raw))
+    want = np.asarray(JE.combine_shard_outputs(jsharded,
+                                               jnp.asarray(grouped)))
+    got = E.combine_shard_outputs(sharded, torch.from_numpy(grouped))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 _WORKER = r"""

@@ -114,6 +114,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    arena and rows, and from one upstream gradient K1's backward per
    shard bit-equal to its plain replay and every slot held to its table's
    float64 gradient columns by phase 3b's rule.
+12. (after phase 11) placement serving over phase 8's trained agent (16
+   candidates, decoding on the card) and its ``KernelOracle``: (a) b11's
+   paper regime (12 jobs x 50 tables, 4 devices, 1500 requests + 8 tail
+   jobs, drift 0.8) through ``PlacementService`` under the ``drift``,
+   ``never`` and ``always`` policies, beside the cold leg
+   (``session.place`` on the first 300 requests): every request served
+   with a legal placement from the cache or a decode, no decode raised, hit
+   rate >= 0.5 in each leg, warm-hit p50 >= 20x under cold p50, and a
+   zero-drift replay bit-equal to ``place_many``; (b) b12's paper regime
+   at 8 devices under its committed faults (device 1 lost at request 750
+   and back at 1200, oracle errors at 400 and 900, 50 ms decode spikes at
+   300 and 1350 against a 25 ms deadline) on b12's virtual clock: every
+   request a legal placement or a typed error, no exception out of
+   ``submit``, no decode raised, no fallback that a deadline skip does
+   not explain, recovery moving <= 0.25 of a scratch rebuild's bytes, and
+   the service saved at request 1000 and restored into a fresh one
+   serving the rest of the trace as the uninterrupted one does; (c) the
+   hottest b11 job's first decode and last drift re-placement, and one
+   evacuated b12 entry before the loss and after its failover, timed
+   live with K1 (``measure_placement``) beside the oracle's price, and K1
+   and its backward held to plain at each device's shapes and indices of
+   each of these four placements.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -1732,14 +1754,15 @@ def _search_spend(np, placements, seeds) -> dict:
         np.mean(hw))}
 
 
-def placement_kernel_checks(torch, K, task, assignment) -> list:
+def placement_kernel_checks(torch, K, task, assignment,
+                            label: str = "a search placement") -> list:
     """K1 and its backward at the shapes ``measure_placement`` gives them
     for one placement (batch 65536, each table's own pooling, rows capped
     at 2^20): each used device's arena shape and its very indices
     (``placement_inputs``), with a normal arena (row 0 zero) and a normal
     upstream gradient in place of the zeros and ones it times, held by
-    ``k1_case_check``.  The launches made here are taken back off the
-    counts."""
+    ``k1_case_check``; ``label`` names the placement in a failure.  The
+    launches made here are taken back off the counts."""
     from repro_torch.profiling.microbench import placement_inputs
     counts = (K.embedding_bag_cuda.launches,
               K.embedding_bag_grad_cuda.launches)
@@ -1756,7 +1779,7 @@ def placement_kernel_checks(torch, K, task, assignment) -> list:
         out.append({"device": d, "rows": shape[0],
                     "bags": int(idx.shape[0]), "pool": int(idx.shape[1]),
                     **k1_case_check(torch, K, arena, idx, g, f"device {d} "
-                                    f"of a search placement ({shape} arena, "
+                                    f"of {label} ({shape} arena, "
                                     f"{tuple(idx.shape)} indices)")})
         del arena, idx, g
         torch.cuda.empty_cache()
@@ -2156,6 +2179,552 @@ def phase_search_shard(torch, np, K, counters, ctx, summary: dict) -> dict:
         "placements)")
     return {"search": search_launches, "sharded lookup": lookup["launches"]}
 
+# phase 12: b11's and b12's paper regimes (``benchmarks/b11_serve.py:68-75``,
+# ``benchmarks/b12_resilience.py:83-95``), the same trace at 4 and 8 devices
+SERVE_TRAFFIC = dict(n_jobs=12, n_tables=50, n_requests=1500, drift=0.8,
+                     zipf=1.0, tail_jobs=8, seed=0)
+SERVE_ADMISSION = dict(max_wait_ms=2.0, max_batch=8, ewma_alpha=0.3,
+                       replace_max_evals=96, replace_budget_ms=None, seed=0)
+SERVE_THRESHOLD = 0.05           # max per-table TV distance (b11 "drift")
+SERVE_MS_PER_GB = 25.0           # migration term and b11's accounting charge
+SERVE_COLD_REQUESTS = 300        # b11's cold leg, cut to the trace's first 300
+MIN_HIT_RATE = 0.5               # b11's limits
+HIT_SPEEDUP_P50 = 20.0
+MAX_RECOVERY_RATIO = 0.25        # b12's limit
+FAULTS = dict(loss_device=1, loss_at=750, recover_at=1200,
+              oracle_error_at=(400, 900), oracle_error_count=2,
+              spike_at=(300, 1350), spike_ms=50.0, checkpoint_at=1000,
+              deadline_ms=25.0, failover_max_evals=96)
+
+
+class VirtualClock:
+    """b12's time source: one 1 ms quantum a request, so admission (and
+    with it every drift trigger) replays bit for bit."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def tick(self) -> None:
+        self.t += 1e-3
+
+
+def _quantiles(np, ms: list) -> dict:
+    if not ms:
+        return {"p50_ms": None, "p99_ms": None}
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _ms(v) -> str:
+    return "none" if v is None else f"{v:.4f}"
+
+
+def _span_ms(tele) -> dict:
+    """{span name: [ms, ...]} of the spans recorded since the last reset."""
+    out: dict = {}
+    for name, _ts, dur_us, *_rest in tele.get_tracer().snapshot_events():
+        out.setdefault(name, []).append(dur_us / 1e3)
+    return out
+
+
+def _serve_config(policy: str, **extra):
+    """b11's ``_serve_cfg``: ``drift`` (threshold 0.05, 25 ms/GB),
+    ``never`` (no re-placement), ``always`` (any movement, free moves)."""
+    from repro_torch.serve import ServeConfig
+    threshold = {"drift": SERVE_THRESHOLD, "never": None,
+                 "always": 0.0}[policy]
+    return ServeConfig(drift_threshold=threshold,
+                       migration_ms_per_gb=(0.0 if policy == "always"
+                                            else SERVE_MS_PER_GB),
+                       **SERVE_ADMISSION, **extra)
+
+
+def serve_cold_leg(np, agent, trace) -> dict:
+    """b11's no-service strawman: ``session.place`` on each of the trace's
+    first ``SERVE_COLD_REQUESTS`` requests (every one costs a full decode
+    of the same shape), the session warmed first."""
+    from repro_torch.api import PlacementSession
+    from repro_torch.data.tasks import Task
+    session = PlacementSession(agent)
+    session.place(Task.of(trace[0].raw_features, trace[0].n_devices))
+    ms = []
+    t0 = time.perf_counter()
+    for r in trace[:SERVE_COLD_REQUESTS]:
+        t = time.perf_counter()
+        session.place(Task.of(r.raw_features, r.n_devices))
+        ms.append((time.perf_counter() - t) * 1e3)
+    return {**_quantiles(np, ms), "requests": len(ms),
+            "wall_s": time.perf_counter() - t0}
+
+
+def serve_leg(np, tele, agent, oracle, trace, policy: str) -> dict:
+    """One b11 leg on the card: the trace through ``PlacementService``
+    (the agent decodes on the card, the oracle is phase 8's
+    ``KernelOracle``).  Every request must be served from the cache or a
+    decode (a healthy leg explains no fallback), with a legal placement;
+    no decode may raise.  Returns the leg's row, its results and its
+    service."""
+    from repro_torch.serve import PlacementService
+    tele.reset()
+    tele.enable()
+    svc = PlacementService(agent, oracle=oracle, config=_serve_config(policy))
+    done = []
+    t0 = time.perf_counter()
+    for i, r in enumerate(trace):
+        done += svc.submit(r.raw_features, r.n_devices, tag=i)
+    done += svc.flush()
+    wall = time.perf_counter() - t0
+    spans = _span_ms(tele)
+    tele.disable()
+    stats = svc.stats()
+    check(sorted(r.tag for r in done) == list(range(len(trace))),
+          f"serve {policy}: {len(done)} results for {len(trace)} requests")
+    check(stats["decode_errors"] == 0,
+          f"serve {policy}: {stats['decode_errors']} decodes raised")
+    sources = {}
+    placements = [None] * len(trace)
+    hit_ms, decode_ms, all_ms = [], [], []
+    for res in done:
+        sources[res.source] = sources.get(res.source, 0) + 1
+        placements[res.tag] = res.placement
+        all_ms.append(res.latency_ms)
+        if res.source == "cache":
+            if not res.replaced:
+                hit_ms.append(res.latency_ms)
+        else:
+            decode_ms.append(res.latency_ms)
+    check(set(sources) <= {"cache", "decode"} and stats["repairs"] == 0
+          and not any(stats["fallbacks"].values()),
+          f"serve {policy}: a healthy leg served {sources}, fallbacks "
+          f"{stats['fallbacks']}")
+    check(stats["hit_rate"] >= MIN_HIT_RATE,
+          f"serve {policy}: hit rate {stats['hit_rate']:.4f}")
+    request_ms = []
+    for r, p in zip(trace, placements):
+        check(oracle.legal(r.raw_features, p.assignment, r.n_devices),
+              f"serve {policy}: an illegal placement was served")
+        request_ms.append(oracle.evaluate(r.raw_features, p.assignment,
+                                          r.n_devices).overall)
+    request_sum = float(np.sum(request_ms))
+    migration_ms = SERVE_MS_PER_GB * stats["bytes_moved_gb"]
+    row = {"policy": policy, "hit_rate": stats["hit_rate"],
+           "hits": stats["hits"], "coalesced": stats["coalesced"],
+           "decode_batches": stats["decode_batches"],
+           "decoded_tasks": stats["decoded_tasks"],
+           "replace_events": stats["replace_events"],
+           "migrations": stats["migrations"],
+           "bytes_moved_gb": stats["bytes_moved_gb"],
+           "hit": _quantiles(np, hit_ms), "decode": _quantiles(np, decode_ms),
+           "overall": _quantiles(np, all_ms), "wall_s": wall,
+           "requests_per_s": len(trace) / wall,
+           "request_cost_sum_ms": request_sum,
+           "migration_charge_ms": migration_ms,
+           "end_to_end_cost_ms": request_sum + migration_ms,
+           "time_split_ms": {
+               "serve.flush": float(sum(spans.get("serve.flush", []))),
+               "session.decode": float(sum(spans.get("session.decode", []))),
+               "serve.replace": float(sum(spans.get("serve.replace", []))),
+               "pure hits": float(sum(hit_ms))},
+           "spans": {k: len(spans.get(k, [])) for k in (
+               "serve.flush", "session.decode", "serve.replace")},
+           "sources": sources}
+    return {"row": row, "done": done, "service": svc}
+
+
+def serve_determinism(np, agent, pool) -> dict:
+    """b11's determinism: a zero-drift trace (4 requests a job) through the
+    service returns bitwise ``PlacementSession.place_many``'s
+    assignments, on the card."""
+    from repro_torch.api import PlacementSession
+    from repro_torch.data.tasks import Task
+    from repro_torch.data.traffic import TrafficConfig, make_trace
+    from repro_torch.serve import PlacementService
+    cfg = TrafficConfig(n_jobs=SERVE_TRAFFIC["n_jobs"],
+                        n_tables=SERVE_TRAFFIC["n_tables"], n_devices=4,
+                        n_requests=4 * SERVE_TRAFFIC["n_jobs"], drift=0.0,
+                        zipf=SERVE_TRAFFIC["zipf"], seed=SERVE_TRAFFIC["seed"])
+    trace = make_trace(pool, cfg)
+    svc = PlacementService(agent, config=_serve_config("drift"))
+    done = []
+    for i, r in enumerate(trace):
+        done += svc.submit(r.raw_features, r.n_devices, tag=i)
+    done += svc.flush()
+    served = {res.tag: res.placement for res in done}
+    first = {}
+    for i, r in enumerate(trace):
+        first.setdefault(r.job, i)
+    jobs = sorted(first)
+    reference = PlacementSession(agent).place_many(
+        [Task.of(trace[first[j]].raw_features, 4) for j in jobs])
+    identical = all(np.array_equal(served[first[j]].assignment,
+                                   ref.assignment)
+                    for j, ref in zip(jobs, reference))
+    identical = identical and all(
+        np.array_equal(served[i].assignment,
+                       served[first[r.job]].assignment)
+        for i, r in enumerate(trace))
+    return {"requests": len(trace), "replaces": svc.replace_events,
+            "decode_errors": svc.decode_errors,
+            "zero_drift_identical": bool(identical
+                                         and svc.replace_events == 0)}
+
+
+def serve_b11(np, tele, ctx, pool) -> dict:
+    """(a) b11's paper regime on the card: the cold leg, the three drift
+    policies, the zero-drift determinism; and the hottest job's first
+    decoded and last drift-refined placements, for (c)."""
+    from repro_torch.data.traffic import TrafficConfig, make_trace
+    agent, oracle = ctx["agent"], ctx["oracle"]
+    trace = make_trace(pool, TrafficConfig(n_devices=4, **SERVE_TRAFFIC))
+    cold = serve_cold_leg(np, agent, trace)
+    log(f"[serve b11] {len(trace)} requests (12 jobs x 50 tables, 4 "
+        f"devices, drift 0.8, 8 tail jobs); cold session.place on "
+        f"{cold['requests']}: p50 {cold['p50_ms']:.4f} ms, p99 "
+        f"{cold['p99_ms']:.4f} ms, {cold['wall_s']:.2f} s")
+    legs, runs = {}, {}
+    for policy in ("drift", "never", "always"):
+        runs[policy] = serve_leg(np, tele, agent, oracle, trace, policy)
+        row = legs[policy] = runs[policy]["row"]
+        split = row["time_split_ms"]
+        q = {k: " ".join(f"{p} {_ms(row[k][p + '_ms'])}"
+                         for p in ("p50", "p99"))
+             for k in ("hit", "decode", "overall")}
+        log(f"[serve b11] {policy}: hit rate {row['hit_rate']:.4f} "
+            f"({row['coalesced']} coalesced, {row['decode_batches']} "
+            f"flushes, {row['decoded_tasks']} decoded); pure hit {q['hit']} "
+            f"ms; decode {q['decode']} ms; overall {q['overall']} ms; "
+            f"{row['replace_events']} "
+            f"re-placements, {row['migrations']} migrations, "
+            f"{row['bytes_moved_gb']:.4f} GB moved; "
+            f"{row['requests_per_s']:.1f} requests/s; end-to-end cost "
+            f"{row['end_to_end_cost_ms']:.2f} ms (requests "
+            f"{row['request_cost_sum_ms']:.2f} + migration "
+            f"{row['migration_charge_ms']:.2f})")
+        log(f"[serve b11] {policy} time split of {row['wall_s']:.2f} s: "
+            f"serve.flush {split['serve.flush']:.1f} ms "
+            f"({row['spans']['serve.flush']} spans; session.decode "
+            f"{split['session.decode']:.1f}), serve.replace "
+            f"{split['serve.replace']:.1f} ms "
+            f"({row['spans']['serve.replace']}), pure hits "
+            f"{split['pure hits']:.1f} ms")
+    determinism = serve_determinism(np, agent, pool)
+    check(determinism["decode_errors"] == 0, "determinism: a decode raised")
+    check(determinism["zero_drift_identical"],
+          "a zero-drift replay is not place_many's, bit for bit")
+    hit_p50 = legs["drift"]["hit"]["p50_ms"]
+    speedup = cold["p50_ms"] / hit_p50
+    check(speedup >= HIT_SPEEDUP_P50,
+          f"warm hits p50 only {speedup:.1f}x under cold place")
+    beats = (legs["drift"]["end_to_end_cost_ms"]
+             < legs["never"]["end_to_end_cost_ms"]
+             and legs["drift"]["bytes_moved_gb"]
+             < legs["always"]["bytes_moved_gb"])
+    log(f"[serve b11] zero-drift replay bit-equal to place_many "
+        f"({determinism['requests']} requests); warm-hit p50 "
+        f"{speedup:.1f}x under cold; drift beats never on end-to-end cost "
+        f"while moving fewer bytes than always: {beats} (printed, not "
+        "checked)")
+    # the hottest job's first decode and last drift re-placement, for (c)
+    counts = np.bincount([r.job for r in trace])
+    hot = int(np.argmax(counts))
+    mine = [res for res in runs["drift"]["done"]
+            if trace[res.tag].job == hot]
+    first = next(res for res in mine if res.source == "decode")
+    refined = [res for res in mine if res.replaced]
+    check(bool(refined), f"the hottest job {hot} was never re-placed")
+    last = refined[-1]
+    picks = [("b11 hottest job: first decode", trace[first.tag].raw_features,
+              first.placement.assignment, 4),
+             ("b11 hottest job: last drift re-placement",
+              trace[last.tag].raw_features, last.placement.assignment, 4)]
+    log(f"[serve b11] hottest job {hot}: {int(counts[hot])} requests, "
+        f"{len(refined)} re-placements; its first decode at request "
+        f"{first.tag}, its last re-placement at request {last.tag} "
+        f"({int((first.placement.assignment != last.placement.assignment).sum())}"
+        " tables moved between them)")
+    return {"summary": {"cold": cold, "legs": legs,
+                        "determinism": determinism,
+                        "hit_speedup_p50": speedup,
+                        "drift_beats_never_moving_less": beats,
+                        "hot_job": hot},
+            "picks": picks}
+
+
+def _fault_schedule():
+    from repro_torch.serve import FaultEvent, FaultSchedule
+    f = FAULTS
+    events = [FaultEvent(at=f["loss_at"], kind="device_loss",
+                         device=f["loss_device"]),
+              FaultEvent(at=f["recover_at"], kind="device_recovery",
+                         device=f["loss_device"])]
+    events += [FaultEvent(at=at, kind="oracle_error",
+                          count=f["oracle_error_count"])
+               for at in f["oracle_error_at"]]
+    events += [FaultEvent(at=at, kind="decode_spike", spike_ms=f["spike_ms"])
+               for at in f["spike_at"]]
+    return FaultSchedule(tuple(events))
+
+
+def _scratch_rebuild_gb(np, svc, lost: int, capacity_gb: float) -> dict:
+    """b12's comparator: the cached placements that touch the lost device
+    rebuilt from scratch (greedy size balance over the survivors), bytes
+    counted against the incumbent each replaces."""
+    from repro_torch.core import features as F
+    from repro_torch.core.baselines import expert_place
+    scratch_gb, total_gb, affected = 0.0, 0.0, 0
+    for _, e in svc.cache.items():
+        a = e.placement.assignment
+        if not (a == lost).any() or e.raw is None:
+            continue
+        affected += 1
+        survivors = np.array([d for d in range(e.placement.n_devices)
+                              if d != lost])
+        sizes = e.raw[:, F.TABLE_SIZE_GB]
+        rebuilt = survivors[expert_place(e.raw, survivors.size, capacity_gb,
+                                         "size")]
+        scratch_gb += float(((rebuilt != a) * sizes).sum())
+        total_gb += float(sizes.sum())
+    return {"affected_entries": affected, "scratch_bytes_gb": scratch_gb,
+            "affected_total_gb": total_gb}
+
+
+def _same_result(np, a, b) -> bool:
+    return (a.tag == b.tag and a.source == b.source
+            and a.degraded == b.degraded
+            and (a.error.code if a.error else None)
+            == (b.error.code if b.error else None)
+            and (a.placement is None) == (b.placement is None)
+            and (a.placement is None or np.array_equal(
+                a.placement.assignment, b.placement.assignment)))
+
+
+def serve_b12(np, tele, ctx, pool) -> dict:
+    """(b) b12's paper regime on the card: the trace at 8 devices under the
+    committed fault schedule, on b12's virtual clock; saved at request
+    1000 and restored into a fresh service, both finishing the trace.
+    Fails on an exception out of ``submit``/``flush``, a request without
+    a legal placement or a typed error, a decode that raised, a fallback
+    its flush's deadline skip does not explain, a placement on the lost
+    device while the outage lasts (by the submit that served it, as b12
+    counts it), recovery moving more than 0.25 of the scratch rebuild's
+    bytes, or a restored service that serves otherwise.
+    Returns the summary and one evacuated entry's placements for (c)."""
+    import tempfile
+    from repro_torch.data.traffic import TrafficConfig, make_trace
+    from repro_torch.serve import FaultInjector, PlacementService
+    f = FAULTS
+    agent, oracle = ctx["agent"], ctx["oracle"]
+    trace = make_trace(pool, TrafficConfig(n_devices=8, **SERVE_TRAFFIC))
+    cfg = _serve_config("drift", failover_max_evals=f["failover_max_evals"],
+                        decode_deadline_ms=f["deadline_ms"],
+                        oracle_retries=2)
+    clock = VirtualClock()
+    tele.reset()
+    tele.enable()
+    svc = PlacementService(agent, oracle=oracle, config=cfg, clock=clock,
+                           faults=FaultInjector(_fault_schedule()))
+    restored, done, rdone, cut = None, [], [], None
+    uncaught, unexplained = [], []
+    before, evacuated, scratch, recovery_ms = {}, [], None, None
+    completed_at = {}              # tag -> index of the submit that served it
+
+    def submit(service, r, i, sink):
+        try:
+            sink += service.submit(r.raw_features, r.n_devices, tag=i)
+        except Exception as e:          # b12 counts these; one fails the run
+            uncaught.append(f"request {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, r in enumerate(trace):
+            if i == f["checkpoint_at"]:
+                path = os.path.join(tmp, "serve_state")
+                svc.save(path)
+                restored = PlacementService.restore(
+                    path, agent=agent, oracle=oracle, config=cfg,
+                    clock=clock, faults=FaultInjector(_fault_schedule()))
+                cut = len(done)
+            clock.tick()
+            if i == f["loss_at"]:
+                scratch = _scratch_rebuild_gb(np, svc, f["loss_device"],
+                                              oracle.mem_capacity_gb)
+                before = {k: (e.placement, e.raw)
+                          for k, e in svc.cache.items()}
+                t_loss = time.perf_counter()
+            skips, n0 = svc.deadline_skips, len(done)
+            submit(svc, r, i, done)
+            completed_at.update((res.tag, i) for res in done[n0:])
+            if i == f["loss_at"]:
+                recovery_ms = (time.perf_counter() - t_loss) * 1e3
+                evacuated = [(e.requests, before[k], e.placement)
+                             for k, e in svc.cache.items()
+                             if k in before and (before[k][0].assignment
+                                                 == f["loss_device"]).any()]
+            explained = svc.deadline_skips > skips
+            unexplained += [res.tag for res in done[n0:]
+                            if res.source == "fallback" and not explained]
+            if restored is not None:
+                submit(restored, r, i, rdone)
+        skips, n0 = svc.deadline_skips, len(done)
+        done += svc.flush()
+        completed_at.update((res.tag, len(trace)) for res in done[n0:])
+        unexplained += [res.tag for res in done[n0:]
+                        if res.source == "fallback"
+                        and svc.deadline_skips == skips]
+        rdone += restored.flush()
+    wall = time.perf_counter() - t0
+    failover_ms = _span_ms(tele).get("serve.failover", [])  # host clock
+    tele.disable()
+    stats = svc.stats()
+    check(not uncaught, f"serve b12: exceptions out of submit: {uncaught}")
+    by_source, illegal, on_lost = {}, 0, 0
+    for res in done:
+        by_source[res.source] = by_source.get(res.source, 0) + 1
+        if res.placement is not None:
+            r = trace[res.tag]
+            illegal += not oracle.legal(r.raw_features,
+                                        res.placement.assignment, 8)
+            if f["loss_at"] <= completed_at[res.tag] < f["recover_at"] and \
+                    (res.placement.assignment == f["loss_device"]).any():
+                on_lost += 1
+    served = sum(1 for r in done
+                 if r.placement is not None or r.error is not None)
+    check(sorted(r.tag for r in done) == list(range(len(trace)))
+          and served == len(trace),
+          f"serve b12: {served} of {len(trace)} requests served")
+    check(illegal == 0, f"serve b12: {illegal} illegal placements")
+    check(on_lost == 0, f"serve b12: {on_lost} placements on the lost "
+          "device during the outage")
+    check(stats["decode_errors"] == 0,
+          f"serve b12: {stats['decode_errors']} decodes raised")
+    check(not unexplained and stats["deadline_skips"] <= len(f["spike_at"]),
+          f"serve b12: fallbacks no deadline skip explains: {unexplained}; "
+          f"{stats['deadline_skips']} skips")
+    recovery_gb = stats["failover_bytes_gb"]
+    ratio = recovery_gb / scratch["scratch_bytes_gb"]
+    check(ratio <= MAX_RECOVERY_RATIO,
+          f"serve b12: recovery moved {ratio:.4f} of the scratch bytes")
+    check(len(rdone) == len(done) - cut and all(
+        _same_result(np, a, b) for a, b in zip(done[cut:], rdone)),
+        "serve b12: the restored service serves otherwise than the "
+        "uninterrupted one")
+    # the most requested evacuated entry: its placement just before the
+    # loss and its failover placement, for (c)
+    check(bool(evacuated), "serve b12: no cached entry was evacuated")
+    _, (p_before, raw), p_after = max(evacuated, key=lambda m: m[0])
+    check(not (p_after.assignment == f["loss_device"]).any(),
+          "serve b12: the failover placement uses the lost device")
+    picks = [("b12 evacuated entry: before the loss", raw,
+              p_before.assignment, 8),
+             ("b12 evacuated entry: failover on 7 survivors", raw,
+              p_after.assignment, 8)]
+    summary = {
+        "requests": len(trace), "served_fraction": served / len(trace),
+        "uncaught": len(uncaught), "by_source": by_source,
+        "illegal_placements": illegal, "outage_on_lost": on_lost,
+        "recovery": {**scratch, "recovery_bytes_gb": recovery_gb,
+                     "recovery_ratio": ratio,
+                     "recovery_latency_ms": recovery_ms},
+        "evacuations": stats["evacuations"],
+        "evacuation_failures": stats["evacuation_failures"],
+        "failover_bytes_gb": stats["failover_bytes_gb"],
+        "failover_span_ms": failover_ms,
+        "fallbacks": stats["fallbacks"], "repairs": stats["repairs"],
+        "deadline_skips": stats["deadline_skips"],
+        "retries": stats["retries"],
+        "retry_exhausted": stats["retry_exhausted"],
+        "typed_errors": stats["typed_errors"],
+        "replace_events": stats["replace_events"],
+        "wall_s": wall, "checkpoint_at": f["checkpoint_at"],
+        "restored_results": len(rdone), "warm_restart_identical": True}
+    log(f"[serve b12] {len(trace)} requests at 8 devices, device "
+        f"{f['loss_device']} lost at {f['loss_at']} and back at "
+        f"{f['recover_at']}: served {served}/{len(trace)} ({by_source}), "
+        f"no exception; {stats['evacuations']} evacuations "
+        f"({stats['evacuation_failures']} failed), failover "
+        f"{recovery_gb:.4f} GB against a scratch rebuild's "
+        f"{scratch['scratch_bytes_gb']:.4f} GB (ratio {ratio:.4f}, limit "
+        f"{MAX_RECOVERY_RATIO}); serve.failover span "
+        f"{[round(v, 3) for v in failover_ms]} ms; the loss's submit "
+        f"{recovery_ms:.2f} ms")
+    log(f"[serve b12] fallbacks {stats['fallbacks']} (deadline skips "
+        f"{stats['deadline_skips']}), repairs {stats['repairs']}, retries "
+        f"{stats['retries']} ({stats['retry_exhausted']} exhausted), typed "
+        f"errors {stats['typed_errors']}, decode errors 0, "
+        f"{stats['replace_events']} re-placements; {wall:.2f} s for both "
+        f"services; restored at request {f['checkpoint_at']}: "
+        f"{len(rdone)} results, each the uninterrupted service's")
+    return {"summary": summary, "picks": picks}
+
+
+def serve_live(np, ctx, picks) -> list:
+    """(c) the served placements timed live with K1 (``measure_placement``
+    at batch 65536, each table's own pooling, rows capped at 2^20) beside
+    the oracle's price against the request's true features."""
+    from repro_torch.profiling.microbench import measure_placement
+    oracle = ctx["oracle"]
+    out = []
+    for label, raw, a, n_devices in picks:
+        est = oracle.evaluate(raw, a, n_devices)
+        res = measure_placement(raw, a, n_devices, batch_size=BATCH,
+                                pooling=None, max_rows=MAX_ROWS,
+                                device="cuda")
+        check(math.isfinite(res.overall), "finite live cost")
+        rel = est.overall / res.overall - 1
+        out.append({"placement": label, "n_devices": n_devices,
+                    "assignment": np.asarray(a).tolist(),
+                    "live_ms": res.overall, "oracle_ms": est.overall,
+                    "rel_err": rel, "live_fwd_ms": res.fwd_comp.tolist(),
+                    "live_bwd_ms": res.bwd_comp.tolist()})
+        log(f"[serve live] {label}: live {res.overall:.4f} ms (fwd "
+            f"{np.round(res.fwd_comp, 3).tolist()}, bwd "
+            f"{np.round(res.bwd_comp, 3).tolist()}), KernelOracle "
+            f"{est.overall:.4f} ms: error {rel:+.2%}")
+    return out
+
+
+def phase_serving(torch, np, K, counters, ctx, summary: dict) -> dict:
+    """Placement serving on the card over phase 8's trained agent and its
+    ``KernelOracle``: (a) b11's paper regime, (b) b12's under faults with
+    a warm restart, (c) four served placements timed live with K1, and K1
+    held to plain at each of their devices' shapes and indices.  Returns
+    K1's launches on the serving path, counted from zero."""
+    from repro_torch import telemetry as tele
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import Task
+    check(ctx["agent"].device.type == "cuda", "the agent decodes on the card")
+    pool = make_dlrm_pool(seed=0)
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    b11 = serve_b11(np, tele, ctx, pool)
+    b12 = serve_b12(np, tele, ctx, pool)
+    live = serve_live(np, ctx, b11["picks"] + b12["picks"])
+    launches = {"fwd": K.embedding_bag_cuda.launches,
+                "bwd": K.embedding_bag_grad_cuda.launches}
+    check(launches["fwd"] > 0 and launches["bwd"] > 0,
+          f"the serving path launched K1 {launches}")
+    checks = {}
+    for label, raw, a, n_devices in b11["picks"] + b12["picks"]:
+        checks[label] = placement_kernel_checks(
+            torch, K, Task.of(raw, n_devices), a,
+            label=f"the served placement '{label}'")
+        log(f"[serve live] K1 at each device's shapes of {label}: forward "
+            "bit-equal to plain, backward bit-equal to its replay, its plan "
+            "to backward_plan, max |err| against float64 (plain's) " +
+            ", ".join(f"{c['bwd_err_vs_f64']:.3g} "
+                      f"({c['plain_bwd_err_vs_f64']:.3g})"
+                      for c in checks[label]))
+    log(f"[serve] K1 launches on the serving path: {launches['fwd']} "
+        f"forward, {launches['bwd']} backward (live timing of 4 served "
+        "placements)")
+    summary["placement_serving"] = {
+        "b11": b11["summary"], "b12": b12["summary"], "live": live,
+        "kernel_checks": checks, "launches": launches}
+    return launches
+
 
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
@@ -2239,6 +2808,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard_launches = run("11 search and sharding", phase_search_shard, torch,
                          np, K, counters, ctx, summary, phases=phases)
+    torch.cuda.empty_cache()
+    shard_launches["placement serving"] = run(
+        "12 placement serving", phase_serving, torch, np, K, counters, ctx,
+        summary, phases=phases)
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],

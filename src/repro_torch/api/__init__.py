@@ -19,6 +19,9 @@
 * ``SearchPlacer`` / ``SearchConfig`` (re-exported lazily from
   ``repro_torch.search``) -- anytime search refinement of any seed
   placer through the batched oracle;
+* ``PlacementService`` / ``ServeConfig`` and the serving names (re-exported
+  lazily from ``repro_torch.serve``) -- the placement cache, micro-batch
+  admission, drift re-placement and fault tolerance over a session;
 * blake2b digest helpers (``placement_key(s)`` /
   ``sharded_placement_key(s)`` / ``task_key``).
 """
@@ -42,13 +45,26 @@ from repro_torch.api.session import PlacementSession
 from repro_torch.sharding import (ShardSpec, project_assignment,
                                   shard_features, shard_sizes_gb)
 
-# ``repro_torch.search`` / ``repro_torch.sharding.placer`` import from
-# this package, so their names are re-exported lazily (PEP 562) from this
-# one registry to keep ``import repro_torch.api`` cycle-free.
+# ``repro_torch.search`` / ``repro_torch.serve`` /
+# ``repro_torch.sharding.placer`` import from this package, so their names
+# are re-exported lazily (PEP 562) from this one registry to keep
+# ``import repro_torch.api`` cycle-free.
 _LAZY = {
     "SearchConfig": "repro_torch.search",
     "SearchPlacer": "repro_torch.search",
     "SearchScorer": "repro_torch.search",
+    "CapacityError": "repro_torch.serve",
+    "DecodeTimeout": "repro_torch.serve",
+    "FaultEvent": "repro_torch.serve",
+    "FaultInjector": "repro_torch.serve",
+    "FaultSchedule": "repro_torch.serve",
+    "IllegalTaskError": "repro_torch.serve",
+    "PlacementCache": "repro_torch.serve",
+    "PlacementService": "repro_torch.serve",
+    "ServeConfig": "repro_torch.serve",
+    "ServeError": "repro_torch.serve",
+    "ServeResult": "repro_torch.serve",
+    "TransientOracleError": "repro_torch.serve",
     "ShardingConfig": "repro_torch.sharding",
     "ShardingPlacer": "repro_torch.sharding",
     "refine_sharded": "repro_torch.sharding",

@@ -5,7 +5,9 @@
 numbers, as ``jax.tree_util`` flattens them); ``meta.json`` maps each key
 to its dtype, with bfloat16 stored as a ``uint16`` view.  Checkpoints
 written here restore with ``repro.checkpoint.restore_pytree`` and the
-other way round.
+other way round.  ``save_state`` / ``load_state`` are the serving state's
+versioned envelope (``state.npz`` + ``state.json``), also the reference's
+format both ways.
 """
 
 from __future__ import annotations
@@ -77,3 +79,40 @@ def restore_pytree(template, path: str):
                     torch.bfloat16)
             flat[k] = arr
     return _unflatten(template, flat)
+
+
+# ---- versioned state envelopes (service crash recovery) ----------------------
+
+STATE_VERSION = 1
+
+
+def save_state(path: str, arrays: dict, meta: dict):
+    """Versioned state checkpoint: named numpy arrays (``state.npz``) plus
+    a JSON metadata envelope (``state.json``), the reference's format, so
+    a state written by either package loads in the other.  For *service*
+    state -- heterogeneous arrays plus JSON-serializable metadata --
+    where ``save_pytree`` is for template-shaped parameters."""
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "state.npz"),
+             **{k: np.asarray(v) for k, v in arrays.items()})
+    envelope = {"state_version": STATE_VERSION, "meta": meta}
+    with open(os.path.join(path, "state.json"), "w") as fh:
+        json.dump(envelope, fh)
+
+
+def load_state(path: str) -> tuple[dict, dict]:
+    """Load a ``save_state`` checkpoint -> ``(arrays, meta)``.
+
+    Raises ``ValueError`` on an unknown ``state_version``: a crashed
+    process must not warm-restart from a checkpoint it cannot decode.
+    """
+    with open(os.path.join(path, "state.json")) as fh:
+        envelope = json.load(fh)
+    version = envelope.get("state_version")
+    if version != STATE_VERSION:
+        raise ValueError(
+            f"unsupported state checkpoint version {version!r} "
+            f"(this build reads version {STATE_VERSION})")
+    with np.load(os.path.join(path, "state.npz")) as data:
+        arrays = {k: np.array(data[k]) for k in data.files}
+    return arrays, envelope["meta"]

@@ -2,7 +2,7 @@
 ``repro/profiling/calibrate.py``.
 
   PYTHONPATH=src python -m repro_torch.profiling.calibrate [--smoke]
-      [--out PATH] [--device cuda|cpu]
+      [--out PATH] [--device cuda|cpu] [--trace PATH]
 
 Sweeps the embedding-bag kernels (K1's forward and backward on the card,
 the default; their plain versions with ``--device cpu``) over a ``(dim,
@@ -74,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--force", action="store_true",
                     help="re-measure even if a matching artifact exists")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record telemetry during the sweep and export a "
+                         "trace on exit (.jsonl -> event log, else Chrome "
+                         "trace JSON)")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -118,6 +122,13 @@ def _up_to_date(path: str, grid: dict, fused_cfg: tuple | None,
 
 
 def main(argv=None) -> int:
+    from repro_torch import telemetry as tele
+    args = build_parser().parse_args(argv)
+    with tele.trace_to(args.trace, quiet=args.quiet):
+        return _main_impl(args)
+
+
+def _main_impl(args) -> int:
     import warnings
     from repro_torch import telemetry as tele
     from repro_torch.device import resolve_device
@@ -128,7 +139,6 @@ def main(argv=None) -> int:
                                                    DEFAULT_SHARD_FRACS,
                                                    DEFAULT_SHARD_PER_FRAC,
                                                    load_or_none)
-    args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     grid = _resolve_grid(args)
     say = (lambda *a: None) if args.quiet else \

@@ -9,8 +9,10 @@ the default device of the entry points, a tiny ``KernelOracle``
 calibration on the card (it launches K1), one training iteration on
 the card against the CPU on the cost stage, the distributed embedding
 lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``),
-three DLRM training steps on the card against the CPU (1e-5 relative)
-and a column-sharded lookup against the whole-table plan's.
+three DLRM training steps on the card against the CPU (1e-5 relative),
+a column-sharded lookup against the whole-table plan's, and b11's quick
+serving regime replayed through ``PlacementService`` on the card against
+the CPU, with a JSONL trace of a served replay.
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -736,3 +738,112 @@ def test_column_sharded_lookup_on_cuda(cuda, k):
             for cand in (got, whole_cols):
                 err = float((cand.double() - ref64).abs().max())
                 assert err <= 2 * plain_err + 1e-6, (s, t, c0, c1)
+
+
+# ---- placement serving on the card -------------------------------------------
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance_ms(self, ms: float) -> None:
+        self.t += ms / 1e3
+
+
+@pytest.fixture(scope="module")
+def serve_agents(tmp_path_factory):
+    """A tiny port agent with greedy decode, trained on the CPU, saved and
+    restored onto the card: ``(cpu agent, cuda agent)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.api import SimOracle
+    from repro_torch.core.trainer import DreamShard, DreamShardConfig
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import sample_tasks, split_pool
+    pool = make_dlrm_pool(seed=0)
+    ids, _ = split_pool(pool, seed=0)
+    train = sample_tasks(pool, ids, 12, 4, 2, seed=1)
+    cfg = DreamShardConfig(n_iterations=1, n_collect=4, n_cost=20,
+                           n_batch=16, n_rl=2, n_episode=4,
+                           inference_candidates=1)
+    cpu = DreamShard(train, SimOracle(seed=0), cfg, device="cpu")
+    cpu.train()
+    path = str(tmp_path_factory.mktemp("serve_agent"))
+    cpu.save(path)
+    gpu = DreamShard(train, SimOracle(seed=0), cfg, device="cuda")
+    gpu.restore(path)
+    return cpu, gpu
+
+
+def _b11_quick_replay(agent):
+    """b11's quick regime (drift policy) on a 1 ms-a-request clock."""
+    from repro_torch.api import PlacementService, ServeConfig, SimOracle
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.traffic import TrafficConfig, make_trace
+    trace = make_trace(make_dlrm_pool(seed=0), TrafficConfig(
+        n_jobs=6, n_tables=16, n_devices=4, n_requests=400, drift=0.8,
+        zipf=1.0, tail_jobs=4, seed=0))
+    clock = FakeClock()
+    svc = PlacementService(agent, oracle=SimOracle(seed=0), clock=clock,
+                           config=ServeConfig(
+                               max_wait_ms=2.0, max_batch=8, ewma_alpha=0.3,
+                               drift_threshold=0.05,
+                               migration_ms_per_gb=25.0,
+                               replace_max_evals=64, seed=0))
+    done = []
+    for i, r in enumerate(trace):
+        clock.advance_ms(1.0)
+        done += svc.submit(r.raw_features, r.n_devices, tag=i)
+    done += svc.flush()
+    return trace, done, svc
+
+
+def test_serving_on_cuda_matches_cpu(serve_agents, no_tf32):
+    """The b11 quick replay with the agent on the card equals the replay
+    on the CPU request for request (source, ``replaced``, ``degraded``,
+    assignment).  A greedy decode that flips between the devices must be
+    a near tie: the two decoded candidates' cost-net estimates within
+    1e-5 relative; that job is then left out of the comparison."""
+    cpu, gpu = serve_agents
+    trace, cdone, csvc = _b11_quick_replay(cpu)
+    _, gdone, gsvc = _b11_quick_replay(gpu)
+    assert gsvc.stats()["decode_errors"] == 0
+    assert len(gdone) == len(cdone) == len(trace)
+    flipped = set()
+    for g, c in zip(gdone, cdone):
+        assert g.tag == c.tag
+        job = trace[g.tag].job
+        if job in flipped:
+            continue
+        if not np.array_equal(g.placement.assignment,
+                              c.placement.assignment):
+            assert g.source == c.source == "decode", (g.tag, g.source)
+            est_g, est_c = g.placement.est_cost_ms, c.placement.est_cost_ms
+            assert abs(est_g - est_c) <= 1e-5 * abs(est_c), (est_g, est_c)
+            flipped.add(job)
+            continue
+        assert (g.source, g.replaced, g.degraded) == \
+            (c.source, c.replaced, c.degraded)
+    if not flipped:
+        drop = ("latency",)
+        assert {k: v for k, v in gsvc.stats().items() if k not in drop} == \
+            {k: v for k, v in csvc.stats().items() if k not in drop}
+
+
+def test_served_replay_trace_on_cuda(serve_agents, tmp_path):
+    """A JSONL trace of a served replay on the card holds the service's
+    ``serve.flush`` spans and the session's ``session.decode`` spans."""
+    from repro_torch import telemetry as tele
+    path = str(tmp_path / "serve.jsonl")
+    with tele.trace_to(path, quiet=True):
+        _, done, svc = _b11_quick_replay(serve_agents[1])
+    tele.reset()
+    trace = tele.load_trace(path)
+    names = [s["name"] for s in trace["spans"]]
+    assert names.count("serve.flush") == svc.decode_batches > 0
+    assert names.count("session.decode") >= svc.decode_batches
+    assert trace["counters"]["serve.requests"] == len(done)

@@ -46,7 +46,10 @@ def test_port_modules_found():
               "models.dlrm", "launch.train_dlrm", "profiling.collectives",
               "core.mdp", "search", "search.scoring", "search.strategies",
               "search.placer", "sharding", "sharding.spec",
-              "sharding.placer"):
+              "sharding.placer", "serve", "serve.cache", "serve.drift",
+              "serve.errors", "serve.faults", "serve.ledger",
+              "serve.service", "data.traffic", "telemetry.sinks",
+              "telemetry.report", "launch.serve_workflow"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -135,6 +138,7 @@ def _entry(name):
     from repro_torch.configs import get_smoke
     from repro_torch.core.replay import ReplayBuffer
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve_workflow import run as serve_workflow
     from repro_torch.profiling.collectives import calibrate_comm
     from repro_torch.launch.steps import build_model
     from repro_torch.models.transformer import LM
@@ -158,6 +162,7 @@ def _entry(name):
         "serve": lambda **kw: serve(batch=1, prompt_len=4, tokens=2, **kw),
         "train_with_placement": _train_dlrm,
         "DLRM": _dlrm,
+        "serve_workflow": lambda **kw: serve_workflow(**kw),
     }[name]
 
 
@@ -167,7 +172,8 @@ def _entry(name):
                                   "KernelOracle", "ReplayBuffer",
                                   "calibrate_comm", "build_model",
                                   "LM.init_params", "serve",
-                                  "train_with_placement", "DLRM"])
+                                  "train_with_placement", "DLRM",
+                                  "serve_workflow"])
 def test_entry_points_raise_without_a_card_unless_given_cpu(name):
     entry = _entry(name)
     entry(device="cpu")                        # runs on the CPU when asked

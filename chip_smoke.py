@@ -69,7 +69,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ring and slots must give the same losses on the card and on the CPU
    within 1e-4 relative; and torch.profiler counts the device ops of a
    cost step and of a REINFORCE step and their busy share;
-10. (after phase 8) the DLRM training step over DreamShard's placement:
+8b. (after phase 8) Table 1's DLRM-50 (4) row on the card
+   (``benchmarks/table1_main.py:36-52``): (a) the RNN baseline
+   (``core/rnn_policy.RNNPlacer``) trains on the card against phase 8's
+   ``KernelOracle`` with the reference's matched budget, 50 updates of 10
+   episodes, and must consume exactly 500 oracle rows; (b) random, the
+   four experts, ``expert_best``, the RNN, DreamShard (16 candidates) and
+   DreamShard refined by lns (phase 11's configuration) place the 20 test
+   and the 16 train tasks, every placement legal, each mean priced by
+   ``MeasuredOracle`` with the speedups over random and over the best
+   baseline and ``beats_all`` (printed, not checked); (c) the RNN's and
+   ``expert_best``'s placements of test tasks 0 and 1 timed live with K1
+   (``measure_placement``) beside phase 8's trained ones, and K1 and its
+   backward held to plain at each of their devices' shapes and indices;
+   (d) one RNN update from the same converted weights, task and noise
+   on the card and on the CPU: the same episodes, gradients within 1e-4,
+   and the same greedy placements of the 20 test tasks;
+10. (after phase 8b) the DLRM training step over DreamShard's placement:
    (a) ``make_sharded_lookup`` over NCCL at one rank (NCCL takes one rank
    a card) bit-equal to ``lookup_unsharded`` on the card, forward and
    arena gradient; (b) DLRM at ``configs/dlrm.FULL``'s widths over test
@@ -1130,11 +1146,13 @@ def train_and_place(oracle, measured, train, test, seed: int,
 
     agent = DreamShard(train, oracle, DreamShardConfig(seed=seed),
                        device=device)
+    evals0 = oracle.num_evaluations
     t0 = time.perf_counter()
     history = agent.train()
     if agent.device.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    train_evals = oracle.num_evaluations - evals0
     untrained = DreamShard(train, oracle, DreamShardConfig(seed=seed),
                            device=device)
     placements = {
@@ -1147,8 +1165,9 @@ def train_and_place(oracle, measured, train, test, seed: int,
     margin = {k: mean[k] / mean["trained"] - 1 for k in ("untrained",
                                                            "random")}
     return {"agent": agent, "untrained": untrained, "history": history,
-            "train_s": train_s, "placements": placements, "costs": costs,
-            "mean": mean, "margin": margin}
+            "train_s": train_s, "train_evals": train_evals,
+            "placements": placements, "costs": costs, "mean": mean,
+            "margin": margin}
 
 
 def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
@@ -1235,8 +1254,9 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
             f"{stages[it]['cost_update']:.3f} s, rl update "
             f"{stages[it]['rl_update']:.3f} s, dispatches {h['dispatches']}")
     log(f"[train] {len(history)} iterations in {train_s:.1f} s, "
-        f"{agent.num_dispatches} dispatches, {agent.oracle.num_evaluations} "
-        "oracle evaluations")
+        f"{agent.num_dispatches} dispatches, {out['train_evals']} oracle "
+        f"rows in training ({agent.oracle.num_evaluations} on the oracle "
+        "with the calibration's probe and the placements' pricing)")
     check(len(agent.buffer) == agent.cfg.n_iterations * agent.cfg.n_collect,
           "every collected placement was measured")
 
@@ -1308,7 +1328,7 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
                             for k in ("trained", "random")}}
     # the trained agent and its oracles, for phase 11
     ctx = {"agent": agent, "oracle": oracle, "measured": measured,
-           "test": test}
+           "train": train, "test": test, "train_evals": out["train_evals"]}
     return launches, task0, ctx
 
 
@@ -1394,6 +1414,215 @@ def cost_stage_cross_device(torch, np, agent, untrained) -> dict:
     return {"steps": CROSS_STEPS, "loss_max_rel_err": rel,
             "param_max_rel_err": prel, "first_loss": float(lc[0]),
             "last_loss": float(lc[-1])}
+
+
+# phase 8b: Table 1's DLRM-50 (4) row (``benchmarks/table1_main.py:36-52``)
+RNN_EPISODES = 10                # table1_main's RNN: 10 episodes an update
+TABLE1_LIVE_TASKS = 2            # test tasks whose leading placements run live
+
+
+def train_rnn(oracle, train, seed: int, device: str | None) -> dict:
+    """The RNN baseline (``seed``) trained against ``oracle`` on the
+    reference's matched hardware budget (``benchmarks/common.py:67-76``:
+    ``n_iterations * n_collect // 2`` updates of 10 episodes, all
+    measured).  Returns the placer, its seconds and the oracle rows it
+    consumed."""
+    import torch
+    from repro_torch.core.rnn_policy import RNNPlacer, RNNPolicyConfig
+    from repro_torch.core.trainer import DreamShardConfig
+    budget = DreamShardConfig()
+    rnn = RNNPlacer(train, oracle, RNNPolicyConfig(
+        n_updates=budget.n_iterations * budget.n_collect // 2,
+        n_episode=RNN_EPISODES, seed=seed), device=device)
+    evals0 = oracle.num_evaluations
+    t0 = time.perf_counter()
+    rnn.train()
+    if rnn.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"rnn": rnn, "train_s": time.perf_counter() - t0,
+            "rows": oracle.num_evaluations - evals0}
+
+
+def table1_row(np, measured, agent, rnn, tasks) -> dict:
+    """Every Table 1 strategy on ``tasks``, priced by ``measured`` as
+    ``table1_main.py`` scores a split: random, the four experts,
+    ``expert_best``, the RNN, DreamShard (16 candidates) and DreamShard
+    refined by lns (phase 11's configuration); each placement must be
+    legal.  Returns the placements, the mean costs, the speedups and on
+    how many tasks the RNN placed as random and as each expert."""
+    from repro_torch.api import (DreamShardPlacer, SearchConfig,
+                                 SearchPlacer, legal_batch,
+                                 make_baseline_placers, measure_placements)
+    from repro_torch.core.baselines import EXPERT_STRATEGIES
+    placers = make_baseline_placers(measured, include_portfolio=True)
+    placers["rnn"] = rnn.as_placer()
+    placers["dreamshard"] = agent.as_placer(n_candidates=16)
+    placers["dreamshard+lns"] = DreamShardPlacer(
+        agent, n_candidates=16, refiner=SearchPlacer(
+            measured, agent=agent, config=SearchConfig(
+                strategy="lns", seed=0, budget_ms=None,
+                max_evals=SEARCH_MAX_EVALS)))
+    placements, mean = {}, {}
+    for name, placer in placers.items():
+        placements[name] = placer.place_many(tasks)
+        for t, p in zip(tasks, placements[name]):
+            check(bool(legal_batch(measured, t.raw_features,
+                                   p.assignment[None], t.n_devices)[0]),
+                  f"table 1: {name}'s placement is illegal")
+        costs = measure_placements(measured, tasks, placements[name])
+        check(bool(np.isfinite(costs).all()), f"table 1: {name} finite")
+        mean[name] = float(costs.mean())
+    best = min(v for k, v in mean.items() if not k.startswith("dreamshard"))
+    ds = mean["dreamshard"]
+    rnn_as = {k: sum(np.array_equal(p.assignment, q.assignment)
+                     for p, q in zip(placements["rnn"], placements[k]))
+              for k in ("random", *EXPERT_STRATEGIES)}
+    return {"placements": placements, "mean": mean, "rnn_as": rnn_as,
+            "speedup_vs_random": mean["random"] / ds - 1,
+            "speedup_vs_best_baseline": best / ds - 1,
+            "search_gain": ds / mean["dreamshard+lns"] - 1,
+            "beats_all": ds <= best * 1.001}
+
+
+def rnn_cross_device(torch, np, rnn, test) -> dict:
+    """One RNN update's gradient from the trained weights, converted, on
+    the card and on the CPU over the same task and host-drawn noise
+    (actions and rewards equal, each parameter's gradient within 1e-4 of
+    its largest entry; the logit shifts, ``cost_mlp`` and the head's bias,
+    whose gradient is zero but for rounding, within 1e-4 of the
+    gradient's largest entry), and the greedy placements of the test
+    tasks equal."""
+    from repro_torch.core.rnn_policy import (LOGIT_SHIFT_PARAMS, RNNPlacer,
+                                             rnn_params_from_jax,
+                                             rnn_params_to_jax)
+    from repro_torch.core.rollout import gumbel_noise
+    weights = rnn_params_to_jax(rnn.net)
+    task = rnn.tasks[0]
+    noise = gumbel_noise((task.n_tables, rnn.cfg.n_episode, task.n_devices),
+                         torch.Generator().manual_seed(1), "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        placer = RNNPlacer(rnn.tasks, rnn.oracle, rnn.cfg, device=dev)
+        placer.net = rnn_params_from_jax(weights).to(dev)
+        actions, rewards, grads = placer.gradient(task, noise.to(dev))
+        out[dev] = (actions.cpu(), rewards, [g.cpu() for g in grads],
+                    [placer.place(t.raw_features, t.n_devices)
+                     for t in test])
+    (a_g, r_g, g_g, p_g), (a_c, r_c, g_c, p_c) = out["cuda"], out["cpu"]
+    check(torch.equal(a_g, a_c) and np.array_equal(r_g, r_c),
+          "rnn cross-device: the sampled episodes differ")
+    scale = max(float(g.abs().max()) for g in g_c)
+    rel, shift = 0.0, 0.0
+    for (name, _), x, y in zip(rnn.net.named_parameters(), g_g, g_c):
+        err = float((x - y).abs().max())
+        if name in LOGIT_SHIFT_PARAMS:
+            shift = max(shift, err / scale)
+        else:
+            rel = max(rel, err / float(y.abs().max()))
+    same = sum(np.array_equal(x, y) for x, y in zip(p_g, p_c))
+    log(f"[table1 cross] one RNN update cuda vs cpu: gradient max rel err "
+        f"{rel:.3g} (limit 1e-4), logit shifts {shift:.3g} of the largest "
+        f"entry (limit 1e-4); greedy placements equal on "
+        f"{same}/{len(test)} test tasks")
+    check(rel <= 1e-4, f"rnn gradient cuda vs cpu: {rel:.3g} > 1e-4")
+    check(shift <= 1e-4, f"rnn logit-shift gradient cuda vs cpu: {shift:.3g}")
+    check(same == len(test), "rnn greedy placements differ cuda vs cpu")
+    return {"grad_max_rel_err": rel, "shift_grad_err": shift,
+            "equal_placements": same}
+
+
+def phase_table1(torch, np, K, counters, ctx, summary: dict) -> dict:
+    """Table 1's DLRM-50 (4) row on the card over phase 8's oracles and
+    trained agent: (a) the RNN baseline trained on the card against
+    ``KernelOracle`` with the matched budget, (b) every strategy priced by
+    ``MeasuredOracle`` on the test and train tasks, (c) the RNN's and
+    ``expert_best``'s placements of test tasks 0 and 1 timed live with K1
+    and K1 held to plain at each of their devices, (d) the RNN's update
+    and greedy placements on the card against the CPU.  Returns K1's
+    launches on this path, counted from zero."""
+    from repro_torch.profiling.microbench import measure_placement
+    agent, oracle, measured = ctx["agent"], ctx["oracle"], ctx["measured"]
+    train, test = ctx["train"], ctx["test"]
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    # (a) the RNN on the card
+    out = train_rnn(oracle, train, 0, "cuda")
+    rnn = out["rnn"]
+    check(next(rnn.net.parameters()).is_cuda, "the RNN trains on the card")
+    want = rnn.cfg.n_updates * rnn.cfg.n_episode
+    log(f"[table1] RNN: {rnn.cfg.n_updates} updates of {rnn.cfg.n_episode} "
+        f"episodes in {out['train_s']:.1f} s "
+        f"({out['train_s'] / rnn.cfg.n_updates:.3f} s an update), "
+        f"{out['rows']} oracle rows (DreamShard's training: "
+        f"{ctx['train_evals']})")
+    check(out["rows"] == want, f"the RNN consumed {out['rows']} oracle rows, "
+          f"not {want}")
+    # (b) every strategy on both splits
+    rows = {}
+    for split, tasks in (("test", test), ("train", train)):
+        t0 = time.perf_counter()
+        row = table1_row(np, measured, agent, rnn, tasks)
+        rows[split] = row
+        log(f"[table1] DLRM-50 (4) {split} ({len(tasks)} tasks, "
+            f"{time.perf_counter() - t0:.1f} s): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row["mean"].items()) + " ms")
+        log(f"[table1] {split}: speedup vs random "
+            f"{row['speedup_vs_random']:+.2%}, vs the best baseline "
+            f"{row['speedup_vs_best_baseline']:+.2%}, lns gain "
+            f"{row['search_gain']:+.2%}, beats_all {row['beats_all']} "
+            "(printed, not checked); the RNN's placement is "
+            + ", ".join(f"{k}'s on {v}" for k, v in row["rnn_as"].items())
+            + f" of {len(tasks)} tasks")
+    # (c) the leading placements live with K1
+    live, checks = [], {}
+    for ti, task in enumerate(test[:TABLE1_LIVE_TASKS]):
+        for name in ("rnn", "expert_best"):
+            a = rows["test"]["placements"][name][ti].assignment
+            est = measured.evaluate(task.raw_features, a, task.n_devices)
+            res = measure_placement(task.raw_features, a, task.n_devices,
+                                    batch_size=BATCH, pooling=None,
+                                    max_rows=MAX_ROWS, device="cuda")
+            check(math.isfinite(res.overall), "finite live cost")
+            label = f"task {ti} {name}"
+            checks[label] = placement_kernel_checks(
+                torch, K, task, a, label=f"the table 1 placement '{label}'")
+            live.append({"placement": label, "live_ms": res.overall,
+                         "oracle_ms": est.overall,
+                         "rel_err": est.overall / res.overall - 1,
+                         "live_fwd_ms": res.fwd_comp.tolist(),
+                         "live_bwd_ms": res.bwd_comp.tolist(),
+                         "kernel_checks": checks[label]})
+            log(f"[table1 live] {label}: live {res.overall:.4f} ms (fwd "
+                f"{np.round(res.fwd_comp, 3).tolist()}, bwd "
+                f"{np.round(res.bwd_comp, 3).tolist()}), MeasuredOracle "
+                f"{est.overall:.4f} ms; K1 at each device's shapes: forward "
+                "bit-equal to plain, backward bit-equal to its replay, its "
+                "plan to backward_plan, max |err| against float64 "
+                "(plain's) " + ", ".join(
+                    f"{c['bwd_err_vs_f64']:.3g} "
+                    f"({c['plain_bwd_err_vs_f64']:.3g})"
+                    for c in checks[label]))
+    for r in summary["train"]["sim2real"]:
+        if r["task"] < TABLE1_LIVE_TASKS and r["pooling"] is None:
+            log(f"[table1 live] task {r['task']} dreamshard (phase 8): live "
+                f"{r['live_ms']:.4f} ms, MeasuredOracle "
+                f"{r['oracle_ms']:.4f} ms")
+    launches = {"fwd": K.embedding_bag_cuda.launches,
+                "bwd": K.embedding_bag_grad_cuda.launches}
+    check(launches["fwd"] > 0 and launches["bwd"] > 0,
+          f"the table 1 path launched K1 {launches}")
+    log(f"[table1] K1 launches on the table 1 path: {launches['fwd']} "
+        f"forward, {launches['bwd']} backward (live timing of "
+        f"{len(live)} placements)")
+    # (d) the RNN on the card against the CPU
+    cross = rnn_cross_device(torch, np, rnn, test)
+    summary["table1"] = {
+        "rnn_train_s": out["train_s"], "rnn_rows": out["rows"],
+        "dreamshard_rows": ctx["train_evals"],
+        **{split: {k: v for k, v in row.items() if k != "placements"}
+           for split, row in rows.items()},
+        "live": live, "launches": launches, "cross_device": cross}
+    return launches
 
 
 def dlrm_nccl_check(torch, np) -> dict:
@@ -2803,6 +3032,9 @@ def main() -> int:
         "8 train on measured costs", phase_train, torch, np, K, counters,
         summary, args.artifact, phases=phases)
     torch.cuda.empty_cache()
+    table1_launches = run("8b Table 1 on the card", phase_table1, torch, np,
+                          K, counters, ctx, summary, phases=phases)
+    torch.cuda.empty_cache()
     dlrm_launches = run("10 DLRM training step", phase_dlrm, torch, np, K,
                         counters, task0, summary, phases=phases)
     torch.cuda.empty_cache()
@@ -2815,10 +3047,12 @@ def main() -> int:
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],
+                "table 1": table1_launches["fwd"],
                 "dlrm train": dlrm_launches["fwd"],
                 **{k: v["fwd"] for k, v in shard_launches.items()}}
     bwd_paths = {"place and measure": bwd_launches,
                  "train": train_launches["bwd"],
+                 "table 1": table1_launches["bwd"],
                  "dlrm train": dlrm_launches["bwd"],
                  **{k: v["bwd"] for k, v in shard_launches.items()}}
     rows = [{**k1_row, "launches": sum(k1_paths.values()),

@@ -12,7 +12,8 @@
   splits;
 * ``Placer`` (protocol) + ``Placement`` (assignment, physical
   ``PlacementPlan``, estimated cost, provenance) with adapters for
-  DreamShard, the expert heuristics, random and a best-of-N portfolio;
+  DreamShard, the RNN baseline, the expert heuristics, random and a
+  best-of-N portfolio;
 * ``PlacementSession`` -- batched DreamShard serving: tasks bucketed by
   padded ``(M, D)`` shape, each bucket decoded in one batched call, with
   an optional post-decode ``refiner`` pass;
@@ -40,7 +41,7 @@ from repro_torch.api.placement import (BasePlacer, Placement, Placer,
                                        measure_placements)
 from repro_torch.api.placers import (DreamShardPlacer, ExpertPlacer,
                                      PortfolioPlacer, RandomPlacer,
-                                     make_baseline_placers)
+                                     RNNPlacerAdapter, make_baseline_placers)
 from repro_torch.api.session import PlacementSession
 from repro_torch.sharding import (ShardSpec, project_assignment,
                                   shard_features, shard_sizes_gb)
@@ -74,8 +75,9 @@ __all__ = sorted([
     "BasePlacer", "CachedOracle", "CostOracle", "DreamShardPlacer",
     "ExpertPlacer", "KernelOracle", "MeasuredOracle", "Placement",
     "PlacementSession", "Placer", "PortfolioPlacer", "RandomPlacer",
-    "ShardSpec", "SimOracle", "ensure_oracle", "evaluate_many",
-    "evaluate_placements", "evaluate_placer", "evaluate_sharded",
+    "RNNPlacerAdapter", "ShardSpec", "SimOracle", "ensure_oracle",
+    "evaluate_many", "evaluate_placements", "evaluate_placer",
+    "evaluate_sharded",
     "legal_batch", "legal_sharded", "make_baseline_placers",
     "measure_placements", "placement_key", "placement_keys",
     "project_assignment", "shard_features", "shard_sizes_gb",

@@ -1,8 +1,8 @@
-"""``Placer`` adapters for the placement strategies of this slice.
+"""``Placer`` adapters for every placement strategy of the port.
 
-The trained DreamShard agent, the human-expert greedy heuristics, random
-placement and the best-of-N portfolio, all behind the one ``Placer``
-protocol.  The RNN baseline's adapter waits for its port.
+The trained DreamShard agent, the RNN baseline, the human-expert greedy
+heuristics, random placement and the best-of-N portfolio, all behind the
+one ``Placer`` protocol.
 """
 
 from __future__ import annotations
@@ -42,6 +42,19 @@ class DreamShardPlacer(BasePlacer):
 
     def place_many(self, tasks) -> list[Placement]:
         return self.session.place_many(list(tasks))
+
+
+class RNNPlacerAdapter(BasePlacer):
+    """RNN REINFORCE baseline (App. D.2) behind the ``Placer`` protocol."""
+
+    name = "rnn"
+
+    def __init__(self, rnn_placer):
+        self.rnn = rnn_placer
+
+    def _assign(self, task: Task):
+        a = self.rnn.place(task.raw_features, task.n_devices)
+        return a, None, 1, 0
 
 
 class ExpertPlacer(BasePlacer):

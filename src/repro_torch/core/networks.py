@@ -223,5 +223,6 @@ def params_from_jax(tree: dict) -> CostNet | PolicyNet:
 
 
 def params_to_jax(net: CostNet | PolicyNet) -> dict:
-    """The JAX parameter pytree (numpy leaves) of a network."""
-    return {name: _mlp_to_jax(mlp) for name, mlp in net.named_children()}
+    """The JAX parameter pytree (numpy leaves) of a network's MLPs."""
+    return {name: _mlp_to_jax(mlp) for name, mlp in net.named_children()
+            if isinstance(mlp, MLP)}

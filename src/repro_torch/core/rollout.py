@@ -222,6 +222,39 @@ def decode_candidates(policy_net, cost_net, feats, sizes, cap, *,
     return a, est
 
 
+def rollout_with_reprs(policy_net, cost_net, h_pol, feats, sizes, cap, *,
+                       n_devices, n_episodes, greedy=False, use_cost=True,
+                       actions_in=None, reward_mode="composed",
+                       log_targets=True, tmask=None, dmask=None,
+                       gumbel=None, generator=None):
+    """Rollout with externally supplied policy table reprs (RNN baseline).
+
+    ``h_pol`` is (M, H) for one task or (B, M, H) for a batch, with
+    ``feats`` (..., M, F), ``sizes`` / ``tmask`` (..., M) and
+    ``actions_in`` (..., E, M) alike; a single task's outputs drop the
+    batch axis.  The cost branch reads ``cost_table_reprs(cost_net,
+    feats)`` (with no gradient) when ``use_cost`` is set, else zeros, and
+    then ``cost_net`` may be ``None``.  The rest is ``_scan_rollout``'s:
+    returns (actions, sum_logp, sum_ent, est_cost).
+    """
+    single = h_pol.dim() == 2
+    if single:
+        h_pol, feats, sizes = h_pol[None], feats[None], sizes[None]
+        tmask = None if tmask is None else tmask[None]
+        actions_in = None if actions_in is None else actions_in[None]
+    if use_cost:
+        with torch.no_grad():
+            h_cost = N.cost_table_reprs(cost_net, feats)
+    else:
+        h_cost = torch.zeros_like(h_pol)
+    out = _scan_rollout(policy_net, cost_net, h_pol, h_cost, sizes, cap,
+                        n_devices, n_episodes, greedy, use_cost,
+                        actions_in=actions_in, reward_mode=reward_mode,
+                        log_targets=log_targets, tmask=tmask, dmask=dmask,
+                        gumbel=gumbel, generator=generator)
+    return tuple(x[0] for x in out) if single else out
+
+
 # ---- batched (padded) table sort ---------------------------------------------
 
 @torch.no_grad()

@@ -10,9 +10,11 @@ calibration on the card (it launches K1), one training iteration on
 the card against the CPU on the cost stage, the distributed embedding
 lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``),
 three DLRM training steps on the card against the CPU (1e-5 relative),
-a column-sharded lookup against the whole-table plan's, and b11's quick
+a column-sharded lookup against the whole-table plan's, b11's quick
 serving regime replayed through ``PlacementService`` on the card against
-the CPU, with a JSONL trace of a served replay.
+the CPU, with a JSONL trace of a served replay, and the RNN baseline on
+the card against the CPU (its reprs under the default cuDNN flags, one
+update's gradient and its greedy placements).
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -847,3 +849,69 @@ def test_served_replay_trace_on_cuda(serve_agents, tmp_path):
     assert names.count("serve.flush") == svc.decode_batches > 0
     assert names.count("session.decode") >= svc.decode_batches
     assert trace["counters"]["serve.requests"] == len(done)
+
+
+# ---- the RNN baseline on the card ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rnn_pair():
+    """One RNN placer on the card and one on the CPU with the same
+    weights, over DLRM-20 (4) tasks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.api import SimOracle
+    from repro_torch.core.rnn_policy import RNNPlacer, RNNPolicyConfig
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import make_benchmark_suite
+    train, test = make_benchmark_suite(make_dlrm_pool(seed=0), 20, 4,
+                                       n_tasks=4)
+    cfg = RNNPolicyConfig(n_updates=2, n_episode=4)
+    cpu = RNNPlacer(train, SimOracle(seed=0), cfg, device="cpu")
+    cpu.train()
+    gpu = RNNPlacer(train, SimOracle(seed=0), cfg)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    return cpu, gpu, train, test
+
+
+def test_rnn_reprs_on_cuda_match_cpu_under_default_flags(rnn_pair):
+    """The LSTM runs no cuDNN kernel, so cuDNN's TF32 default (on) does
+    not reach it."""
+    from repro_torch.core.rnn_policy import rnn_table_reprs
+    cpu, gpu, _, test = rnn_pair
+    assert torch.backends.cudnn.allow_tf32          # the default flags
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for t in test:
+        f_cpu = cpu._inputs(t.raw_features)[0]
+        with torch.no_grad():
+            ref = rnn_table_reprs(cpu.net, f_cpu)
+            out = rnn_table_reprs(gpu.net, f_cpu.cuda())
+        torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_rnn_update_gradient_on_cuda_matches_cpu(rnn_pair):
+    from repro_torch.core.rnn_policy import LOGIT_SHIFT_PARAMS
+    from repro_torch.core.rollout import gumbel_noise
+    cpu, gpu, train, _ = rnn_pair
+    task = train[0]
+    noise = gumbel_noise((task.n_tables, 4, task.n_devices),
+                         torch.Generator().manual_seed(3), "cpu")
+    a_c, r_c, g_c = cpu.gradient(task, noise)
+    a_g, r_g, g_g = gpu.gradient(task, noise.cuda())
+    assert torch.equal(a_g.cpu(), a_c)
+    np.testing.assert_array_equal(r_g, r_c)
+    scale = max(float(g.abs().max()) for g in g_c)
+    for (name, _), x, y in zip(cpu.net.named_parameters(), g_g, g_c):
+        atol = 1e-4 * (scale if name in LOGIT_SHIFT_PARAMS
+                       else float(y.abs().max()))
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=atol,
+                                   msg=name)
+
+
+def test_rnn_greedy_placement_on_cuda_matches_cpu(rnn_pair):
+    cpu, gpu, train, test = rnn_pair
+    for t in train + test:
+        np.testing.assert_array_equal(
+            gpu.place(t.raw_features, t.n_devices),
+            cpu.place(t.raw_features, t.n_devices))
+    assert gpu.as_placer().place(test[0]).strategy == "rnn"

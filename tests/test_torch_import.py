@@ -49,7 +49,8 @@ def test_port_modules_found():
               "sharding.placer", "serve", "serve.cache", "serve.drift",
               "serve.errors", "serve.faults", "serve.ledger",
               "serve.service", "data.traffic", "telemetry.sinks",
-              "telemetry.report", "launch.serve_workflow"):
+              "telemetry.report", "launch.serve_workflow",
+              "core.rnn_policy"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -95,6 +96,15 @@ def _dreamshard(**kw):
     from repro_torch.data.tasks import make_benchmark_suite
     train, _ = make_benchmark_suite(make_pool(16, seed=0), 4, 2, n_tasks=1)
     return DreamShard(train, SimOracle(seed=0), **kw)
+
+
+def _rnn_placer(**kw):
+    from repro_torch.api import SimOracle
+    from repro_torch.core.rnn_policy import RNNPlacer
+    from repro_torch.data.synthetic import make_pool
+    from repro_torch.data.tasks import make_benchmark_suite
+    train, _ = make_benchmark_suite(make_pool(16, seed=0), 4, 2, n_tasks=1)
+    return RNNPlacer(train, SimOracle(seed=0), **kw)
 
 
 def _measure_placement(**kw):
@@ -146,6 +156,7 @@ def _entry(name):
     cfg = get_smoke("h2o-danube-1.8b").resolve(1)
     return {
         "DreamShard": _dreamshard,
+        "RNNPlacer": _rnn_placer,
         "measure_placement": _measure_placement,
         "make_inputs": lambda **kw: mb.make_inputs(128, 10, 4, 2, **kw),
         "make_fused_inputs": lambda **kw: mb.make_fused_inputs(
@@ -173,7 +184,7 @@ def _entry(name):
                                   "calibrate_comm", "build_model",
                                   "LM.init_params", "serve",
                                   "train_with_placement", "DLRM",
-                                  "serve_workflow"])
+                                  "serve_workflow", "RNNPlacer"])
 def test_entry_points_raise_without_a_card_unless_given_cpu(name):
     entry = _entry(name)
     entry(device="cpu")                        # runs on the CPU when asked

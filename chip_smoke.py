@@ -42,8 +42,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tensor-core kernel, float32 through the CUDA-core one: S x hd x dtype x
    window x GQA group, non-causal attention over ragged key lengths, and
    (after phase 7) layer 0's real q/k/v of the served model at 8192 tokens
-   and window 4096, in bf16 and in float32, each held to a limit below a
-   typical output;
+   and window 4096: bf16 by bf16 ulps (``attention_ulp_err``, as phase
+   13's), float32 to a limit below a typical output;
 7. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
    seeded weights) through ``repro_torch.launch.serve.serve``: 2 prompts
    of 8192 tokens, one warm-up prefill, a timed prefill and 31 greedy
@@ -152,6 +152,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    live with K1 (``measure_placement``) beside the oracle's price, and K1
    and its backward held to plain at each device's shapes and indices of
    each of these four placements.
+13. (after phase 12) the LM train path (``launch/steps.make_train_step``,
+   AdamW, chunked cross-entropy; K2 on the forward, the op's backward
+   recomputing the blockwise scan): (a) h2o-danube-1.8b at full width and
+   depth (24 layers, 1831201280 bf16 params, seeded as in phase 7), no
+   remat, batch 2 x 4096 tokens (train_4k's sequence, its batch cut from
+   256): 1 warm-up and 3 steps timed by CUDA events, tokens/s, finite
+   losses, peak memory, 24 K2 launches a step, then torch.profiler over
+   one step (kernel ms, idle share, the shares of K2, of the attention
+   backward and of cuBLAS) and the attention backward alone on layer 0;
+   (b) the same path at 2 layers in float32 on the card (K2) and on the
+   CPU (plain): one step's loss (1e-5 relative), every gradient leaf
+   (1e-4 of its largest) and the params after it (1e-6 where the gradient
+   decides Adam's step, 2 lr elsewhere); (c) layer 0's real q/k/v of (a)'s
+   first step (both rows): K2's training forward against plain by bf16
+   ulps (``attention_ulp_err``: 2 ulps of |ref| + 2^-8 sum p|v|/l, rms
+   1e-2; a mask one key wide must fail it, a scale 1% off is read), and
+   the op's dq/dk/dv (bf16 and float32) against a float64 autograd of
+   plain's arithmetic; (d) qwen2.5-14b (QKV biases), phi4-mini-3.8b
+   (tied embeddings) and granite-34b (one KV head) at full width cut to 2
+   layers, bf16: K2 against plain by the same rule on layer 0's q/k/v of
+   the train batch (2 x 1024, hd 128: groups 5, 3 and 48), one train step
+   (finite loss) and one serve (a 2 x 1024-token prefill and 8 greedy
+   decode steps).
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -233,6 +256,65 @@ def attention_err(out, ref, *, max_abs: float, rel_rms: float) -> dict:
     check(err["max_abs_err"] <= max_abs and err["rel_rms_err"] <= rel_rms,
           f"attention against plain: {err}")
     return err
+
+
+def bf16_ulp(torch, x):
+    """One bfloat16 ulp at |x| (8 significant bits): 2^(e - 8) where |x| =
+    f * 2^e, f in [0.5, 1); 0 where x is 0."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x.float()),
+                                                e - 8))
+
+
+K2_BF16_ULPS = 2                 # phases 6b, 13 (c), (d): K2's bf16 vs plain
+K2_BF16_REL_RMS = 1e-2
+
+
+def attention_ulp_err(torch, out, ref, abs_ref, *, ulps: float,
+                      rel_rms: float, enforce: bool = True) -> dict:
+    """A bf16 attention output's errors against plain's (a bf16 value too),
+    elementwise by K2's error model: raises unless every
+
+        |out - ref| <= ulps x one bf16 ulp of |ref| + 2^-8 x abs_ref
+
+    and ||out - ref|| / ||ref|| <= rel_rms.  ``abs_ref`` is plain's output
+    with |v| for v, sum_j p_j |v_j| / l: K2 rounds P to bf16 (2^-9
+    relative) before its P.V product, which moves an output by at most
+    2^-9 of that sum, and each side's rounding to bf16 by half an ulp.
+    ``share`` is the largest |out - ref| over its limit (the check is share
+    <= 1); ``max_ulps`` the largest |out - ref| in ulps of |ref| where |ref|
+    >= mean |ref|.  With ``enforce=False`` it only reads (a faulty
+    control)."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    ulp = bf16_ulp(torch, ref)
+    ratio = diff / (ulps * ulp + 2.0 ** -8 * abs_ref.float())
+    big = ref.abs() >= ref.abs().mean()
+    worst = int(ratio.argmax())
+    err = {"max_abs_err": float(diff.max()),
+           "share": float(ratio.max()),
+           "max_ulps": float((diff / ulp.clamp_min(1e-30))[big].max()),
+           "rel_rms_err": float(diff.norm() / ref.norm()),
+           "mean_abs_ref": float(ref.abs().mean()),
+           "worst_row": worst // (diff.shape[-1] * diff.shape[-2])
+           % diff.shape[1],
+           "worst_abs_ref": float(ref.reshape(-1)[worst].abs()),
+           "worst_abs_err": float(diff.reshape(-1)[worst]),
+           "limits": [ulps, rel_rms]}
+    if enforce:
+        check(err["share"] <= 1 and err["rel_rms_err"] <= rel_rms,
+              f"attention against plain (bf16 ulps): {err}")
+    return err
+
+
+def _ulp_line(err: dict) -> str:
+    return (f"max |err| / limit {err['share']:.3g} (limit 1: "
+            f"{err['limits'][0]:g} ulps of |ref| + 2^-8 sum p|v|/l; at query "
+            f"row {err['worst_row']}, |err| {err['worst_abs_err']:.3g}, |ref| "
+            f"{err['worst_abs_ref']:.3g}), max |err| {err['max_abs_err']:.3g},"
+            f" {err['max_ulps']:.3g} ulps where |ref| >= mean |ref| "
+            f"{err['mean_abs_ref']:.3g}; rms err / rms ref "
+            f"{err['rel_rms_err']:.3g} (limit {err['limits'][1]:.3g})")
 
 
 def _err_line(err: dict) -> str:
@@ -860,7 +942,8 @@ def phase_k2_checks(torch, np, FA, plain) -> float:
 def phase_k2_layer0(torch, FA, plain, res, summary: dict) -> float:
     """K2 on layer 0's real q/k/v of the served model (2 KV groups of 4
     query heads) at the main path's length and window, against the plain
-    version: in bf16 as served, and in float32 on the same values."""
+    version: in bf16 as served (by ``attention_ulp_err``), and in float32
+    on the same values."""
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import map_params
     cfg = res.cfg
@@ -878,18 +961,25 @@ def phase_k2_layer0(torch, FA, plain, res, summary: dict) -> float:
         k = L.apply_rope(k.contiguous(), pos, cfg.rope_theta)
         v = v.contiguous()
         errs = {}
-        for name, limits in (("bfloat16", (4e-3, 1e-2)),
-                             ("float32", (2e-4, 1e-4))):
+        for name in ("bfloat16", "float32"):
             dt = getattr(torch, name)
             args = (q.to(dt), k.to(dt), v.to(dt))
             out = FA.flash_attention_cuda(*args, window=cfg.sliding_window)
             ref = plain(*args, window=cfg.sliding_window)
             torch.cuda.synchronize()
-            errs[name] = attention_err(out, ref, max_abs=limits[0],
-                                       rel_rms=limits[1])
+            if name == "bfloat16":          # by bf16 ulps, as phase 13's
+                errs[name] = attention_ulp_err(
+                    torch, out, ref, plain(args[0], args[1], args[2].abs(),
+                                           window=cfg.sliding_window),
+                    ulps=K2_BF16_ULPS, rel_rms=K2_BF16_REL_RMS)
+                line = _ulp_line(errs[name])
+            else:
+                errs[name] = attention_err(out, ref, max_abs=2e-4,
+                                           rel_rms=1e-4)
+                line = _err_line(errs[name])
             log(f"[k2] layer 0 of {cfg.name}: q {tuple(q.shape)}, k "
                 f"{tuple(k.shape)}, window {cfg.sliding_window}, {name}: "
-                f"K2 == plain, {_err_line(errs[name])}")
+                f"K2 == plain, {line}")
             del out, ref
     summary["k2_layer0"] = errs
     torch.cuda.empty_cache()
@@ -899,6 +989,7 @@ def phase_k2_layer0(torch, FA, plain, res, summary: dict) -> float:
 def phase_serve(torch, counters, FA, summary: dict):
     """The LM path: danube at full width, served through the entry point."""
     from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import tree_leaves
     for c in counters:                         # counts of this path only
         c.launches = 0
     t0 = time.perf_counter()
@@ -919,7 +1010,7 @@ def phase_serve(torch, counters, FA, summary: dict):
     check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_padded)).all()),
           "token ids in range")
     check(res.pos == SERVE_PROMPT + SERVE_TOKENS - 1, "cache position")
-    n_params = sum(t.numel() for t in _leaves(res.params))
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
     summary["serve"] = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
         "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
@@ -938,11 +1029,6 @@ def phase_serve(torch, counters, FA, summary: dict):
     log(f"[main] K2 launches on the LM path: {launches} "
         f"({launches // 2} per prefill)")
     return res, launches
-
-
-def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def phase_profile(torch, res, summary: dict) -> dict:
@@ -2955,6 +3041,485 @@ def phase_serving(torch, np, K, counters, ctx, summary: dict) -> dict:
     return launches
 
 
+# phase 13: the LM train path (``launch/steps.make_train_step``)
+
+TRAIN_BATCH = 2                  # train_4k's sequence; its batch cut 256 -> 2
+TRAIN_SEQ = 4096
+TRAIN_TIMED = 3                  # after 1 warm-up step
+CROSS_TRAIN_SEQ = 1024           # 13 (b): 2 layers, float32, cuda vs cpu
+GRAD_CHECK_SEQ = 1024            # 13 (c): plain's float64 autograd
+DENSE_ARCHS = ("qwen2.5-14b", "phi4-mini-3.8b", "granite-34b")
+DENSE_LAYERS = 2                 # 13 (d): full width, cut to 2 layers
+DENSE_SEQ = 1024
+DENSE_DECODE = 8
+
+
+def _lm_batch(torch, np, vocab: int, B: int, S: int, device, seed: int = 0):
+    """The launcher's batch: tokens and labels from ``default_rng(seed)``,
+    a mask of ones."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (B, S))
+    labels = rng.integers(0, vocab, (B, S))
+    return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
+                                      device=device),
+            "labels": torch.as_tensor(labels, dtype=torch.int32,
+                                      device=device),
+            "loss_mask": torch.ones((B, S), dtype=torch.float32,
+                                    device=device)}
+
+
+def _layer0_qkv(torch, cfg, params, tokens):
+    """Layer 0's q (rope'd), k (rope'd) and v of ``tokens``, as the train
+    step's forward computes them (QKV biases added before RoPE)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import map_params
+    lp = map_params(lambda t: t[0], params["layers"])
+    B, S = tokens.shape
+    hd = cfg.head_dim
+    with torch.no_grad():
+        h = L.rms_norm(params["embed"][tokens.long()], lp["ln1"],
+                       cfg.norm_eps)
+        pos = torch.arange(S, device=tokens.device)[None, :]
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = q.reshape(B, S, cfg.n_heads_padded, hd)
+        k = k.reshape(B, S, cfg.n_kv_heads, hd)
+        v = v.reshape(B, S, cfg.n_kv_heads, hd)
+        return (L.apply_rope(q, pos, cfg.rope_theta),
+                L.apply_rope(k, pos, cfg.rope_theta), v.contiguous())
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "K2"
+    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "cuBLAS"
+    return "other"
+
+
+def train_profile(torch, step, params, state, batch) -> dict:
+    """torch.profiler over one train step: kernel ms, idle share, and the
+    shares of K2, of the attention backward's blockwise recompute (every
+    kernel launched under autograd's ``_FlashAttentionBackward`` node) and
+    of cuBLAS's GEMMs (these two overlap: the recompute's matmuls are
+    cuBLAS's).  The profiler slows the host, so the idle share is an upper
+    bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    by_class = {"K2": 0.0, "cuBLAS": 0.0, "other": 0.0}
+    for name, ms, _ in rows:
+        by_class[_kernel_class(name)] += ms
+    def attn_bwd(e):
+        return (e is not None and e.device_type == DeviceType.CPU
+                and e.name.endswith("_FlashAttentionBackward"))
+
+    # the engine's evaluate_function event holds the node's own: count
+    # the outermost only
+    recompute = sum(e.device_time_total for e in prof.events()
+                    if attn_bwd(e) and not attn_bwd(e.cpu_parent)) / 1e3
+    out = {"wall_ms": wall_ms, "kernel_ms": busy,
+           "idle_share": 1 - busy / wall_ms if busy else None,
+           "ms": {**by_class, "attention backward": recompute},
+           "share": ({k: v / busy for k, v in {**by_class,
+                      "attention backward": recompute}.items()}
+                     if busy else None),
+           "top": [{"name": k[:80], "ms": ms, "calls": n}
+                   for k, ms, n in rows[:10]]}
+    if busy:
+        log(f"[lm train profile] wall {wall_ms:.1f} ms under the profiler, "
+            f"kernels {busy:.1f} ms (idle share <= "
+            f"{out['idle_share']:.3f}); K2 {by_class['K2']:.1f} ms "
+            f"({out['share']['K2']:.3f}), attention backward (blockwise "
+            f"recompute) {recompute:.1f} ms "
+            f"({out['share']['attention backward']:.3f}), cuBLAS "
+            f"{by_class['cuBLAS']:.1f} ms ({out['share']['cuBLAS']:.3f}), "
+            f"other {by_class['other']:.1f} ms "
+            f"({out['share']['other']:.3f})")
+    else:
+        log("[lm train profile] no device time recorded: not measured")
+    for k, ms, n in rows[:10]:
+        log(f"[lm train profile]   {ms:9.3f} ms {n:5d}x {k[:80]}")
+    return out
+
+
+def attention_backward_ms(torch, FA, q, k, v, window, chunks) -> float:
+    """CUDA-event ms of the op's backward (the blockwise recompute) on one
+    layer's q/k/v at the train shape, median of 3 after a warm-up."""
+    from repro_torch.kernels.flash_attention import ops
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = ops.flash_attention(qs, ks, vs, window=window, q_chunk=chunks,
+                              kv_chunk=chunks)
+    dout = torch.randn_like(out)
+    times = []
+    for i in range(4):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True)
+        t1.record()
+        t1.synchronize()
+        if i:
+            times.append(t0.elapsed_time(t1))
+    return sorted(times)[1]
+
+
+def lm_train_full(torch, np, FA, counters, summary: dict) -> tuple:
+    """13 (a): danube at full width and depth, bf16, AdamW, no remat (as
+    the reference's launcher trains), batch 2 x 4096."""
+    from repro_torch.configs import get_full
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    cfg = get_full(ARCH).resolve(1)
+    torch.cuda.reset_peak_memory_stats()
+    model = ST.build_model(cfg, remat=False, device="cuda")
+    params = model.init_params(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == 1831201280, f"danube has {n_params} params")
+    opt, step = ST.make_train_step(model)
+    state = opt.init(tree_leaves(params))
+    batches = [_lm_batch(torch, np, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                         "cuda", seed=i) for i in range(1 + TRAIN_TIMED)]
+    qkv = _layer0_qkv(torch, cfg, params, batches[0]["tokens"])
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        params, state, metrics = step(params, state, batch)
+        t1.record()
+        t1.synchronize()
+        losses.append(float(metrics["loss"]))
+        if i:
+            times.append(t0.elapsed_time(t1))
+    launches = FA.flash_attention_cuda.launches
+    others = {type(c).__name__: c.launches for c in counters
+              if c is not FA.flash_attention_cuda}
+    n_steps = len(batches)
+    check(launches == cfg.n_layers * n_steps,
+          f"K2 launched {launches} times in {n_steps} steps of "
+          f"{cfg.n_layers} layers")
+    check(not any(others.values()), f"other kernels launched: {others}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(times)[len(times) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": False,
+           "q_chunk": model.q_chunk, "kv_chunk": model.kv_chunk,
+           "step_ms": times, "median_step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
+           "peak_memory_bytes": peak,
+           "k2_launches_per_step": launches // n_steps}
+    log(f"[lm train] {cfg.name}: {cfg.n_layers} layers, {n_params} params, "
+        f"bf16, AdamW, no remat; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens; "
+        f"chunks {model.q_chunk}/{model.kv_chunk}")
+    log(f"[lm train] step ms {[round(t, 2) for t in times]} (median "
+        f"{step_ms:.2f}, 1 warm-up step before), {out['tokens_per_s']:.0f} "
+        f"tokens/s; losses {[round(x, 4) for x in losses]}; peak memory "
+        f"{peak / 1e9:.2f} GB; K2 launches {launches // n_steps} a step")
+    for c in counters:
+        c.launches = 0
+    out["profile"] = train_profile(torch, step, params, state, batches[0])
+    check(FA.flash_attention_cuda.launches == cfg.n_layers,
+          "K2 launches in the profiled step")
+    launches += FA.flash_attention_cuda.launches
+    del state, batches
+    torch.cuda.empty_cache()
+    bwd_ms = attention_backward_ms(torch, FA, *qkv, cfg.sliding_window,
+                                   model.q_chunk)
+    out["attention_backward_ms_per_layer"] = bwd_ms
+    out["attention_backward_share"] = bwd_ms * cfg.n_layers / step_ms
+    log(f"[lm train] the attention backward alone (layer 0's q/k/v, CUDA "
+        f"events): {bwd_ms:.2f} ms a layer, {bwd_ms * cfg.n_layers:.1f} ms "
+        f"a step, {out['attention_backward_share']:.3f} of the median step")
+    del params
+    torch.cuda.empty_cache()
+    summary["lm_train"] = out
+    return launches, qkv
+
+
+def _max_rel(torch, a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def lm_train_cross_device(torch, np, FA, counters, summary: dict) -> int:
+    """13 (b): one train step at full width, 2 layers, float32, on the card
+    (K2's float32 kernel forward) and on the CPU (plain): the loss, every
+    gradient leaf and the params after the step."""
+    from repro_torch.configs import get_full
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params, tree_leaves
+    cfg = dataclasses.replace(get_full(ARCH), n_layers=2).resolve(1)
+    lr = 3e-4
+    gpu = ST.build_model(cfg, remat=False, dtype=torch.float32,
+                         device="cuda")
+    cpu = ST.build_model(cfg, remat=False, dtype=torch.float32,
+                         device="cpu")
+    params = gpu.init_params(0)
+    # a copy of its own: the card's step updates ``params`` in place
+    cparams = map_params(lambda t: t.cpu().clone(), params)
+    batch = _lm_batch(torch, np, cfg.vocab, 1, CROSS_TRAIN_SEQ, "cuda")
+    cbatch = {k: v.cpu() for k, v in batch.items()}
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    g, loss, _ = ST.make_grad_fn(gpu)(params, batch)
+    opt, step = ST.make_train_step(gpu, lr=lr)
+    step(params, opt.init(tree_leaves(params)), batch)
+    launches = FA.flash_attention_cuda.launches
+    check(launches == 2 * cfg.n_layers, f"K2 launched {launches} times")
+    cg, closs, _ = ST.make_grad_fn(cpu)(cparams, cbatch)
+    copt, cstep = ST.make_train_step(cpu, lr=lr)
+    cstep(cparams, copt.init(tree_leaves(cparams)), cbatch)
+    loss_err = abs(float(loss) - float(closs)) / abs(float(closs))
+    check(loss_err <= 1e-5, f"loss cuda {float(loss)} cpu {float(closs)}")
+    grad_err = max(_max_rel(torch, a.cpu(), b) for a, b in zip(g, cg))
+    check(grad_err <= 1e-4, f"gradients cuda vs cpu: {grad_err}")
+    # Adam's first step is lr * g / (|g| + eps): where the gradient decides
+    # it (|g| >= 1e-2 of its leaf's largest) the params agree within 1e-6;
+    # elsewhere summation order may flip a sign, so within 2 lr
+    param_err = decided_err = 0.0
+    for p, cp, cg_ in zip(tree_leaves(params), tree_leaves(cparams), cg):
+        diff = (p.cpu() - cp).abs()
+        param_err = max(param_err, float(diff.max()))
+        d = cg_.abs() >= 1e-2 * cg_.abs().max()
+        if bool(d.any()):
+            decided_err = max(decided_err, float(diff[d].max()))
+    check(param_err <= 2 * lr, f"params cuda vs cpu {param_err}")
+    check(decided_err <= 1e-6, f"decided params cuda vs cpu {decided_err}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "seq": CROSS_TRAIN_SEQ,
+           "loss": [float(loss), float(closs)], "loss_rel_err": loss_err,
+           "grad_max_rel_err": grad_err, "param_max_abs_err": param_err,
+           "decided_param_max_abs_err": decided_err, "k2_launches": launches}
+    log(f"[lm train cross] {cfg.name} at 2 layers, float32, 1 x "
+        f"{CROSS_TRAIN_SEQ} tokens, one AdamW step: cuda (K2) == cpu "
+        f"(plain): loss {float(loss):.6f} / {float(closs):.6f} (rel err "
+        f"{loss_err:.3g}, limit 1e-5), gradients max |err| / max |g| "
+        f"{grad_err:.3g} (limit 1e-4), params max |err| {param_err:.3g} "
+        f"(limit 2 lr = {2 * lr:g}), where |g| >= 1e-2 max |g| "
+        f"{decided_err:.3g} (limit 1e-6)")
+    summary["lm_train_cross_device"] = out
+    del params, cparams, g, cg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def attention_dense(torch, q, k, v, window, dtype, reach: int = 0):
+    """``attention_plain``'s arithmetic in ``dtype`` (causal, grouped KV
+    heads), query i seeing keys up to i + ``reach`` (0: the true mask; 1:
+    a faulty control): (B, S, Hq, hd) -> (B, S, Hq, hd) in ``dtype``."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    S, hd, G = q.shape[1], q.shape[3], q.shape[2] // k.shape[2]
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = qp + reach >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    qt = q.to(dtype).transpose(1, 2)
+    kt = k.to(dtype).repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.to(dtype).repeat_interleave(G, dim=2).transpose(1, 2)
+    s = torch.where(mask, qt @ kt.transpose(-1, -2) / math.sqrt(hd), NEG_INF)
+    return (torch.softmax(s, dim=-1) @ vt).transpose(1, 2)
+
+
+def k2_train_forward_check(torch, FA, plain, q, k, v, window, what: str,
+                           controls: bool = False) -> dict:
+    """K2's bf16 forward on a train path's real q/k/v against plain, by
+    ``attention_ulp_err``.  With ``controls``, two faulty stand-ins for K2
+    are read by the same rule: the mask one key too wide (must fail it) and
+    the scale 1% off.  Launches here are not counted: the count is put
+    back."""
+    n0 = FA.flash_attention_cuda.launches
+    out = FA.flash_attention_cuda(q, k, v, window=window)
+    FA.flash_attention_cuda.launches = n0
+    ref = plain(q, k, v, window=window)
+    abs_ref = plain(q, k, v.abs(), window=window)
+    torch.cuda.synchronize()
+    err = attention_ulp_err(torch, out, ref, abs_ref, ulps=K2_BF16_ULPS,
+                            rel_rms=K2_BF16_REL_RMS)
+    log(f"[lm train k2] {what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        f"window {window}, bf16: K2 == plain, {_ulp_line(err)}")
+    del out
+    if controls:
+        # a mask fault must fail the rule; a scale 1% off is read beside it
+        # (the smallest fault of the two)
+        scale = 1.01 / math.sqrt(q.shape[-1])
+        for name, bad, must_fail in (
+                ("mask one key wide",
+                 lambda: attention_dense(torch, q, k, v, window,
+                                         torch.float32, reach=1).to(q.dtype),
+                 True),
+                ("scale x 1.01",
+                 lambda: plain(q, k, v, window=window, scale=scale), False)):
+            c = attention_ulp_err(torch, bad(), ref, abs_ref,
+                                  ulps=K2_BF16_ULPS,
+                                  rel_rms=K2_BF16_REL_RMS, enforce=False)
+            c["fails"] = c["share"] > 1 or c["rel_rms_err"] > K2_BF16_REL_RMS
+            check(c["fails"] or not must_fail,
+                  f"the check passes a faulty control ({name}): {c}")
+            err[f"control: {name}"] = c
+            log(f"[lm train k2]   faulty control ({name}), by the same "
+                f"rule: {'fails' if c['fails'] else 'passes'}, "
+                f"{_ulp_line(c)}")
+    del ref, abs_ref
+    return err
+
+
+def lm_train_kernel_checks(torch, FA, plain, qkv, window, chunk,
+                           summary: dict) -> dict:
+    """13 (c): K2's training forward on layer 0's real q/k/v of 13 (a)'s
+    first step (the whole batch, 2 x 4096 tokens) against plain, with two
+    faulty controls, and the op's dq/dk/dv (the first 1024 queries of both
+    rows, bf16 and float32) against a float64 autograd of
+    ``attention_plain``.  Launches here are not counted."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = qkv
+    errs = {"forward": k2_train_forward_check(
+        torch, FA, plain, q, k, v, window, "layer 0 of the train batch",
+        controls=True)}
+    S = GRAD_CHECK_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (t[:, :S].contiguous() for t in (q, k, v))
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
+    ref = torch.autograd.grad(
+        attention_dense(torch, q64, k64, v64, window, torch.float64),
+        (q64, k64, v64), dout.double())
+    limits = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-5)}
+    n0 = FA.flash_attention_cuda.launches
+    for name, (max_rel, rel_rms) in limits.items():
+        dt = getattr(torch, name)
+        args = [t.to(dt).requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*args, window=window, q_chunk=chunk,
+                                  kv_chunk=chunk)
+        grads = torch.autograd.grad(out, args, dout.to(dt))
+        for g_name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            r = r.float()
+            err = {"max_abs_err": float((g.float() - r).abs().max()),
+                   "max_abs_ref": float(r.abs().max()),
+                   "rel_rms_err": float((g.float() - r).norm() / r.norm())}
+            err["max_rel_err"] = err["max_abs_err"] / err["max_abs_ref"]
+            check(err["max_rel_err"] <= max_rel
+                  and err["rel_rms_err"] <= rel_rms,
+                  f"{name} {g_name} against float64: {err}")
+            errs[f"{name} {g_name}"] = err
+            log(f"[lm train k2] {name} {g_name} ({q.shape[0]} x {S} tokens) "
+                f"against a float64 autograd of plain: max |err| "
+                f"{err['max_abs_err']:.3g} / max |ref| "
+                f"{err['max_abs_ref']:.3g} = {err['max_rel_err']:.3g} "
+                f"(limit {max_rel:g}), rms err / rms ref "
+                f"{err['rel_rms_err']:.3g} (limit {rel_rms:g})")
+    FA.flash_attention_cuda.launches = n0
+    summary["lm_train_kernel_checks"] = errs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
+    """13 (d): qwen2.5-14b, phi4-mini-3.8b and granite-34b at full width
+    cut to 2 layers, bf16, seeded: one train step (2 x 1024 tokens) and
+    one serve (a 2 x 1024-token prefill and 8 greedy decode steps), K2 at
+    head_dim 128; K2's output on layer 0's q/k/v of the train batch (QKV
+    biases added, granite's one KV head) held to plain."""
+    from repro_torch.configs import get_full
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(get_full(arch),
+                                  n_layers=DENSE_LAYERS).resolve(1)
+        check(cfg.head_dim == 128, f"{arch} head_dim {cfg.head_dim}")
+        n0 = FA.flash_attention_cuda.launches
+        torch.cuda.reset_peak_memory_stats()
+        model = ST.build_model(cfg, remat=False, device="cuda")
+        params = model.init_params(0)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        opt, step = ST.make_train_step(model)
+        state = opt.init(tree_leaves(params))
+        batch = _lm_batch(torch, np, cfg.vocab, 2, DENSE_SEQ, "cuda")
+        k2_err = k2_train_forward_check(
+            torch, FA, plain, *_layer0_qkv(torch, cfg, params,
+                                           batch["tokens"]),
+            cfg.sliding_window, f"{arch} layer 0 of the train batch")
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        loss = float(metrics["loss"])
+        train_s = time.perf_counter() - t0
+        check(math.isfinite(loss), f"{arch} loss {loss}")
+        del state
+        prefill = ST.make_prefill_step(model,
+                                       capacity=DENSE_SEQ + DENSE_DECODE)
+        decode = ST.make_decode_step(model)
+        logits, cache = prefill(params, {"tokens": batch["tokens"]})
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks = [tok]
+        for _ in range(DENSE_DECODE - 1):
+            logits, cache = decode(params, cache, {"tokens": tok})
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        toks = torch.cat(toks, 1).cpu()
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"{arch} finite logits")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
+              f"{arch} token ids in range")
+        k2 = FA.flash_attention_cuda.launches - n0
+        check(k2 == 2 * cfg.n_layers, f"{arch}: K2 launched {k2} times")
+        out[arch] = {"params": n_params, "loss": loss, "train_s": train_s,
+                     "tokens": toks.tolist(), "k2_launches": k2,
+                     "k2_vs_plain": k2_err,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "kv_heads": cfg.n_kv_heads,
+                     "qkv_bias": cfg.qkv_bias,
+                     "tie_embeddings": cfg.tie_embeddings}
+        log(f"[lm dense] {arch} at {cfg.n_layers} layers, {n_params} params "
+            f"(qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}, "
+            f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, hd "
+            f"{cfg.head_dim}): train step loss {loss:.4f} ({train_s:.2f} s "
+            f"with its first launches), greedy tokens "
+            f"{toks[0].tolist()}; K2 {k2} launches; peak "
+            f"{out[arch]['peak_memory_bytes'] / 1e9:.2f} GB")
+        del params, cache, logits, batch
+        torch.cuda.empty_cache()
+    launches = FA.flash_attention_cuda.launches
+    others = {type(c).__name__: c.launches for c in counters
+              if c is not FA.flash_attention_cuda}
+    check(not any(others.values()), f"other kernels launched: {others}")
+    summary["lm_dense"] = out
+    return launches
+
+
+def phase_lm_train(torch, np, FA, plain, counters, summary: dict) -> dict:
+    """The LM train path; returns K2's launches by path."""
+    launches = {}
+    launches["lm train"], qkv = lm_train_full(torch, np, FA, counters,
+                                              summary)
+    launches["lm train cuda vs cpu"] = lm_train_cross_device(
+        torch, np, FA, counters, summary)
+    from repro_torch.configs import get_full
+    lm_train_kernel_checks(torch, FA, plain, qkv,
+                           get_full(ARCH).sliding_window, 1024, summary)
+    del qkv
+    launches["dense configs"] = lm_dense_configs(torch, np, FA, plain,
+                                                 counters, summary)
+    return launches
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3044,6 +3609,10 @@ def main() -> int:
     shard_launches["placement serving"] = run(
         "12 placement serving", phase_serving, torch, np, K, counters, ctx,
         summary, phases=phases)
+    del ctx, task0
+    torch.cuda.empty_cache()
+    lm_launches = run("13 LM train path", phase_lm_train, torch, np, FA,
+                      attention_plain, counters, summary, phases=phases)
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],
@@ -3059,8 +3628,8 @@ def main() -> int:
              "launches_by_path": k1_paths},
             {**bwd_row, "launches": sum(bwd_paths.values()),
              "launches_by_path": bwd_paths},
-            {**k2_row, "launches": k2_launches,
-             "launches_by_path": {"serve": k2_launches}}]
+            {**k2_row, "launches": k2_launches + sum(lm_launches.values()),
+             "launches_by_path": {"serve": k2_launches, **lm_launches}}]
     summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_start
     if args.out:

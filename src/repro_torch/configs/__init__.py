@@ -1,23 +1,32 @@
-"""Architectures the port serves so far: the counterpart of
-``repro.configs`` for the archs whose blocks the port's ``LM`` runs.
+"""Architectures the port runs so far: the counterpart of ``repro.configs``
+for the archs whose blocks the port's ``LM`` runs.
 
-Only h2o-danube-1.8b (dense attention with a sliding window) for now; the
-other archs of the JAX registry wait for their blocks (ROADMAP queue).
+The four dense decoders: h2o-danube-1.8b (sliding window), qwen2.5-14b
+(QKV biases), phi4-mini-3.8b (tied embeddings) and granite-34b (MQA).
+The other archs of the JAX registry wait for their blocks (ROADMAP queue,
+LM substrate: MoE, hybrid SSM, RWKV, frontends).
 """
 
-from repro_torch.configs import h2o_danube_1p8b
+from repro_torch.configs import (granite_34b, h2o_danube_1p8b,
+                                 phi4_mini_3p8b, qwen2p5_14b)
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape  # noqa: F401
 
 _MODULES = {
+    "qwen2.5-14b": qwen2p5_14b,
+    "granite-34b": granite_34b,
+    "phi4-mini-3.8b": phi4_mini_3p8b,
     "h2o-danube-1.8b": h2o_danube_1p8b,
 }
 
 ARCH_NAMES = tuple(_MODULES)
 
+# sub-quadratic archs that can serve the 524k-token decode shape
+LONG_CONTEXT_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "h2o-danube-1.8b")
+
 
 def _module(name: str):
     if name not in _MODULES:
-        raise KeyError(f"the port does not serve {name!r} yet; it serves "
+        raise KeyError(f"the port does not run {name!r} yet; it runs "
                        f"{ARCH_NAMES}")
     return _MODULES[name]
 
@@ -28,3 +37,9 @@ def get_full(name: str):
 
 def get_smoke(name: str):
     return _module(name).SMOKE
+
+
+def supports_shape(name: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return name in LONG_CONTEXT_ARCHS
+    return True

@@ -7,23 +7,31 @@ scale defaults to ``1 / sqrt(hd)``.  Nothing is padded: the CUDA kernel
 takes head_dim 32, 64, 80, 128 and 256 as they are, and keys are masked
 by their true length.
 
-CUDA tensors go to the kernel, which launches or raises; CPU tensors go
-to the plain version.  Neither falls back to the other.
+The forward goes to the kernel for CUDA tensors, which launches or
+raises, and to the plain version for CPU tensors; neither falls back to
+the other.  The op is differentiable.  The reference trains through its
+blockwise jnp scan (``repro/models/layers.py::flash_attention``) and has
+no Pallas backward, so the backward here is that same differentiation:
+it saves only q, k and v, and recomputes the scan (``models.layers.
+chunk_attention``) one query chunk at a time under autograd, over the
+keys that chunk may attend (``key_range``).  One chunk's ``(B, Hq,
+q_chunk, keys)`` float32 scores are alive at a time, never ``S x T``.  The gradients of
+grouped KV heads sum over their query heads, as the transpose of the
+reference's ``kv_map`` expansion does.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), Hq % Hkv == 0 ->
-    (B, S, Hq, hd) in q's dtype."""
+def _forward(q, k, v, causal, window, scale):
     if q.is_cuda or k.is_cuda or v.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     scale=scale)
@@ -34,3 +42,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{k.shape[2]} KV heads")
     return attention_plain(q, k, v, causal=causal, window=window,
                            scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_chunk, kv_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale, q_chunk, kv_chunk)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        # imported here: models.layers imports this module
+        from repro_torch.models.layers import chunk_attention, key_range
+        q, k, v = ctx.saved_tensors
+        causal, window, scale, q_chunk, kv_chunk = ctx.args
+        S, T = q.shape[1], k.shape[1]
+        scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        for q0 in range(0, S, q_chunk):
+            q1 = min(S, q0 + q_chunk)
+            lo, hi = key_range(q0, q1, T, causal=causal, window=window,
+                               kv_chunk=kv_chunk)
+            with torch.enable_grad():
+                qs = q[:, q0:q1].detach().requires_grad_(True)
+                ks = k[:, lo:hi].detach().requires_grad_(True)
+                vs = v[:, lo:hi].detach().requires_grad_(True)
+                out = chunk_attention(
+                    qs, ks, vs, q0, lo, causal=causal, window=window,
+                    kv_chunk=kv_chunk, scale=scale).to(q.dtype)
+                dqs, dks, dvs = torch.autograd.grad(
+                    out, (qs, ks, vs), dout[:, q0:q1])
+            dq[:, q0:q1] = dqs
+            dk[:, lo:hi] += dks
+            dv[:, lo:hi] += dvs
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, \
+            None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None, q_chunk: int = 1024,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), Hq % Hkv == 0 ->
+    (B, S, Hq, hd) in q's dtype.  ``q_chunk``/``kv_chunk`` are the
+    backward's blocks (the reference's ``LM(q_chunk=, kv_chunk=)``)."""
+    if q_chunk <= 0 or kv_chunk <= 0:
+        raise ValueError(f"chunks must be positive: {q_chunk}, {kv_chunk}")
+    return _FlashAttention.apply(q, k, v, causal, window, scale, q_chunk,
+                                 kv_chunk)

@@ -1,9 +1,13 @@
-"""Model and step constructors for serving: prefill and decode.
+"""Model and step constructors: the train step (loss + AdamW), prefill and
+decode.
 
-The counterpart of ``build_model``, ``make_prefill_step`` and
-``make_decode_step`` in ``repro/launch/steps.py``.  PyTorch runs eagerly,
-so a step is the model call itself; the train step and the sharded
-lowering wait for their slices (ROADMAP queue, LM substrate).
+The counterpart of ``build_model``, ``make_train_step``,
+``make_prefill_step`` and ``make_decode_step`` in
+``repro/launch/steps.py``.  PyTorch runs eagerly, so a serve step is the
+model call itself, and the train step is autograd through
+``LM.forward_loss`` followed by the optimizer.  Parameters are updated in
+place.  The sharded lowering waits for its slice (ROADMAP queue, LM
+substrate: sharding and launch).
 """
 
 from __future__ import annotations
@@ -11,13 +15,86 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, tree_leaves, tree_unflatten
+from repro_torch.optim import adamw, apply_updates
 
 
-def build_model(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
+def build_model(cfg: ArchConfig, remat: bool = True, q_chunk: int = 1024,
+                kv_chunk: int = 1024, dtype: torch.dtype = torch.bfloat16,
                 device: str | torch.device | None = None) -> LM:
     """An ``LM`` on ``device`` (default ``cuda``; raises without a card)."""
-    return LM(cfg, dtype=dtype, device=device)
+    return LM(cfg, dtype=dtype, device=device, remat=remat, q_chunk=q_chunk,
+              kv_chunk=kv_chunk)
+
+
+def make_grad_fn(model: LM, moe_aux_weight: float = 0.01,
+                 n_microbatches: int = 1):
+    """``(params, batch) -> (grads, loss, aux)``: the gradients (a list in
+    ``tree_leaves(params)`` order, in the params' dtypes) of the batch's
+    mean loss.
+
+    With ``n_microbatches > 1`` the batch is split along its first axis
+    and the gradients accumulate as in the reference: in float32 up to 4
+    microbatches and in bf16 beyond (where the reference's param-sized
+    float32 buffer dominates its temp memory), then divided by the count
+    and cast to the params' dtypes.
+    """
+    cfg = model.cfg
+
+    def one(params, batch):
+        leaves = tree_leaves(params)
+        # leaves of their own that share the params' storage, so the
+        # caller's tensors gain no requires_grad
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        loss, aux = model.forward_loss(
+            tree_unflatten(params, live), batch["tokens"], batch["labels"],
+            loss_mask=batch.get("loss_mask"))
+        if cfg.moe:
+            loss = loss + moe_aux_weight * aux
+        grads = torch.autograd.grad(loss, live)
+        return list(grads), loss.detach(), aux
+
+    def grad_fn(params, batch):
+        n = n_microbatches
+        if n == 1:
+            return one(params, batch)
+        acc_dt = torch.float32 if n <= 4 else torch.bfloat16
+        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+               for p in tree_leaves(params)]
+        loss = aux = 0.0
+        for i in range(n):
+            mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                  for k, v in batch.items()}
+            g, loss_b, aux_b = one(params, mb)
+            torch._foreach_add_(acc, [gi.to(acc_dt) for gi in g])
+            loss, aux = loss + loss_b, aux + aux_b
+        grads = [(a / n).to(p.dtype)
+                 for a, p in zip(acc, tree_leaves(params))]
+        return grads, loss / n, aux / n
+
+    return grad_fn
+
+
+def make_train_step(model: LM, lr: float = 3e-4, weight_decay: float = 0.1,
+                    moe_aux_weight: float = 0.01, n_microbatches: int = 1):
+    """Returns ``(opt, train_step)``; ``train_step(params, opt_state,
+    batch) -> (params, opt_state, {"loss", "moe_aux"})``, the params
+    updated in place by AdamW.  ``opt.init(tree_leaves(params))`` makes
+    the state.  ``batch`` holds ``tokens`` and ``labels`` (B, S) and
+    optionally ``loss_mask``, on the model's device."""
+    opt = adamw(lr, weight_decay=weight_decay)
+    grad_fn = make_grad_fn(model, moe_aux_weight=moe_aux_weight,
+                           n_microbatches=n_microbatches)
+
+    def train_step(params, opt_state, batch):
+        grads, loss, aux = grad_fn(params, batch)
+        leaves = tree_leaves(params)
+        updates, opt_state = opt.update(grads, opt_state, leaves)
+        del grads
+        apply_updates(leaves, updates)
+        return params, opt_state, {"loss": loss, "moe_aux": aux}
+
+    return opt, train_step
 
 
 def make_prefill_step(model: LM, capacity: int | None = None):

@@ -3,9 +3,11 @@ window) and the SwiGLU/GELU MLP.
 
 The counterpart of ``repro/models/layers.py``, with its casts: float32
 inside rms_norm, rope and the activations, then back to the stream dtype.
-Prefill attention goes to the flash attention op (K2 on the card, its
-plain version on the CPU) with KV heads unexpanded; decode attends a KV
-cache with position masking.  ``moe_apply`` waits for the MoE slice.
+Train and prefill attention go to the flash attention op (K2 on the
+card, its plain version on the CPU) with KV heads unexpanded; the op's
+backward differentiates ``chunk_attention``, one query chunk of the
+reference's blockwise scan in plain torch.  Decode attends a KV cache
+with position masking.  ``moe_apply`` waits for the MoE slice.
 """
 
 from __future__ import annotations
@@ -54,12 +56,91 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---- attention ------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_chunk: int = 1024,
+                    kv_chunk: int = 1024) -> torch.Tensor:
     """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), KV heads unexpanded ->
     (B, S, Hq, hd).  At ``tp = 1`` query head h reads KV head h // G,
-    which is the reference's ``kv_map`` expansion."""
-    return flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    which is the reference's ``kv_map`` expansion.  The chunks are those
+    of the backward's blockwise recompute."""
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+def key_range(q0: int, q1: int, T: int, *, causal: bool,
+              window: int | None, kv_chunk: int) -> tuple[int, int]:
+    """The keys ``[lo, hi)`` that queries ``[q0, q1)`` may attend, widened
+    to whole ``kv_chunk`` blocks counted from key 0 (so a chunk of queries
+    sees the same key blocks as in the whole scan)."""
+    lo = 0 if window is None else max(0, q0 - window + 1)
+    hi = min(T, q1) if causal else T
+    lo = lo // kv_chunk * kv_chunk
+    hi = min(T, -(-hi // kv_chunk) * kv_chunk)
+    return lo, hi
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q0: int, k0: int, *, causal: bool, window: int | None,
+                    kv_chunk: int, scale: float) -> torch.Tensor:
+    """One query chunk's online softmax over the keys it is given, in
+    float32: q (B, n, Hq, hd) at positions ``q0 + i``; k, v (B, m, Hkv,
+    hd) at ``k0 + j``, KV heads unexpanded (query head h reads KV head
+    h // G), visited ``kv_chunk`` keys at a time -> (B, n, Hq, hd)
+    float32."""
+    B, n, Hq, hd = q.shape
+    m_keys, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qb = q.float().reshape(B, n, Hkv, G, hd)
+    q_pos = q0 + torch.arange(n, device=q.device)
+    m = torch.full((B, Hkv, G, n), NEG_INF, device=q.device)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, n, hd), device=q.device)
+    for j0 in range(0, m_keys, kv_chunk):
+        j1 = min(m_keys, j0 + kv_chunk)
+        k_pos = k0 + torch.arange(j0, j1, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, k[:, j0:j1].float()) * scale
+        mask = torch.ones((n, j1 - j0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, j0:j1].float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(denom, min=1e-20)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, n, Hq, hd)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_chunk: int = 1024, kv_chunk: int = 1024,
+                        scale: float | None = None) -> torch.Tensor:
+    """The reference's blockwise (flash-style) attention in plain torch:
+    per query chunk an online softmax over key chunks, in float32.
+
+    q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), KV heads unexpanded (query
+    head h reads KV head h // G) -> (B, S, Hq, hd) in q's dtype.  A query
+    chunk visits only the key chunks that causality and the window leave
+    it (``key_range``; the reference visits every chunk, and a fully
+    masked one adds nothing), and keys are masked by their true length,
+    so nothing is padded.
+    """
+    S, T, hd = q.shape[1], k.shape[1], q.shape[3]
+    scale = 1.0 / np.sqrt(hd) if scale is None else scale
+    outs = []
+    for q0 in range(0, S, q_chunk):
+        q1 = min(S, q0 + q_chunk)
+        lo, hi = key_range(q0, q1, T, causal=causal, window=window,
+                           kv_chunk=kv_chunk)
+        outs.append(chunk_attention(
+            q[:, q0:q1], k[:, lo:hi], v[:, lo:hi], q0, lo, causal=causal,
+            window=window, kv_chunk=kv_chunk, scale=scale))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

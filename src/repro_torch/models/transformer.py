@@ -1,26 +1,33 @@
-"""Decoder-only LM for dense attention blocks (h2o-danube-1.8b).
+"""Decoder-only LM for dense attention blocks (h2o-danube-1.8b,
+qwen2.5-14b, phi4-mini-3.8b, granite-34b).
 
 The counterpart of ``repro/models/transformer.py`` for ``block="attn"``
-without experts or frontends, at ``tp = 1``.  Parameters are a nested dict
-of tensors in the reference's pytree layout, with each layer's weights
-stacked along a leading ``L`` axis; the layer loop is a Python loop over
-that axis (the reference's ``layer_loop="unrolled"``).
+without experts or frontends, at ``tp = 1``: GQA and MQA, QKV biases,
+tied embeddings.  Parameters are a nested dict of tensors in the
+reference's pytree layout, with each layer's weights stacked along a
+leading ``L`` axis; the layer loop is a Python loop over that axis (the
+reference's ``layer_loop="unrolled"``), each layer under
+``torch.utils.checkpoint`` when ``remat`` is on and autograd records.
 
 Entry points:
-  * ``forward``      -- logits over a full sequence
+  * ``forward``      -- train/eval logits over a full sequence
+  * ``forward_loss`` -- the chunked cross-entropy, with no ``(B, S, Vp)``
+    logits
   * ``prefill``      -- forward + a populated KV cache
   * ``decode_step``  -- one token against the (circular) cache
 
-Prefill attention runs through the flash attention op with KV heads
-unexpanded (K2 on the card).  The cache is updated in place: ``prefill``
-allocates it and ``decode_step`` writes its token into the tensors it is
-given, returning them with ``pos`` advanced.
+Train and prefill attention run through the flash attention op with KV
+heads unexpanded (K2 on the card; its backward recomputes the blockwise
+scan in ``q_chunk``/``kv_chunk`` blocks).  The cache is updated in place:
+``prefill`` allocates it and ``decode_step`` writes its token into the
+tensors it is given, returning them with ``pos`` advanced.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -32,24 +39,20 @@ _LATER = {
     "moe": "MoE layers and moe_apply (ROADMAP queue, LM substrate: MoE)",
     "frontend": "the VLM/audio frontends (ROADMAP queue, LM substrate: "
                 "frontends)",
-    "qkv_bias": "qkv biases (ROADMAP queue, LM substrate: other dense "
-                "configs)",
-    "tie_embeddings": "tied embeddings (ROADMAP queue, LM substrate: other "
-                      "dense configs)",
 }
 
 
 class LM:
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 remat: bool = True, q_chunk: int = 1024,
+                 kv_chunk: int = 1024):
         if cfg.tp != 1 or not cfg.head_dim:
             raise ValueError("config must be resolve(1)d: the port runs "
                              "unsharded (sharding is on the ROADMAP queue)")
         unsupported = [key for key, bad in (
             ("block", cfg.block != "attn"), ("moe", cfg.moe is not None),
-            ("frontend", cfg.frontend is not None),
-            ("qkv_bias", cfg.qkv_bias),
-            ("tie_embeddings", cfg.tie_embeddings)) if bad]
+            ("frontend", cfg.frontend is not None)) if bad]
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: the port does not run "
@@ -60,13 +63,17 @@ class LM:
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.remat = remat
+        self.q_chunk = q_chunk
+        self.kv_chunk = kv_chunk
 
     # ---- parameters ----------------------------------------------------------
 
     def init_params(self, seed: int) -> dict:
         """Weights drawn as normal x 0.02 (norms at 1) by a generator on
         the model's device seeded with ``seed``; shapes as in the
-        reference."""
+        reference (no ``lm_head`` with tied embeddings; QKV biases at
+        zero)."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
         cfg, dt = self.cfg, self.dtype
         n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -79,13 +86,21 @@ class LM:
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=self.device)
 
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
         params = {"embed": normal(cfg.vocab_padded, d),
-                  "final_norm": ones(d),
-                  "lm_head": normal(d, cfg.vocab_padded)}
+                  "final_norm": ones(d)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal(d, cfg.vocab_padded)
         lay = {"ln1": ones(n, d), "ln2": ones(n, d),
                "wq": normal(n, d, Hq * hd), "wk": normal(n, d, Hkv * hd),
                "wv": normal(n, d, Hkv * hd), "wo": normal(n, Hq * hd, d),
                "mlp": {"wu": normal(n, d, f), "wo": normal(n, f, d)}}
+        if cfg.qkv_bias:
+            lay["bq"] = zeros(n, Hq * hd)
+            lay["bk"] = zeros(n, Hkv * hd)
+            lay["bv"] = zeros(n, Hkv * hd)
         if cfg.act == "swiglu":
             lay["mlp"]["wg"] = normal(n, d, f)
         params["layers"] = lay
@@ -97,9 +112,12 @@ class LM:
         cfg = self.cfg
         B, Sq, _ = h.shape
         hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
-        q = (h @ lp["wq"]).reshape(B, Sq, Hq, hd)
-        k = (h @ lp["wk"]).reshape(B, Sq, Hkv, hd)
-        v = (h @ lp["wv"]).reshape(B, Sq, Hkv, hd)
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = q.reshape(B, Sq, Hq, hd)
+        k = k.reshape(B, Sq, Hkv, hd)
+        v = v.reshape(B, Sq, Hkv, hd)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -108,7 +126,9 @@ class LM:
                 cache["k"][:, :Sq] = k
                 cache["v"][:, :Sq] = v
             out = L.flash_attention(q, k, v, causal=True,
-                                    window=cfg.sliding_window)
+                                    window=cfg.sliding_window,
+                                    q_chunk=self.q_chunk,
+                                    kv_chunk=self.kv_chunk)
         else:                                           # single-token decode
             T = cache["k"].shape[1]
             idx = pos % T                               # circular buffer
@@ -132,6 +152,10 @@ class LM:
     def _layers(self, params, x, positions, cache=None, pos=None):
         for i in range(self.cfg.n_layers):
             lp = map_params(lambda t: t[i], params["layers"])
+            if cache is None and self.remat and torch.is_grad_enabled():
+                x = checkpoint(self._layer, lp, x, positions,
+                               use_reentrant=False)
+                continue
             cl = None if cache is None else map_params(lambda t: t[i],
                                                        cache["layers"])
             x = self._layer(lp, x, positions, cache=cl, pos=pos)
@@ -142,18 +166,60 @@ class LM:
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()]
 
+    def _head(self, params):
+        """(D, Vp): ``embed.T`` with tied embeddings, else ``lm_head``."""
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return x @ params["lm_head"]
+        return x @ self._head(params)
 
     # ---- entry points -------------------------------------------------------------
 
-    @torch.no_grad()
-    def forward(self, params: dict, tokens: torch.Tensor):
-        """Eval forward. Returns (logits (B, S, Vp), moe aux loss = 0)."""
+    def _backbone(self, params, tokens):
+        """Embed + layer stack + final norm: (B, S, D)."""
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        return self._logits(params, self._layers(params, x, positions)), 0.0
+        x = self._layers(params, x, positions)
+        return L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+
+    def forward(self, params: dict, tokens: torch.Tensor):
+        """Train/eval forward (differentiable). Returns (logits (B, S,
+        Vp), moe aux loss = 0)."""
+        return self._backbone(params, tokens) @ self._head(params), 0.0
+
+    def forward_loss(self, params: dict, tokens: torch.Tensor,
+                     labels: torch.Tensor,
+                     loss_mask: torch.Tensor | None = None,
+                     loss_chunk: int = 512):
+        """Fused chunked cross-entropy: never materializes (B, S, Vp)
+        logits.  The head matmul and the CE run one sequence chunk at a
+        time under ``torch.utils.checkpoint``, so the backward recomputes
+        each chunk's logits instead of saving them.  Returns (mean masked
+        NLL, moe aux loss = 0)."""
+        x = self._backbone(params, tokens)
+        head = self._head(params)
+        S = x.shape[1]
+        c = min(loss_chunk, S)
+        if S % c:
+            raise ValueError(f"sequence {S} is not a multiple of the loss "
+                             f"chunk {c}")
+        if loss_mask is None:
+            loss_mask = torch.ones(labels.shape, dtype=torch.float32,
+                                   device=x.device)
+
+        def body(xc, lc, mc):
+            return _chunk_ce(xc @ head, lc, mc, self.cfg.vocab)
+
+        nll = msum = 0.0
+        for s0 in range(0, S, c):
+            part = (x[:, s0:s0 + c], labels[:, s0:s0 + c],
+                    loss_mask[:, s0:s0 + c])
+            n, m = (checkpoint(body, *part, use_reentrant=False)
+                    if torch.is_grad_enabled() else body(*part))
+            nll, msum = nll + n, msum + m
+        return nll / torch.clamp(msum, min=1.0), 0.0
 
     def init_cache(self, batch: int, capacity: int) -> dict:
         cfg = self.cfg
@@ -191,10 +257,60 @@ class LM:
                                          "pos": pos + 1}
 
 
+# ---- loss -------------------------------------------------------------------
+
+def _live_logits(logits: torch.Tensor, vocab: int | None) -> torch.Tensor:
+    """float32 logits with the vocab padding at -1e9."""
+    logits = logits.float()
+    if vocab is not None and vocab < logits.shape[-1]:
+        live = torch.arange(logits.shape[-1], device=logits.device) < vocab
+        logits = torch.where(live, logits, -1e9)
+    return logits
+
+
+def _nll(logits, labels, vocab):
+    logits = _live_logits(logits, vocab)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - ll
+
+
+def _chunk_ce(logits, labels, mask, vocab: int | None):
+    """Summed masked CE over one chunk. Returns (sum_nll, sum_mask)."""
+    mask = mask.float()
+    return (_nll(logits, labels, vocab) * mask).sum(), mask.sum()
+
+
+def lm_loss(logits, labels, mask=None, vocab: int | None = None):
+    """Mean next-token cross-entropy. logits: (B, S, Vp), labels: (B, S)."""
+    nll = _nll(logits, labels, vocab)
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+# ---- parameter trees --------------------------------------------------------
+
 def map_params(fn, tree: dict) -> dict:
     """``fn`` applied to every leaf of a parameter (or cache) tree."""
     return {k: map_params(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def tree_leaves(tree: dict) -> list:
+    """The leaves in the reference's pytree order (dict keys sorted)."""
+    return [x for k in sorted(tree) for x in (
+        tree_leaves(tree[k]) if isinstance(tree[k], dict) else (tree[k],))]
+
+
+def tree_unflatten(tree: dict, leaves) -> dict:
+    """``tree``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(t[k]) if isinstance(t[k], dict) else next(it)
+                for k in sorted(t)}
+    return build(tree)
 
 
 # ---- weights from and to the JAX package ------------------------------------------

@@ -14,6 +14,15 @@ learning rate is read, the schedule and the bias corrections are float32
 (``1 - b ** float32(step)``), and the update is ``-lr * m_hat /
 (sqrt(v_hat) + eps)``.  The learning rate may be a float or a callable
 ``step -> lr`` (the paper's linear decay).
+
+On bfloat16 params the reference's dtype rules are kept too, so the two
+agree bit for bit: a Python scalar (``b1``, ``1 - b1``, ``momentum``, a
+constant learning rate) is weakly typed in JAX and is rounded to the
+tensor's dtype before it multiplies; a schedule's learning rate is a
+float32 array and promotes the product to float32; Adam's bias-corrected
+update is float32, one bounded group of leaves at a time; the update is
+cast to the param's dtype once.  On float32 params these
+rules change nothing.
 """
 
 from __future__ import annotations
@@ -38,9 +47,33 @@ class Optimizer:
     update: Callable[..., tuple[list, OptState]]
 
 
-def _lr_at(lr: Schedule, step: int) -> float:
-    """The learning rate at ``step`` as a float32 value."""
-    return float(np.float32(lr(step) if callable(lr) else lr))
+def _lr_at(lr: Schedule, step: int) -> tuple[float, bool]:
+    """The learning rate at ``step`` as a float32 value, and whether it is
+    strongly typed: a schedule's is (the reference's ``linear_decay``
+    returns a float32 array), a constant's is not (``jnp.asarray(lr)`` is
+    weak)."""
+    return float(np.float32(lr(step) if callable(lr) else lr)), callable(lr)
+
+
+def _coef(x: float, t: torch.Tensor) -> float:
+    """A Python scalar as JAX applies it to ``t``: a weakly typed scalar
+    takes ``t``'s dtype, so it is rounded to that dtype before it
+    multiplies (bf16 rounds; float32 and float64 are what torch's own
+    scalar arithmetic gives)."""
+    return float(torch.tensor(x, dtype=t.dtype)) if t.dtype in (
+        torch.bfloat16, torch.float16) else x
+
+
+def _coefs(x: float, ts) -> list[float]:
+    return [_coef(x, t) for t in ts]
+
+
+def _scale(ts, lrv: float, strong: bool) -> list[torch.Tensor]:
+    """``lrv * t`` for each tensor: in float32 for a strong learning rate
+    (the product promotes), in ``t``'s dtype for a weak one."""
+    if strong:
+        return torch._foreach_mul([t.float() for t in ts], lrv)
+    return torch._foreach_mul(list(ts), _coefs(lrv, ts))
 
 
 def linear_decay(base_lr: float, total_steps: int) -> Callable[[int], float]:
@@ -65,40 +98,91 @@ def sgd(lr: Schedule, momentum: float = 0.0) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params=None):
         step = state.step + 1
-        lrv = _lr_at(lr, step)
+        lrv, strong = _lr_at(lr, step)
+        grads = list(grads)
         if momentum:
-            mu = [momentum * m + g for m, g in zip(state.inner, grads)]
-            return [-lrv * m for m in mu], OptState(step, mu)
-        return [-lrv * g for g in grads], OptState(step, None)
+            mu = list(torch._foreach_add(
+                torch._foreach_mul(state.inner, _coefs(momentum, grads)),
+                grads))
+            return _scale(mu, -lrv, strong), OptState(step, mu)
+        return _scale(grads, -lrv, strong), OptState(step, None)
 
     return Optimizer(init, update)
 
 
+def _groups(ts, limit: int) -> list[range]:
+    """Consecutive index ranges of ``ts``, each of at most ``limit``
+    elements (a larger tensor is a group of its own)."""
+    out, start, n = [], 0, 0
+    for i, t in enumerate(ts):
+        if i > start and n + t.numel() > limit:
+            out.append(range(start, i))
+            start, n = i, 0
+        n += t.numel()
+    return out + [range(start, len(ts))] if len(ts) else out
+
+
+# Adam's float32 temporaries (m_hat, its denominator, the decay term) live
+# for one group of leaves at a time (at most 2^26 elements, or one larger
+# leaf), never as model-sized lists.  A small model is one group, so its
+# launches are as before.
+GROUP_ELEMS = 1 << 26
+
+
 def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """The moments keep the params' dtype; the bias-corrected update is
+    float32 (the reference's ``bc1``/``bc2`` are float32 arrays) and comes
+    back cast to the params' dtype, as ``apply_updates`` would cast it."""
+
     def init(params):
         return OptState(0, (_zeros(params), _zeros(params)))
 
     @torch.no_grad()
     def update(grads, state, params=None):
         step = state.step + 1
-        m, v = state.inner
+        m_old, v_old = state.inner
         grads = list(grads)
-        m = torch._foreach_add(torch._foreach_mul(m, b1),
-                               torch._foreach_mul(grads, 1 - b1))
-        v = torch._foreach_add(
-            torch._foreach_mul(v, b2),
-            torch._foreach_mul(torch._foreach_mul(grads, 1 - b2), grads))
-        lrv = _lr_at(lr, step)
+        lrv, strong = _lr_at(lr, step)
         bc1 = float(1 - np.float32(b1) ** np.float32(step))
         bc2 = float(1 - np.float32(b2) ** np.float32(step))
-        upd = torch._foreach_div(
-            torch._foreach_mul(torch._foreach_div(m, bc1), -lrv),
-            torch._foreach_add(torch._foreach_sqrt(
-                torch._foreach_div(v, bc2)), eps))
+        decay = None
         if weight_decay and params is not None:
-            upd = torch._foreach_sub(
-                upd, torch._foreach_mul(list(params), lrv * weight_decay))
+            params = list(params)
+            if any(p.dtype in (torch.bfloat16, torch.float16)
+                   for p in params):
+                # the reference's ``lrv * weight_decay`` is a float32
+                # product before it is rounded to the param's dtype
+                decay = float(np.float32(lrv) * np.float32(weight_decay))
+            else:
+                # float32 params keep the float64 product (within one
+                # float32 ulp of the reference's)
+                decay = lrv * weight_decay
+        m, v, upd = [], [], []
+        for idx in _groups(grads, GROUP_ELEMS):
+            g = [grads[i] for i in idx]
+            mg, vg = [m_old[i] for i in idx], [v_old[i] for i in idx]
+            mg = torch._foreach_add(torch._foreach_mul(mg, _coefs(b1, mg)),
+                                    torch._foreach_mul(g, _coefs(1 - b1, g)))
+            vg = torch._foreach_add(
+                torch._foreach_mul(vg, _coefs(b2, vg)),
+                torch._foreach_mul(torch._foreach_mul(g, _coefs(1 - b2, g)),
+                                   g))
+            # fresh float32 lists, so the in-place steps below never touch
+            # the moments (``.float()`` of a float32 moment is the moment)
+            u = torch._foreach_div([t.float() for t in mg], bc1)
+            torch._foreach_mul_(u, -lrv)
+            den = torch._foreach_div([t.float() for t in vg], bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(u, den)
+            del den
+            if decay is not None:
+                u = torch._foreach_sub(
+                    u, _scale([params[i] for i in idx], decay, strong))
+            upd += [x.to(t.dtype) for x, t in zip(u, mg)]
+            m += mg
+            v += vg
         return upd, OptState(step, (m, v))
 
     return Optimizer(init, update)
@@ -123,16 +207,18 @@ def rowwise_adagrad(lr: Schedule, eps: float = 1e-8) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params=None):
         step = state.step + 1
-        lrv = _lr_at(lr, step)
+        lrv, strong = _lr_at(lr, step)
         acc, upd = [], []
         for a, g in zip(state.inner, grads):
+            step_g = g.float() * -lrv if strong else g * _coef(-lrv, g)
             if g.dim() >= 2:
-                a = a + (g * g).mean(dim=-1)
-                scale = 1.0 / (torch.sqrt(a) + eps)
-                upd.append(-lrv * g * scale[..., None])
+                # jnp.mean sums a low-precision tensor in float32
+                a = a + (g * g).float().mean(dim=-1).to(g.dtype)
+                scale = 1.0 / (torch.sqrt(a) + _coef(eps, a))
+                upd.append(step_g * scale[..., None])
             else:
                 a = a + g * g
-                upd.append(-lrv * g / (torch.sqrt(a) + eps))
+                upd.append(step_g / (torch.sqrt(a) + _coef(eps, a)))
             acc.append(a)
         return upd, OptState(step, acc)
 

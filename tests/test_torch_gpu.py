@@ -5,7 +5,8 @@ that has only PyTorch: K1's forward and backward and K2 against their
 plain versions on the card (K2 in bf16 on its tensor-core kernel, in
 float32 on its CUDA-core one), K1's autograd op, the wrappers' input
 checks and launch counts, the LM on the card against the LM on the CPU,
-the default device of the entry points, a tiny ``KernelOracle``
+the default device of the entry points, the flash attention op's backward
+and the LM train step on the card against the CPU, a tiny ``KernelOracle``
 calibration on the card (it launches K1), one training iteration on
 the card against the CPU on the cost stage, the distributed embedding
 lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``),
@@ -915,3 +916,108 @@ def test_rnn_greedy_placement_on_cuda_matches_cpu(rnn_pair):
             gpu.place(t.raw_features, t.n_devices),
             cpu.place(t.raw_features, t.n_devices))
     assert gpu.as_placer().place(test[0]).strategy == "rnn"
+
+
+# ---- the LM train path: the op's backward and the train step ----------------
+
+
+def _op_grads(q, k, v, dout, **kw):
+    """The flash attention op's output and dq/dk/dv (autograd)."""
+    args = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_ops.flash_attention(*args, **kw)
+    return (out.detach(), *torch.autograd.grad(out, args, dout))
+
+
+@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("S,window,group,Hkv", [(100, None, 1, 2),
+                                                (300, 64, 4, 2),
+                                                (257, None, 8, 1)])
+def test_flash_backward_on_cuda_matches_cpu(cuda, no_tf32, hd, S, window,
+                                            group, Hkv):
+    """float32: the forward is K2's CUDA-core kernel on the card and plain
+    on the CPU; both backwards recompute the blockwise scan (chunks of 64
+    here), so the gradients differ by float32 summation order: 1e-5."""
+    q, k, v = _qkv(S + hd, 2, S, S, Hkv * group, Hkv, hd, torch.float32,
+                   cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(S)
+                       ).to(cuda)
+    kw = {"window": window, "q_chunk": 64, "kv_chunk": 64}
+    n0 = flash_attention_cuda.launches
+    on_card = _op_grads(q, k, v, dout, **kw)
+    assert flash_attention_cuda.launches == n0 + 1    # the forward only
+    on_cpu = _op_grads(q.cpu(), k.cpu(), v.cpu(), dout.cpu(), **kw)
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_backward_bf16_on_cuda(cuda, no_tf32, hd):
+    """bf16 as the train step runs it: K2's tensor-core forward within its
+    bf16 limits of plain, and dq/dk/dv (float32 inside, rounded once to
+    bf16) within 1e-2 relative rms of the float32 op's on the same
+    values."""
+    q, k, v = _qkv_served(hd, 2, 512, 512, 8, 2, hd, cuda)
+    dout = torch.randn(q.shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(1))
+    kw = {"window": 200, "q_chunk": 128, "kv_chunk": 128}
+    bf = _op_grads(q, k, v, dout.bfloat16(), **kw)
+    f32 = _op_grads(q.float(), k.float(), v.float(), dout, **kw)
+    _assert_bf16_limits(bf[0], attention_plain(q, k, v, window=200))
+    for a, b in zip(bf[1:], f32[1:]):
+        assert a.dtype == torch.bfloat16
+        assert float((a.float() - b).norm() / b.norm()) <= 1e-2
+
+
+def test_train_step_on_cuda_matches_cpu(cuda, no_tf32):
+    """Two AdamW steps of the SMOKE danube in float32 on the card (K2) and
+    on the CPU (plain) from the same weights and batches: losses within
+    1e-5 relative, the first step's gradients within 1e-5 of each leaf's
+    largest; params within 1e-5 where the gradient decides Adam's step
+    (|g| >= 1e-2 of the leaf's largest), within 4 lr elsewhere."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params, tree_leaves
+    cfg = get_smoke("h2o-danube-1.8b").resolve(1)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 96)),
+                                          dtype=torch.int32),
+                "labels": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 96)),
+                                          dtype=torch.int32)}
+               for _ in range(2)]
+    init = ST.build_model(cfg, dtype=torch.float32).init_params(0)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = ST.build_model(cfg, q_chunk=32, kv_chunk=32,
+                               dtype=torch.float32, device=dev)
+        params = map_params(lambda t: t.to(dev).clone(), init)
+        opt, step = ST.make_train_step(model, lr=1e-3)
+        state = opt.init(tree_leaves(params))
+        grad_fn = ST.make_grad_fn(model)
+        losses, grads = [], []
+        for b in batches:
+            b = {k: v.to(dev) for k, v in b.items()}
+            grads.append([g.cpu() for g in grad_fn(params, b)[0]])
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        runs.append((losses, grads, [p.cpu() for p in tree_leaves(params)]))
+    (cl, cg, cp), (hl, hg, hp) = runs
+    np.testing.assert_allclose(cl, hl, rtol=1e-5)
+    for a, b in zip(cg[0], hg[0]):             # the first step's, same point
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    decided = [(g.abs() >= 1e-2 * g.abs().max()) for g in hg[0]]
+    decided = [d & (g.abs() >= 1e-2 * g.abs().max())
+               for d, g in zip(decided, hg[1])]
+    for d, a, b in zip(decided, cp, hp):
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 4e-3
+        assert float(diff[d].max()) <= 1e-5
+
+
+def test_train_launcher_defaults_to_cuda(cuda, capsys):
+    from repro_torch.launch import train as TR
+    n0 = flash_attention_cuda.launches
+    losses = TR.main(["--arch", "granite-34b", "--smoke", "--steps", "2",
+                      "--seq", "64"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert "device=cuda" in capsys.readouterr().out
+    assert flash_attention_cuda.launches == n0 + 2 * 2   # 2 layers, 2 steps

@@ -50,7 +50,8 @@ def test_port_modules_found():
               "serve.errors", "serve.faults", "serve.ledger",
               "serve.service", "data.traffic", "telemetry.sinks",
               "telemetry.report", "launch.serve_workflow",
-              "core.rnn_policy"):
+              "core.rnn_policy", "launch.train", "configs.qwen2p5_14b",
+              "configs.phi4_mini_3p8b", "configs.granite_34b"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 

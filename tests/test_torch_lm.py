@@ -3,9 +3,12 @@
 Layers are fed the same seeded numpy inputs on both sides.  The whole
 model is the h2o-danube-1.8b SMOKE config (``resolve(1)``) with the JAX
 LM's own weights carried across by ``params_from_jax``, on a 96-token
-prompt, past the config's window of 64.  In float32 the JAX LM runs its
-blockwise attention scan and the port its materialized plain attention, so
-they differ by float32 summation order only: 1e-4.  In bfloat16 both
+prompt, past the config's window of 64; the other dense archs
+(qwen2.5-14b with QKV biases, made random here, phi4-mini-3.8b with tied
+embeddings, granite-34b with one KV head) are held the same way.  In
+float32 the JAX LM runs its blockwise attention scan and the port its
+materialized plain attention, so they differ by float32 summation order
+only: 1e-4.  In bfloat16 both
 round every matmul and residual to bf16 at the same places but accumulate
 in different orders.  Logits reach 1.6 in size, where one bf16 step is
 0.0078; the two sides stay within 2e-2 (about two steps), and decode is
@@ -21,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import h2o_danube_1p8b as jax_danube
+from repro import configs as JC
 from repro.models import layers as JL
 from repro.models.transformer import LM as JaxLM
 from repro_torch.configs import get_smoke
@@ -100,10 +103,19 @@ def test_decode_attention(layout):
     np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
 
 
-def _jax_params(dtype):
-    model = JaxLM(jax_danube.SMOKE.resolve(1), remat=False, q_chunk=32,
+def _jax_params(dtype, arch="h2o-danube-1.8b"):
+    """The JAX LM (SMOKE) and its weights as numpy; QKV biases, which the
+    reference starts at zero, are drawn at random so that their add
+    shows."""
+    model = JaxLM(JC.get_smoke(arch).resolve(1), remat=False, q_chunk=32,
                   kv_chunk=32, dtype=dtype)
     tree = jax.tree.map(np.asarray, model.init_params(jax.random.PRNGKey(0)))
+    if model.cfg.qkv_bias:
+        rng = np.random.default_rng(1)
+        for n in ("bq", "bk", "bv"):
+            b = tree["layers"][n]
+            tree["layers"][n] = (rng.normal(size=b.shape) * 0.02).astype(
+                b.dtype)
     return model, tree
 
 
@@ -135,17 +147,23 @@ def test_init_params_has_the_reference_layout():
 def run_both(request):
     """The JAX LM and the port's, same weights, same prompt: forward,
     prefill and N_DECODE decode steps on each side."""
-    jdt = jnp.float32 if request.param == "float32" else jnp.bfloat16
-    model, tree = _jax_params(jdt)
+    return _run_both("h2o-danube-1.8b", request.param)
+
+
+def _run_both(arch, dtype):
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    model, tree = _jax_params(jdt, arch)
+    cfg = model.cfg
     params = jax.tree.map(jnp.asarray, tree)
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, CFG.vocab, (2, PROMPT)).astype(np.int32)
+    prompt = rng.integers(0, cfg.vocab, (2, PROMPT)).astype(np.int32)
     capacity = PROMPT + N_DECODE
 
-    ours = LM(CFG, dtype=getattr(torch, request.param), device="cpu")
+    ours = LM(get_smoke(arch).resolve(1), dtype=getattr(torch, dtype),
+              device="cpu")
     tparams = params_from_jax(tree)
     tprompt = torch.as_tensor(prompt)
-    res = {"dtype": request.param}
+    res = {"dtype": dtype, "cfg": cfg}
     res["forward"] = (np.asarray(jax.jit(model.forward)(params, prompt)[0],
                                  np.float32),
                       ours.forward(tparams, tprompt)[0].float().numpy())
@@ -162,7 +180,7 @@ def run_both(request):
     res["pos"] = (int(jcache["pos"]), tcache["pos"])
 
     decode = jax.jit(model.decode_step)
-    forced = request.param == "bfloat16"
+    forced = dtype == "bfloat16"
     jtok = jnp.argmax(jlog[:, -1], -1)[:, None].astype(jnp.int32)
     ttok = tlog[:, -1].argmax(-1, keepdim=True).to(torch.int32)
     steps = []
@@ -214,12 +232,24 @@ def test_lm_greedy_decode(run_both):
 
 @pytest.mark.parametrize("change", [
     {"block": "hybrid"}, {"block": "rwkv"},
-    {"moe": MoEConfig(n_experts=4, top_k=2)}, {"frontend": "vlm"},
-    {"qkv_bias": True}, {"tie_embeddings": True}])
+    {"moe": MoEConfig(n_experts=4, top_k=2)}, {"frontend": "vlm"}])
 def test_unsupported_blocks_raise(change):
     cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(cfg.resolve(1), device="cpu")
+
+
+@pytest.mark.parametrize("change", [{"qkv_bias": True},
+                                    {"tie_embeddings": True}])
+def test_qkv_bias_and_tied_embeddings_run(change):
+    cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"),
+                              **change).resolve(1)
+    model = LM(cfg, dtype=torch.float32, device="cpu")
+    params = model.init_params(0)
+    assert ("lm_head" in params) == (not cfg.tie_embeddings)
+    assert ("bq" in params["layers"]) == cfg.qkv_bias
+    logits, _ = model.forward(params, torch.zeros((1, 8), dtype=torch.int32))
+    assert logits.shape == (1, 8, cfg.vocab_padded)
 
 
 def test_unresolved_or_sharded_config_raises():
@@ -264,3 +294,72 @@ def test_serve_on_the_cpu():
         tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         toks.append(tok)
     np.testing.assert_array_equal(torch.cat(toks, 1).numpy(), res.tokens)
+
+
+# ---- the other dense archs --------------------------------------------------
+
+OTHER = ("qwen2.5-14b", "phi4-mini-3.8b", "granite-34b")
+
+
+@pytest.mark.parametrize("arch", OTHER)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_dense_params_round_trip_exactly(arch, dtype):
+    _, tree = _jax_params(dtype, arch)
+    params = params_from_jax(tree)
+    cfg = get_smoke(arch).resolve(1)
+    assert ("lm_head" in params) == (not cfg.tie_embeddings)
+    assert ("bq" in params["layers"]) == cfg.qkv_bias
+    back = params_to_jax(params)
+    flat, treedef = jax.tree.flatten(tree)
+    flat_back, treedef_back = jax.tree.flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("arch", OTHER)
+def test_dense_init_params_has_the_reference_layout(arch):
+    model, tree = _jax_params(jnp.float32, arch)
+    ours = LM(get_smoke(arch).resolve(1), dtype=torch.float32,
+              device="cpu").init_params(0)
+    assert jax.tree.map(lambda t: tuple(t.shape), ours) == jax.tree.map(
+        lambda a: a.shape, tree)
+    if model.cfg.qkv_bias:
+        assert not ours["layers"]["bq"].any()   # the reference's zeros
+
+
+@pytest.fixture(scope="module", params=[
+    (a, d) for a in OTHER for d in ("float32", "bfloat16")],
+    ids=lambda p: f"{p[0]}-{p[1]}")
+def run_dense(request):
+    return _run_both(*request.param)
+
+
+def test_dense_forward_logits(run_dense):
+    ref, out = run_dense["forward"]
+    assert out.shape == (2, PROMPT, run_dense["cfg"].vocab_padded)
+    np.testing.assert_allclose(out, ref, rtol=_tol(run_dense),
+                               atol=_tol(run_dense))
+
+
+def test_dense_prefill_logits_and_cache(run_dense):
+    cfg = run_dense["cfg"]
+    ref, out = run_dense["prefill"]
+    np.testing.assert_allclose(out, ref, rtol=_tol(run_dense),
+                               atol=_tol(run_dense))
+    for ref_c, out_c in run_dense["cache"]:
+        assert out_c.shape == (cfg.n_layers, 2, PROMPT + N_DECODE,
+                               cfg.n_kv_heads, cfg.head_dim)
+        np.testing.assert_allclose(out_c, ref_c, rtol=_tol(run_dense),
+                                   atol=_tol(run_dense))
+    assert run_dense["pos"] == (PROMPT, PROMPT)
+
+
+def test_dense_greedy_decode(run_dense):
+    for jlog, tlog, jtok, ttok in run_dense["decode"]:
+        np.testing.assert_allclose(tlog, jlog, rtol=_tol(run_dense),
+                                   atol=_tol(run_dense))
+        if run_dense["dtype"] == "float32":
+            np.testing.assert_array_equal(ttok, jtok)
+    assert run_dense["decode_pos"] == (PROMPT + N_DECODE,) * 2

@@ -6,6 +6,7 @@ numpy seed) over params of rank 1, 2 and 3; the params must stay within
 linear decay, read at the step after the increment.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,3 +93,75 @@ def test_update_does_not_track_gradients():
     g = torch.ones(3)
     upd, _ = opt.adam(1e-3).update([g], opt.adam(1e-3).init([p]), [p])
     assert not upd[0].requires_grad
+
+
+def _run_both_bf16(make, steps=5, seed=1):
+    """Both packages on bfloat16 params and gradients (the LM train step's
+    dtypes), the JAX updates run op by op as its train step's are traced:
+    each op rounds to bf16."""
+    rng = np.random.default_rng(seed)
+    shapes = SHAPES + [(64, 64)]
+    init = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) * 0.1 for s in shapes]
+             for _ in range(steps)]
+    jo, to = make(jopt), make(opt)
+    jp = [jnp.asarray(p, jnp.bfloat16) for p in init]
+    jst = jo.init(jp)
+    tp = [torch.tensor(p).to(torch.bfloat16) for p in init]
+    tst = to.init(tp)
+    for g in grads:
+        upd, jst = jo.update([jnp.asarray(x, jnp.bfloat16) for x in g], jst,
+                             jp)
+        jp = jopt.apply_updates(jp, upd)
+        tupd, tst = to.update([torch.tensor(x).to(torch.bfloat16)
+                               for x in g], tst, tp)
+        opt.apply_updates(tp, tupd)
+    return jp, jst, tp, tst, init
+
+
+@pytest.mark.parametrize("name", list(MAKERS))
+def test_five_bf16_steps_match_the_reference_bit_for_bit(name):
+    """Bit for bit: the port rounds each Python scalar to bf16 before it
+    multiplies (JAX's weak types), keeps a schedule's learning rate
+    float32 (a strong float32 array in JAX), computes Adam's
+    bias-corrected update in float32 and casts once in
+    ``apply_updates``."""
+    jp, jst, tp, tst, init = _run_both_bf16(MAKERS[name])
+    for j, t, p0 in zip(jp, tp, init):
+        assert t.dtype == torch.bfloat16
+        t16 = t.view(torch.int16).numpy()
+        assert not np.array_equal(t.float().numpy(), p0)
+        np.testing.assert_array_equal(t16, np.asarray(j).view(np.int16))
+    # the state too: moments, momenta and accumulators keep the params'
+    # dtype and bits
+    jleaves = jax.tree.leaves(jst.inner)
+    tleaves = [x for part in (tst.inner if isinstance(tst.inner, tuple)
+                              else (tst.inner,)) if part is not None
+               for x in part]
+    assert len(jleaves) == len(tleaves)
+    for j, t in zip(jleaves, tleaves):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                      np.asarray(j).view(np.int16))
+
+
+@pytest.mark.parametrize("limit", [1, 40])
+@pytest.mark.parametrize("name", ["adam", "adam_const", "adamw"])
+def test_adam_groups_keep_the_bits(name, limit, monkeypatch):
+    """Adam's float32 part runs one bounded group of leaves at a time;
+    groups of one leaf (limit 1) or of a few (limit 40) give the same
+    params and state, bit for bit, as one group, in bf16 and float32."""
+    assert [list(r) for r in opt.optimizers._groups(
+        [torch.zeros(s) for s in [(7,), (5, 3), (2, 4, 6), (64, 64)]],
+        40)] == [[0, 1], [2], [3]]
+    whole = _run_both_bf16(MAKERS[name])
+    monkeypatch.setattr(opt.optimizers, "GROUP_ELEMS", limit)
+    grouped = _run_both_bf16(MAKERS[name])
+    for a, b in zip(whole[2] + [*whole[3].inner[0], *whole[3].inner[1]],
+                    grouped[2] + [*grouped[3].inner[0],
+                                  *grouped[3].inner[1]]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    f32 = _run_both(MAKERS[name], steps=5)[1]
+    monkeypatch.setattr(opt.optimizers, "GROUP_ELEMS", 1 << 26)
+    for a, b in zip(_run_both(MAKERS[name], steps=5)[1], f32):
+        np.testing.assert_array_equal(a, b)

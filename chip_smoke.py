@@ -175,6 +175,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the train batch (2 x 1024, hd 128: groups 5, 3 and 48), one train step
    (finite loss) and one serve (a 2 x 1024-token prefill and 8 greedy
    decode steps).
+14. (after phase 13) the MoE path (``models/layers.moe_apply``: the
+   reference's block-local sort-based routing, the expert GEMMs as
+   batched matmuls, the combine as ordered gathers and adds): (a)
+   olmoe-1b-7b at full width and depth (16 layers, 64 experts, top-8,
+   seeded bf16) served through ``launch.serve.serve``: 2 x 8192-token
+   prompts and 32 tokens (prefill ms, decode ms a token, peak), then each
+   layer's dropped-slot share on one more prefill; (b) the same weights
+   trained by ``make_train_step`` (AdamW lr 3e-4, weight decay 0.1,
+   ``moe_aux_weight`` 0.01, remat) on 2 x 4096 tokens: 1 warm-up and 3
+   steps timed by CUDA events, tokens/s, peak, losses and load-balance
+   losses, then torch.profiler over one step (the shares of the expert
+   GEMMs, dispatch and combine, routing, the attention backward and
+   AdamW's foreach kernels; the idle share); (c) dbrx-132b at full width
+   cut to 2 layers: a serve (2 x 1024 + 8 tokens) and a train step (2 x
+   1024), peak; (d) K2 against plain by phase 13's ``attention_ulp_err``
+   on layer 0's q/k/v of (a)'s prompts (8192), (b)'s batch (4096; 16
+   heads, group 1) and (c)'s (48 / 8 heads, group 6); (e) olmoe and
+   dbrx at SMOKE in float32 on the card and on the CPU: ``moe_apply``'s
+   routes equal, output and load-balance loss within 1e-5, a train
+   step's loss (1e-5) and gradients (1e-4), greedy decode tokens equal;
+   and two card runs of bf16 ``moe_apply`` at olmoe's width bit-equal.
+   Each leg prints its seconds.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -3099,13 +3121,26 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def train_profile(torch, step, params, state, batch) -> dict:
+def _under(e, pred) -> bool:
+    """Whether a profiler event has an ancestor (on the host) that ``pred``
+    holds for."""
+    e = e.cpu_parent
+    while e is not None:
+        if pred(e):
+            return True
+        e = e.cpu_parent
+    return False
+
+
+def train_profile(torch, step, params, state, batch, spans=None) -> dict:
     """torch.profiler over one train step: kernel ms, idle share, and the
     shares of K2, of the attention backward's blockwise recompute (every
     kernel launched under autograd's ``_FlashAttentionBackward`` node) and
     of cuBLAS's GEMMs (these two overlap: the recompute's matmuls are
-    cuBLAS's).  The profiler slows the host, so the idle share is an upper
-    bound."""
+    cuBLAS's).  ``spans`` maps more names to ``(pred, outside)``: the
+    device time of the outermost host events that ``pred`` holds for and
+    that no event ``outside`` holds for encloses.  The profiler slows the
+    host, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3115,9 +3150,12 @@ def train_profile(torch, step, params, state, batch) -> dict:
         step(params, state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # a ``record_function`` range shows on the device too: not a kernel
+    ranges = {"moe.dispatch_combine", "moe.route"}
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     by_class = {"K2": 0.0, "cuBLAS": 0.0, "other": 0.0}
     for name, ms, _ in rows:
@@ -3130,12 +3168,18 @@ def train_profile(torch, step, params, state, batch) -> dict:
     # the outermost only
     recompute = sum(e.device_time_total for e in prof.events()
                     if attn_bwd(e) and not attn_bwd(e.cpu_parent)) / 1e3
+    more = {}
+    for name, (pred, outside) in (spans or {}).items():
+        more[name] = sum(
+            e.device_time_total for e in prof.events()
+            if e.device_type == DeviceType.CPU and pred(e)
+            and not _under(e, pred)
+            and not (outside and (outside(e) or _under(e, outside)))) / 1e3
+    ms = {**by_class, "attention backward": recompute, **more}
     out = {"wall_ms": wall_ms, "kernel_ms": busy,
            "idle_share": 1 - busy / wall_ms if busy else None,
-           "ms": {**by_class, "attention backward": recompute},
-           "share": ({k: v / busy for k, v in {**by_class,
-                      "attention backward": recompute}.items()}
-                     if busy else None),
+           "ms": ms,
+           "share": {k: v / busy for k, v in ms.items()} if busy else None,
            "top": [{"name": k[:80], "ms": ms, "calls": n}
                    for k, ms, n in rows[:10]]}
     if busy:
@@ -3147,7 +3191,9 @@ def train_profile(torch, step, params, state, batch) -> dict:
             f"({out['share']['attention backward']:.3f}), cuBLAS "
             f"{by_class['cuBLAS']:.1f} ms ({out['share']['cuBLAS']:.3f}), "
             f"other {by_class['other']:.1f} ms "
-            f"({out['share']['other']:.3f})")
+            f"({out['share']['other']:.3f})" + "".join(
+                f"; {k} {v:.1f} ms ({out['share'][k]:.3f})"
+                for k, v in more.items()))
     else:
         log("[lm train profile] no device time recorded: not measured")
     for k, ms, n in rows[:10]:
@@ -3520,6 +3566,451 @@ def phase_lm_train(torch, np, FA, plain, counters, summary: dict) -> dict:
     return launches
 
 
+# phase 14: the MoE path (``models/layers.moe_apply`` in the LM)
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_SERVE_PROMPT = 8192          # 14 (a): as phase 7 serves danube
+MOE_TRAIN_BATCH = 2              # 14 (b): train_4k's sequence, batch 2
+MOE_TRAIN_SEQ = 4096
+DBRX_LAYERS = 2                  # 14 (c): full width, cut to 2 layers
+MOE_CROSS_SEQ = 64               # 14 (e): SMOKE, float32, cuda vs cpu
+MOE_CROSS_DECODE = 8
+
+
+class _RouteRecorder:
+    """While active, each ``moe_route`` call's dropped-slot share is kept
+    (one float per call: a host sync, so only around untimed work)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.route, self.shares = L, L.moe_route, []
+
+        def record(*args, **kw):
+            r = self.route(*args, **kw)
+            self.shares.append(r.dropped_share())
+            return r
+        L.moe_route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route = self.route
+
+
+class _MoESpans:
+    """While active, the MoE's dispatch and combine (``_gather_rows``,
+    ``_ordered_sum``) and its routing run under ``record_function``
+    ranges that ``train_profile`` reads."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import layers as L
+        self.L = L
+        self.saved = {n: getattr(L, n) for n in
+                      ("_gather_rows", "_ordered_sum", "moe_route")}
+
+        def ranged(name, fn):
+            def run(*args, **kw):
+                with record_function(name):
+                    return fn(*args, **kw)
+            return run
+        L._gather_rows = ranged("moe.dispatch_combine",
+                                self.saved["_gather_rows"])
+        L._ordered_sum = ranged("moe.dispatch_combine",
+                                self.saved["_ordered_sum"])
+        L.moe_route = ranged("moe.route", self.saved["moe_route"])
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.L, n, fn)
+
+
+def _attn_bwd(e) -> bool:
+    return e.name.endswith("_FlashAttentionBackward")
+
+
+MOE_PROFILE_SPANS = {
+    # bmm is the experts' (attention projections are mm; the attention
+    # backward's recompute, whose einsums are bmm, is left out)
+    "expert GEMMs": (lambda e: e.name == "aten::bmm", _attn_bwd),
+    "dispatch and combine": (lambda e: e.name == "moe.dispatch_combine",
+                             None),
+    "routing": (lambda e: e.name == "moe.route", None)}
+
+
+def _other_launches(counters, FA) -> dict:
+    return {type(c).__name__: c.launches for c in counters
+            if c is not FA.flash_attention_cuda}
+
+
+def moe_serve(torch, FA, counters, summary: dict):
+    """14 (a): olmoe-1b-7b at full width and depth (16 layers, seeded bf16)
+    served through the entry point: 2 x 8192-token prompts, 32 tokens;
+    then each layer's dropped-slot share on one more, untimed prefill."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import tree_leaves
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = serve(MOE_ARCH, batch=2, prompt_len=MOE_SERVE_PROMPT,
+                tokens=SERVE_TOKENS, size="full", device="cuda")
+    wall = time.perf_counter() - t0
+    launches = FA.flash_attention_cuda.launches
+    cfg = res.cfg
+    check(launches == 2 * cfg.n_layers,
+          f"K2 launched {launches} times in 2 prefills of {cfg.n_layers} "
+          "layers")
+    others = _other_launches(counters, FA)
+    check(not any(others.values()), f"other kernels launched: {others}")
+    check(bool(torch.isfinite(res.last_logits.float()).all()),
+          "finite logits")
+    check(res.tokens.shape == (2, SERVE_TOKENS), "token shape")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_padded)).all()),
+          "token ids in range")
+    check(res.pos == MOE_SERVE_PROMPT + SERVE_TOKENS - 1, "cache position")
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n_params == cfg.param_count() + norms,
+          f"{cfg.name} has {n_params} params")
+    with _RouteRecorder() as rec, torch.no_grad():
+        ST.build_model(cfg, device="cuda").prefill(res.params, res.prompts)
+    FA.flash_attention_cuda.launches = launches
+    check(len(rec.shares) == cfg.n_layers, f"{len(rec.shares)} routes")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": 2, "prompt": MOE_SERVE_PROMPT, "tokens": SERVE_TOKENS,
+           "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token,
+           "decode_tokens_per_s": res.decode_tokens_per_s,
+           "peak_memory_bytes": res.peak_memory_bytes, "wall_s": wall,
+           "k2_launches": launches, "dropped_share_by_layer": rec.shares}
+    log(f"[moe serve] {cfg.name}: {cfg.n_layers} layers, {n_params} params "
+        f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, capacity "
+        f"factor {cfg.moe.capacity_factor}), bf16; batch 2 x "
+        f"{MOE_SERVE_PROMPT} tokens")
+    log(f"[moe serve] prefill {res.prefill_ms:.1f} ms; decode "
+        f"{res.decode_ms_per_token:.2f} ms/token, "
+        f"{res.decode_tokens_per_s:.1f} tokens/s; peak "
+        f"{res.peak_memory_bytes / 1e9:.2f} GB; K2 {launches} launches; "
+        f"wall {wall:.1f} s; request 0: {res.tokens[0, :12].tolist()} ...")
+    moe = cfg.moe
+    cap = math.ceil(moe.capacity_factor * MOE_SERVE_PROMPT * moe.top_k
+                    / moe.n_experts)
+    log(f"[moe serve] dropped-slot share by layer (capacity {cap} slots an "
+        f"expert and prompt): {[round(x, 4) for x in rec.shares]}")
+    summary["moe_serve"] = out
+    return launches, res
+
+
+def moe_train(torch, np, FA, counters, params, summary: dict) -> tuple:
+    """14 (b): olmoe-1b-7b at full width and depth, bf16, remat, AdamW (lr
+    3e-4, weight decay 0.1, ``moe_aux_weight`` 0.01) from the served
+    weights: batch 2 x 4096, 1 warm-up and 3 timed steps, then one under
+    torch.profiler."""
+    from repro_torch.configs import get_full
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    cfg = get_full(MOE_ARCH).resolve(1)
+    torch.cuda.reset_peak_memory_stats()
+    model = ST.build_model(cfg, remat=True, device="cuda")
+    opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1,
+                                   moe_aux_weight=0.01)
+    state = opt.init(tree_leaves(params))
+    batches = [_lm_batch(torch, np, cfg.vocab, MOE_TRAIN_BATCH,
+                         MOE_TRAIN_SEQ, "cuda", seed=i)
+               for i in range(1 + TRAIN_TIMED)]
+    qkv = _layer0_qkv(torch, cfg, params, batches[0]["tokens"])
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    losses, auxs, times = [], [], []
+    for i, batch in enumerate(batches):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        params, state, metrics = step(params, state, batch)
+        t1.record()
+        t1.synchronize()
+        losses.append(float(metrics["loss"]))
+        auxs.append(float(metrics["moe_aux"]))
+        if i:
+            times.append(t0.elapsed_time(t1))
+    launches = FA.flash_attention_cuda.launches
+    n_steps = len(batches)
+    per_step = 2 * cfg.n_layers        # remat runs each forward twice
+    check(launches == per_step * n_steps,
+          f"K2 launched {launches} times in {n_steps} steps")
+    others = _other_launches(counters, FA)
+    check(not any(others.values()), f"other kernels launched: {others}")
+    check(all(math.isfinite(x) for x in losses + auxs),
+          f"losses {losses}, aux {auxs}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    step_ms = sorted(times)[len(times) // 2]
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ, "remat": True,
+           "step_ms": times, "median_step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
+           "moe_aux": auxs, "peak_memory_bytes": peak,
+           "free_at_peak_bytes": total - peak,
+           "k2_launches_per_step": launches // n_steps}
+    log(f"[moe train] {cfg.name}: {cfg.n_layers} layers, bf16, remat, "
+        f"AdamW (lr 3e-4, wd 0.1, moe_aux_weight 0.01); batch "
+        f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens")
+    log(f"[moe train] step ms {[round(t, 2) for t in times]} (median "
+        f"{step_ms:.2f}, 1 warm-up step before), {out['tokens_per_s']:.0f} "
+        f"tokens/s; losses {[round(x, 4) for x in losses]}; moe_aux "
+        f"{[round(x, 4) for x in auxs]}; peak {peak / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f} GB; K2 {launches // n_steps} launches a step (the "
+        f"forward and remat's recompute)")
+    if total - peak < 4e9:
+        log(f"[moe train] the peak leaves {(total - peak) / 1e9:.2f} GB "
+            f"free, under 4 GB: cut the batch to 1 x {MOE_TRAIN_SEQ}")
+    for c in counters:
+        c.launches = 0
+    with _MoESpans():
+        out["profile"] = train_profile(torch, step, params, state,
+                                       batches[0], spans=MOE_PROFILE_SPANS)
+    check(FA.flash_attention_cuda.launches == per_step,
+          "K2 launches in the profiled step")
+    launches += FA.flash_attention_cuda.launches
+    # the step's two halves by CUDA events: the gradients, then AdamW
+    grad_fn = ST.make_grad_fn(model, moe_aux_weight=0.01)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    grads, _, _ = grad_fn(params, batches[1])
+    ev[1].record()
+    state = opt.apply(grads, state, tree_leaves(params))
+    ev[2].record()
+    ev[2].synchronize()
+    out["grad_ms"] = ev[0].elapsed_time(ev[1])
+    out["adamw_ms"] = ev[1].elapsed_time(ev[2])
+    log(f"[moe train] one more step by CUDA events: gradients "
+        f"{out['grad_ms']:.1f} ms, AdamW {out['adamw_ms']:.1f} ms "
+        f"({out['adamw_ms'] / step_ms:.3f} of the median step)")
+    launches += FA.flash_attention_cuda.launches - per_step
+    del state, batches, grads
+    torch.cuda.empty_cache()
+    summary["moe_train"] = out
+    return launches, qkv
+
+
+def moe_dbrx(torch, np, FA, plain, counters, summary: dict) -> int:
+    """14 (c): dbrx-132b at full width cut to 2 layers, bf16, seeded: one
+    serve (a 2 x 1024-token prefill and 8 greedy decode steps), K2 on
+    layer 0's q/k/v of the train batch held to plain (48 / 8 heads), and
+    one train step (2 x 1024, AdamW, no remat)."""
+    from repro_torch.configs import get_full
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    cfg = dataclasses.replace(get_full("dbrx-132b"),
+                              n_layers=DBRX_LAYERS).resolve(1)
+    torch.cuda.reset_peak_memory_stats()
+    model = ST.build_model(cfg, remat=False, device="cuda")
+    params = model.init_params(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = _lm_batch(torch, np, cfg.vocab, 2, DENSE_SEQ, "cuda")
+    t0 = time.perf_counter()
+    prefill = ST.make_prefill_step(model, capacity=DENSE_SEQ + DENSE_DECODE)
+    decode = ST.make_decode_step(model)
+    logits, cache = prefill(params, {"tokens": batch["tokens"]})
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    toks = [tok]
+    for _ in range(DENSE_DECODE - 1):
+        logits, cache = decode(params, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    toks = torch.cat(toks, 1).cpu()
+    serve_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits.float()).all()), "dbrx finite logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
+          "dbrx token ids in range")
+    del cache, logits
+    k2_err = k2_train_forward_check(
+        torch, FA, plain, *_layer0_qkv(torch, cfg, params, batch["tokens"]),
+        None, "dbrx-132b layer 0 of the train batch")
+    opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1,
+                                   moe_aux_weight=0.01)
+    state = opt.init(tree_leaves(params))
+    t0 = time.perf_counter()
+    params, state, metrics = step(params, state, batch)
+    loss, aux = float(metrics["loss"]), float(metrics["moe_aux"])
+    train_s = time.perf_counter() - t0
+    check(math.isfinite(loss) and math.isfinite(aux),
+          f"dbrx loss {loss}, aux {aux}")
+    launches = FA.flash_attention_cuda.launches
+    check(launches == 2 * cfg.n_layers, f"dbrx: K2 launched {launches}")
+    others = _other_launches(counters, FA)
+    check(not any(others.values()), f"other kernels launched: {others}")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"params": n_params, "layers": cfg.n_layers, "loss": loss,
+           "moe_aux": aux, "train_s": train_s, "serve_s": serve_s,
+           "tokens": toks.tolist(), "k2_launches": launches,
+           "k2_vs_plain": k2_err, "peak_memory_bytes": peak}
+    log(f"[moe dbrx] dbrx-132b at {cfg.n_layers} layers, {n_params} params "
+        f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}; "
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, hd {cfg.head_dim}): "
+        f"serve {serve_s:.2f} s, greedy tokens {toks[0].tolist()}; train "
+        f"step loss {loss:.4f}, moe_aux {aux:.4f} ({train_s:.2f} s with "
+        f"its first launches); K2 {launches} launches; peak "
+        f"{peak / 1e9:.2f} GB")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    summary["moe_dbrx"] = out
+    return launches
+
+
+def moe_cross_device(torch, np, FA, counters, summary: dict) -> int:
+    """14 (e): olmoe-1b-7b and dbrx-132b at SMOKE, float32, on the card and
+    on the CPU from the same weights: ``moe_apply`` on layer 0's experts
+    (the same routes and dropped slots; output and load-balance loss within
+    1e-5 of their largest), one train step's loss (1e-5 relative) and
+    gradients (1e-4 of each leaf's largest), and 8 greedy decode tokens
+    after a 2 x 64 prefill (equal); then two card runs of bf16
+    ``moe_apply`` at olmoe's width (output and input gradient) bit-equal."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import map_params
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    out = {}
+    for arch in ("olmoe-1b-7b", "dbrx-132b"):
+        cfg = get_smoke(arch).resolve(1)
+        moe = cfg.moe
+        kw = dict(n_experts=moe.n_experts, top_k=moe.top_k,
+                  capacity_factor=moe.capacity_factor)
+        models = [ST.build_model(cfg, remat=False, q_chunk=32, kv_chunk=32,
+                                 dtype=torch.float32, device=dev)
+                  for dev in ("cuda", "cpu")]
+        params = models[0].init_params(0)
+        both = [params, map_params(lambda t: t.cpu().clone(), params)]
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn((2, MOE_CROSS_SEQ, cfg.d_model), generator=gen)
+        batch = _lm_batch(torch, np, cfg.vocab, 2, MOE_CROSS_SEQ, "cpu")
+        runs = []
+        for model, p in zip(models, both):
+            dev = model.device
+            lp = map_params(lambda t: t[0], p["layers"])["moe"]
+            xd = x.to(dev)
+            r = L.moe_route(xd, lp["router"], **kw)
+            y, aux = L.moe_apply(lp, xd, act=cfg.act, **kw)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            g, loss, _ = ST.make_grad_fn(model)(p, b)
+            logits, cache = model.prefill(p, b["tokens"],
+                                          capacity=MOE_CROSS_SEQ
+                                          + MOE_CROSS_DECODE)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks = [tok]
+            for _ in range(MOE_CROSS_DECODE - 1):
+                logits, cache = model.decode_step(p, cache, tok)
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                toks.append(tok)
+            runs.append({"route": [t.cpu() for t in (r.top_e, r.tok_buf,
+                                                     r.slot)],
+                         "y": y.cpu(), "aux": float(aux),
+                         "loss": float(loss), "g": [t.cpu() for t in g],
+                         "tokens": torch.cat(toks, 1).cpu()})
+        gpu, cpu = runs
+        same_route = all(torch.equal(a, b) for a, b in zip(gpu["route"],
+                                                            cpu["route"]))
+        check(same_route, f"{arch}: routes differ between cuda and cpu")
+        y_err = _max_rel(torch, gpu["y"], cpu["y"])
+        aux_err = abs(gpu["aux"] - cpu["aux"]) / abs(cpu["aux"])
+        loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        grad_err = max(_max_rel(torch, a, b)
+                       for a, b in zip(gpu["g"], cpu["g"]))
+        check(y_err <= 1e-5 and aux_err <= 1e-5,
+              f"{arch}: moe_apply cuda vs cpu {y_err}, aux {aux_err}")
+        check(loss_err <= 1e-5 and grad_err <= 1e-4,
+              f"{arch}: train step cuda vs cpu loss {loss_err}, "
+              f"gradients {grad_err}")
+        check(torch.equal(gpu["tokens"], cpu["tokens"]),
+              f"{arch}: greedy tokens {gpu['tokens'].tolist()} vs "
+              f"{cpu['tokens'].tolist()}")
+        out[arch] = {"moe_rel_err": y_err, "aux_rel_err": aux_err,
+                     "loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+                     "tokens": gpu["tokens"].tolist()}
+        log(f"[moe cross] {arch} SMOKE, float32: cuda == cpu: routes equal "
+            f"(top_e, tok_buf, slots), moe_apply max |err| / max |y| "
+            f"{y_err:.3g} and aux {aux_err:.3g} (limits 1e-5); train step "
+            f"loss {loss_err:.3g} (1e-5), gradients {grad_err:.3g} (1e-4); "
+            f"greedy tokens equal {gpu['tokens'][0].tolist()}")
+    launches = FA.flash_attention_cuda.launches
+    check(launches == 2 * 2 * 2, f"K2 launched {launches} times")
+    # determinism: the ordered combine and its transpose, at olmoe's width
+    from repro_torch.configs import get_full
+    cfg = get_full(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    p = {"router": torch.randn((D, E), generator=gen, device="cuda") * 0.02,
+         **{k: (torch.randn(s, generator=gen, device="cuda") * 0.02).to(
+             torch.bfloat16) for k, s in (("wg", (E, D, Fd)),
+                                          ("wu", (E, D, Fd)),
+                                          ("wo", (E, Fd, D)))}}
+    x0 = torch.randn((1, MOE_TRAIN_SEQ, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    bits = []
+    for _ in range(2):
+        x = x0.clone().requires_grad_(True)
+        y, _ = L.moe_apply(p, x, n_experts=E, top_k=cfg.moe.top_k,
+                           capacity_factor=cfg.moe.capacity_factor,
+                           act=cfg.act)
+        (gx,) = torch.autograd.grad(y.float().square().sum(), x)
+        bits.append((y.detach().view(torch.int16), gx.view(torch.int16)))
+    det = (torch.equal(bits[0][0], bits[1][0])
+           and torch.equal(bits[0][1], bits[1][1]))
+    check(det, "two card runs of the bf16 combine differ")
+    out["bf16_combine_bit_equal"] = det
+    log(f"[moe cross] bf16 moe_apply at olmoe's width (1 x {MOE_TRAIN_SEQ} "
+        f"tokens, {E} experts, top-{cfg.moe.top_k}): two card runs "
+        f"bit-equal, output and input gradient")
+    summary["moe_cross_device"] = out
+    return launches
+
+
+def phase_moe(torch, np, FA, plain, counters, summary: dict) -> dict:
+    """The MoE path; returns K2's launches by path.  Each leg prints its
+    seconds."""
+    launches, legs = {}, {}
+    t0 = time.perf_counter()
+    launches["moe serve"], res = moe_serve(torch, FA, counters, summary)
+    legs["a serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks = {"served prompts": k2_train_forward_check(
+        torch, FA, plain, *_layer0_qkv(torch, res.cfg, res.params,
+                                       res.prompts), None,
+        "olmoe-1b-7b layer 0 of the served prompts")}
+    torch.cuda.empty_cache()
+    legs["d K2 checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["moe train"], qkv = moe_train(torch, np, FA, counters,
+                                           res.params, summary)
+    del res
+    legs["b train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["train batch"] = k2_train_forward_check(
+        torch, FA, plain, *qkv, None, "olmoe-1b-7b layer 0 of the train "
+        "batch")
+    summary["moe_k2_checks"] = checks
+    del qkv
+    torch.cuda.empty_cache()
+    legs["d K2 checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["moe dbrx"] = moe_dbrx(torch, np, FA, plain, counters, summary)
+    legs["c dbrx"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["moe cuda vs cpu"] = moe_cross_device(torch, np, FA, counters,
+                                                   summary)
+    legs["e cuda vs cpu"] = time.perf_counter() - t0
+    for name, secs in legs.items():
+        log(f"[moe] leg {name}: {secs:.1f} s")
+    summary["moe_legs_s"] = legs
+    return launches
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3613,6 +4104,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_launches = run("13 LM train path", phase_lm_train, torch, np, FA,
                       attention_plain, counters, summary, phases=phases)
+    torch.cuda.empty_cache()
+    lm_launches.update(run("14 MoE path", phase_moe, torch, np, FA,
+                           attention_plain, counters, summary,
+                           phases=phases))
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],

@@ -2,19 +2,22 @@
 for the archs whose blocks the port's ``LM`` runs.
 
 The four dense decoders: h2o-danube-1.8b (sliding window), qwen2.5-14b
-(QKV biases), phi4-mini-3.8b (tied embeddings) and granite-34b (MQA).
-The other archs of the JAX registry wait for their blocks (ROADMAP queue,
-LM substrate: MoE, hybrid SSM, RWKV, frontends).
+(QKV biases), phi4-mini-3.8b (tied embeddings) and granite-34b (MQA);
+the two MoE decoders: dbrx-132b (16 experts, top-4) and olmoe-1b-7b (64
+experts, top-8).  The other archs of the JAX registry wait for their
+blocks (ROADMAP queue, LM substrate: hybrid SSM, RWKV, frontends).
 """
 
-from repro_torch.configs import (granite_34b, h2o_danube_1p8b,
-                                 phi4_mini_3p8b, qwen2p5_14b)
+from repro_torch.configs import (dbrx_132b, granite_34b, h2o_danube_1p8b,
+                                 olmoe_1b_7b, phi4_mini_3p8b, qwen2p5_14b)
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape  # noqa: F401
 
 _MODULES = {
     "qwen2.5-14b": qwen2p5_14b,
+    "dbrx-132b": dbrx_132b,
     "granite-34b": granite_34b,
     "phi4-mini-3.8b": phi4_mini_3p8b,
+    "olmoe-1b-7b": olmoe_1b_7b,
     "h2o-danube-1.8b": h2o_danube_1p8b,
 }
 

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import LM, tree_leaves, tree_unflatten
-from repro_torch.optim import adamw, apply_updates
+from repro_torch.optim import adamw
 
 
 def build_model(cfg: ArchConfig, remat: bool = True, q_chunk: int = 1024,
@@ -31,7 +31,8 @@ def make_grad_fn(model: LM, moe_aux_weight: float = 0.01,
                  n_microbatches: int = 1):
     """``(params, batch) -> (grads, loss, aux)``: the gradients (a list in
     ``tree_leaves(params)`` order, in the params' dtypes) of the batch's
-    mean loss.
+    mean loss, which with experts includes ``moe_aux_weight`` x the
+    load-balance loss ``aux`` (a float32 scalar; 0.0 without experts).
 
     With ``n_microbatches > 1`` the batch is split along its first axis
     and the gradients accumulate as in the reference: in float32 up to 4
@@ -51,6 +52,7 @@ def make_grad_fn(model: LM, moe_aux_weight: float = 0.01,
             loss_mask=batch.get("loss_mask"))
         if cfg.moe:
             loss = loss + moe_aux_weight * aux
+            aux = aux.detach()
         grads = torch.autograd.grad(loss, live)
         return list(grads), loss.detach(), aux
 
@@ -81,17 +83,19 @@ def make_train_step(model: LM, lr: float = 3e-4, weight_decay: float = 0.1,
     batch) -> (params, opt_state, {"loss", "moe_aux"})``, the params
     updated in place by AdamW.  ``opt.init(tree_leaves(params))`` makes
     the state.  ``batch`` holds ``tokens`` and ``labels`` (B, S) and
-    optionally ``loss_mask``, on the model's device."""
+    optionally ``loss_mask``, on the model's device.
+
+    The step holds the params, their gradients and one copy of AdamW's
+    moments: ``opt.apply`` updates the moments in place and adds each
+    bounded group's update to the params before it computes the next
+    (``optim.adam``), so no whole update is ever allocated."""
     opt = adamw(lr, weight_decay=weight_decay)
     grad_fn = make_grad_fn(model, moe_aux_weight=moe_aux_weight,
                            n_microbatches=n_microbatches)
 
     def train_step(params, opt_state, batch):
         grads, loss, aux = grad_fn(params, batch)
-        leaves = tree_leaves(params)
-        updates, opt_state = opt.update(grads, opt_state, leaves)
-        del grads
-        apply_updates(leaves, updates)
+        opt_state = opt.apply(grads, opt_state, tree_leaves(params))
         return params, opt_state, {"loss": loss, "moe_aux": aux}
 
     return opt, train_step

@@ -7,10 +7,13 @@ Train and prefill attention go to the flash attention op (K2 on the
 card, its plain version on the CPU) with KV heads unexpanded; the op's
 backward differentiates ``chunk_attention``, one query chunk of the
 reference's blockwise scan in plain torch.  Decode attends a KV cache
-with position masking.  ``moe_apply`` waits for the MoE slice.
+with position masking.  ``moe_apply`` routes each token to its top-k
+experts by the reference's block-local sort-based capacity dispatch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -174,3 +177,208 @@ def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return h @ params["wo"]
+
+
+# ---- sort-based MoE -------------------------------------------------------------
+
+class MoERouting(NamedTuple):
+    """One ``moe_apply`` call's routing.  Per (example, sequence chunk)
+    block of ``Sn`` tokens, ``NK = Sn * top_k`` slots are packed into
+    ``EC = n_experts * cap`` expert rows as the reference packs them.
+
+    ``probs`` (B, S, E) float32; ``top_e``/``top_w`` (B, S, K); ``tok_buf``
+    (B, n, EC), each expert row's token in its block (``Sn`` where the row
+    is empty); ``w_buf`` (B, n, EC) its weight in ``x``'s dtype (0 where
+    empty); ``slot`` (B, n, NK), the expert row of token ``t``'s ``k``-th
+    choice at ``t * K + k`` (``EC`` where capacity dropped it).
+    """
+    probs: torch.Tensor
+    top_e: torch.Tensor
+    top_w: torch.Tensor
+    tok_buf: torch.Tensor
+    w_buf: torch.Tensor
+    slot: torch.Tensor
+    cap: int
+
+    def dropped_share(self) -> float:
+        """The share of the block's slots that capacity dropped."""
+        return float((self.slot == self.tok_buf.shape[-1]).float().mean())
+
+
+def _blocks(S: int, seq_chunks: int) -> int:
+    """The reference's sequence chunk count: ``seq_chunks`` halved until
+    it divides ``S``."""
+    n = max(1, seq_chunks)
+    while S % n:
+        n //= 2
+    return n
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
+              top_k: int, capacity_factor: float,
+              seq_chunks: int = 1) -> MoERouting:
+    """The reference's router and block-local sort-based capacity
+    dispatch (``repro/models/layers.py:154-197``).
+
+    The router product is float32 (the leaf is float32; JAX promotes a
+    bf16 ``x``), and must not run in TF32, which would flip routes.
+    ``top_k`` is a stable descending sort, so ties go to the lower
+    expert, as ``lax.top_k`` breaks them."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("the MoE router is float32: turn TF32 off "
+                         "(torch.backends.cuda.matmul.allow_tf32 = False)")
+    B, S, _ = x.shape
+    n = _blocks(S, seq_chunks)
+    Sn = S // n
+    NK = Sn * top_k
+    cap = int(np.ceil(capacity_factor * NK / n_experts))
+    EC = n_experts * cap
+
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :top_k], top_e[..., :top_k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    fe = top_e.reshape(B, n, NK)
+    sorted_e, order = torch.sort(fe, dim=-1, stable=True)
+    experts = torch.arange(n_experts, device=x.device)
+    group_start = torch.searchsorted(
+        sorted_e, experts.expand(B, n, n_experts).contiguous())
+    pos = torch.arange(NK, device=x.device) - torch.gather(
+        group_start, -1, sorted_e)
+    dest = torch.where(pos < cap, sorted_e * cap + pos, EC)
+    tok_of_slot = torch.arange(NK, device=x.device) // top_k
+    tok_buf = torch.full((B, n, EC + 1), Sn, dtype=torch.long,
+                         device=x.device).scatter(-1, dest,
+                                                  tok_of_slot[order])
+    w_buf = torch.zeros((B, n, EC + 1), dtype=x.dtype,
+                        device=x.device).scatter(
+        -1, dest, torch.gather(top_w.reshape(B, n, NK), -1,
+                               order).to(x.dtype))
+    slot = torch.empty_like(dest).scatter_(-1, order, dest)
+    return MoERouting(probs, top_e, top_w, tok_buf[..., :EC],
+                      w_buf[..., :EC], slot, cap)
+
+
+def expert_major(r: MoERouting, t: torch.Tensor) -> torch.Tensor:
+    """A per-block expert-row tensor (B, n, EC, ...) laid out expert by
+    expert over every block: row ``(block, e * cap + c)`` at ``e * M +
+    block * cap + c``, with ``M = B * n * cap`` rows an expert -> (E * M,
+    ...)."""
+    B, n, EC = t.shape[:3]
+    E = EC // r.cap
+    t = t.reshape(B * n, E, r.cap, *t.shape[3:]).transpose(0, 1)
+    return t.reshape(EC * B * n, *t.shape[3:])
+
+
+def expert_rows(r: MoERouting) -> tuple[torch.Tensor, torch.Tensor]:
+    """``r``'s maps in ``expert_major``'s layout over the stream of ``T =
+    B * S`` tokens: ``tok`` (R,), each expert row's token (``T`` where
+    the row is empty), and ``slots`` (T, K), each token's expert rows in
+    ascending order (``R`` for a choice that capacity dropped)."""
+    B, n, EC = r.tok_buf.shape
+    K = r.top_e.shape[-1]
+    Sn, M = r.slot.shape[-1] // K, B * n * r.cap
+    T, R = B * n * Sn, B * n * EC
+    blk = torch.arange(B * n, device=r.slot.device).reshape(B, n, 1)
+    tok = torch.where(r.tok_buf < Sn, r.tok_buf + blk * Sn, T)
+    rows = r.slot // r.cap * M + blk * r.cap + r.slot % r.cap
+    slots = torch.where(r.slot < EC, rows, R).reshape(T, K)
+    return expert_major(r, tok), torch.sort(slots, dim=-1).values
+
+
+def _padded(src: torch.Tensor) -> torch.Tensor:
+    """``src`` (N, D) with a zero row appended at index N."""
+    zero = torch.zeros((1, src.shape[1]), dtype=src.dtype, device=src.device)
+    return torch.cat([src, zero])
+
+
+def _gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``src``'s rows at ``index``; ``len(src)`` reads a zero row."""
+    return _padded(src)[index]
+
+
+def _ordered_sum(rows: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """``out[t] = 0 + rows[slots[t, 0]] + rows[slots[t, 1]] + ...``, one
+    add at a time in ``rows``' dtype (``len(rows)`` adds nothing): K
+    gather-and-add passes, with no atomics."""
+    rows = _padded(rows)
+    out = torch.zeros((slots.shape[0], rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    for k in range(slots.shape[1]):
+        out += rows[slots[:, k]]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """Token rows to expert rows, ``x[tok]``; the backward sums each
+    token's rows by ``_ordered_sum``, the reference's scatter-add order."""
+
+    @staticmethod
+    def forward(ctx, x, tok, slots):
+        ctx.save_for_backward(slots)
+        return _gather_rows(x, tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slots,) = ctx.saved_tensors
+        return _ordered_sum(g, slots), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Expert rows to token rows by ``_ordered_sum``; the backward is the
+    gather ``g[tok]``."""
+
+    @staticmethod
+    def forward(ctx, rows, slots, tok):
+        ctx.save_for_backward(tok)
+        return _ordered_sum(rows, slots)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        return _gather_rows(g, tok), None, None
+
+
+def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float, act: str,
+              seq_chunks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE with block-local sort-based capacity dispatch, the
+    counterpart of the reference's ``moe_apply`` at ``tp = 1``.
+
+    x: (B, S, D) -> (y (B, S, D) in x's dtype, the load-balance loss, a
+    float32 scalar).  ``params``: ``router`` (D, E) float32, ``wg``/``wu``
+    (E, D, F) and ``wo`` (E, F, D).  The expert rows are laid out expert
+    by expert over every block (E, B * n * cap, D) for batched matmuls.
+    The combine adds each token's weighted expert rows in ascending slot
+    order, rounding after every add, as the reference's bf16 scatter-add
+    does; no ``index_add_`` and no atomics, so it is deterministic, and
+    its backward (a gather) and the dispatch's (the same ordered sum) are
+    too."""
+    B, S, D = x.shape
+    r = moe_route(x, params["router"], n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor, seq_chunks=seq_chunks)
+    tok, slots = expert_rows(r)
+    grid = _Dispatch.apply(x.reshape(B * S, D), tok, slots)
+    grid = grid.reshape(n_experts, -1, D)
+    if act == "swiglu":
+        gate = torch.bmm(grid, params["wg"])
+        up = torch.bmm(grid, params["wu"])
+        h = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        h = torch.bmm(grid, params["wu"])
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    out = torch.bmm(h, params["wo"]).reshape(-1, D)
+    y = _Combine.apply(out * expert_major(r, r.w_buf)[:, None], slots, tok)
+    aux = moe_load_balance_loss(r.probs.reshape(B * S, n_experts),
+                                r.top_e.reshape(B * S, top_k), n_experts)
+    return y.reshape(B, S, D), aux
+
+
+def moe_load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (float32): ``E`` x the sum
+    over experts of the share of tokens whose first choice it is, times
+    its mean router probability."""
+    frac_routed = F.one_hot(top_e[:, 0], n_experts).float().mean(dim=0)
+    return n_experts * (frac_routed * probs.mean(dim=0)).sum()

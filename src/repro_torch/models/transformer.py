@@ -1,9 +1,12 @@
-"""Decoder-only LM for dense attention blocks (h2o-danube-1.8b,
-qwen2.5-14b, phi4-mini-3.8b, granite-34b).
+"""Decoder-only LM for attention blocks: the dense decoders
+(h2o-danube-1.8b, qwen2.5-14b, phi4-mini-3.8b, granite-34b) and the MoE
+ones (olmoe-1b-7b, dbrx-132b).
 
 The counterpart of ``repro/models/transformer.py`` for ``block="attn"``
-without experts or frontends, at ``tp = 1``: GQA and MQA, QKV biases,
-tied embeddings.  Parameters are a nested dict of tensors in the
+without frontends, at ``tp = 1``: GQA and MQA, QKV biases, tied
+embeddings, and top-k routed experts (``layers.moe_apply``) in place of
+the MLP, whose load-balance losses ``forward`` and ``forward_loss``
+return averaged over the layers.  Parameters are a nested dict of tensors in the
 reference's pytree layout, with each layer's weights stacked along a
 leading ``L`` axis; the layer loop is a Python loop over that axis (the
 reference's ``layer_loop="unrolled"``), each layer under
@@ -36,7 +39,6 @@ from repro_torch.models.config import ArchConfig
 _LATER = {
     "block": "hybrid SSM (hymba) and RWKV blocks (ROADMAP queue, LM "
              "substrate: hybrid SSM, RWKV)",
-    "moe": "MoE layers and moe_apply (ROADMAP queue, LM substrate: MoE)",
     "frontend": "the VLM/audio frontends (ROADMAP queue, LM substrate: "
                 "frontends)",
 }
@@ -51,7 +53,7 @@ class LM:
             raise ValueError("config must be resolve(1)d: the port runs "
                              "unsharded (sharding is on the ROADMAP queue)")
         unsupported = [key for key, bad in (
-            ("block", cfg.block != "attn"), ("moe", cfg.moe is not None),
+            ("block", cfg.block != "attn"),
             ("frontend", cfg.frontend is not None)) if bad]
         if unsupported:
             raise NotImplementedError(
@@ -73,15 +75,16 @@ class LM:
         """Weights drawn as normal x 0.02 (norms at 1) by a generator on
         the model's device seeded with ``seed``; shapes as in the
         reference (no ``lm_head`` with tied embeddings; QKV biases at
-        zero)."""
+        zero; on MoE layers a float32 ``router`` and stacked experts in
+        place of the ``mlp``)."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
         cfg, dt = self.cfg, self.dtype
         n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
         hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
 
-        def normal(*shape):
+        def normal(*shape, dtype=dt):
             w = torch.randn(shape, generator=generator, device=self.device)
-            return (w * 0.02).to(dt)
+            return w.mul_(0.02).to(dtype)     # one float32 temporary
 
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=self.device)
@@ -95,14 +98,20 @@ class LM:
             params["lm_head"] = normal(d, cfg.vocab_padded)
         lay = {"ln1": ones(n, d), "ln2": ones(n, d),
                "wq": normal(n, d, Hq * hd), "wk": normal(n, d, Hkv * hd),
-               "wv": normal(n, d, Hkv * hd), "wo": normal(n, Hq * hd, d),
-               "mlp": {"wu": normal(n, d, f), "wo": normal(n, f, d)}}
+               "wv": normal(n, d, Hkv * hd), "wo": normal(n, Hq * hd, d)}
         if cfg.qkv_bias:
             lay["bq"] = zeros(n, Hq * hd)
             lay["bk"] = zeros(n, Hkv * hd)
             lay["bv"] = zeros(n, Hkv * hd)
-        if cfg.act == "swiglu":
-            lay["mlp"]["wg"] = normal(n, d, f)
+        if cfg.moe:
+            E = cfg.moe.n_experts
+            lay["moe"] = {"router": normal(n, d, E, dtype=torch.float32),
+                          "wg": normal(n, E, d, f), "wu": normal(n, E, d, f),
+                          "wo": normal(n, E, f, d)}
+        else:
+            lay["mlp"] = {"wu": normal(n, d, f), "wo": normal(n, f, d)}
+            if cfg.act == "swiglu":
+                lay["mlp"]["wg"] = normal(n, d, f)
         params["layers"] = lay
         return params
 
@@ -142,24 +151,40 @@ class LM:
                                      valid.expand(B, T))
         return out.reshape(B, Sq, Hq * hd) @ lp["wo"]
 
+    def _ffn(self, lp, h):
+        """The MLP, or on MoE layers the routed experts; returns (y, the
+        load-balance loss, 0.0 without experts)."""
+        cfg = self.cfg
+        if cfg.moe:
+            return L.moe_apply(lp["moe"], h, n_experts=cfg.moe.n_experts,
+                               top_k=cfg.moe.top_k,
+                               capacity_factor=cfg.moe.capacity_factor,
+                               act=cfg.act)
+        return L.mlp_apply(lp["mlp"], h, cfg.act), 0.0
+
     def _layer(self, lp, x, positions, cache=None, pos=None):
+        """One block. Returns (x, aux)."""
         cfg = self.cfg
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + self._attn(lp, h, positions, cache=cache, pos=pos)
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + L.mlp_apply(lp["mlp"], h, cfg.act)
+        y, aux = self._ffn(lp, h)
+        return x + y, aux
 
     def _layers(self, params, x, positions, cache=None, pos=None):
+        """The layer stack. Returns (x, the mean of the layers' aux)."""
+        auxs = []
         for i in range(self.cfg.n_layers):
             lp = map_params(lambda t: t[i], params["layers"])
             if cache is None and self.remat and torch.is_grad_enabled():
-                x = checkpoint(self._layer, lp, x, positions,
-                               use_reentrant=False)
-                continue
-            cl = None if cache is None else map_params(lambda t: t[i],
-                                                       cache["layers"])
-            x = self._layer(lp, x, positions, cache=cl, pos=pos)
-        return x
+                x, aux = checkpoint(self._layer, lp, x, positions,
+                                    use_reentrant=False)
+            else:
+                cl = None if cache is None else map_params(
+                    lambda t: t[i], cache["layers"])
+                x, aux = self._layer(lp, x, positions, cache=cl, pos=pos)
+            auxs.append(aux)
+        return x, (torch.stack(auxs).mean() if self.cfg.moe else 0.0)
 
     # ---- embeddings / logits ----------------------------------------------------
 
@@ -178,16 +203,18 @@ class LM:
     # ---- entry points -------------------------------------------------------------
 
     def _backbone(self, params, tokens):
-        """Embed + layer stack + final norm: (B, S, D)."""
+        """Embed + layer stack + final norm. Returns (x (B, S, D), aux)."""
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x = self._layers(params, x, positions)
-        return L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x, aux = self._layers(params, x, positions)
+        return L.rms_norm(x, params["final_norm"], self.cfg.norm_eps), aux
 
     def forward(self, params: dict, tokens: torch.Tensor):
         """Train/eval forward (differentiable). Returns (logits (B, S,
-        Vp), moe aux loss = 0)."""
-        return self._backbone(params, tokens) @ self._head(params), 0.0
+        Vp), moe aux loss: the layers' mean, a float32 scalar; 0.0
+        without experts)."""
+        x, aux = self._backbone(params, tokens)
+        return x @ self._head(params), aux
 
     def forward_loss(self, params: dict, tokens: torch.Tensor,
                      labels: torch.Tensor,
@@ -197,8 +224,8 @@ class LM:
         logits.  The head matmul and the CE run one sequence chunk at a
         time under ``torch.utils.checkpoint``, so the backward recomputes
         each chunk's logits instead of saving them.  Returns (mean masked
-        NLL, moe aux loss = 0)."""
-        x = self._backbone(params, tokens)
+        NLL, moe aux loss as ``forward``'s)."""
+        x, aux = self._backbone(params, tokens)
         head = self._head(params)
         S = x.shape[1]
         c = min(loss_chunk, S)
@@ -219,7 +246,7 @@ class LM:
             n, m = (checkpoint(body, *part, use_reentrant=False)
                     if torch.is_grad_enabled() else body(*part))
             nll, msum = nll + n, msum + m
-        return nll / torch.clamp(msum, min=1.0), 0.0
+        return nll / torch.clamp(msum, min=1.0), aux
 
     def init_cache(self, batch: int, capacity: int) -> dict:
         cfg = self.cfg
@@ -241,7 +268,7 @@ class LM:
         cache = self.init_cache(B, capacity)
         x = self._embed(params, tokens)
         positions = torch.arange(Sq, device=x.device)[None, :]
-        x = self._layers(params, x, positions, cache=cache, pos=0)
+        x, _ = self._layers(params, x, positions, cache=cache, pos=0)
         cache["pos"] = Sq
         return self._logits(params, x[:, -1:]), cache
 
@@ -252,7 +279,7 @@ class LM:
         x = self._embed(params, tokens)
         pos = int(cache["pos"])
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
-        x = self._layers(params, x, positions, cache=cache, pos=pos)
+        x, _ = self._layers(params, x, positions, cache=cache, pos=pos)
         return self._logits(params, x), {"layers": cache["layers"],
                                          "pos": pos + 1}
 

@@ -1,9 +1,10 @@
 """Optax-style optimizers over lists of tensors, with the reference's
 arithmetic (``repro/optim/optimizers.py``).
 
-Each optimizer is a pair ``init(params) -> state`` and ``update(grads,
-state, params) -> (updates, state)``; ``apply_updates`` adds updates to
-the params in place.  ``params`` and ``grads`` are sequences of tensors
+Each optimizer is a triple: ``init(params) -> state``, ``update(grads,
+state, params) -> (updates, state)`` and ``apply(grads, state, params) ->
+state``, which adds the step to the params in place; ``apply_updates``
+adds updates to the params in place.  ``params`` and ``grads`` are sequences of tensors
 (``list(module.parameters())`` and the matching gradients); the moments
 live on the params' device and the step count on the host, so a step
 never waits for the device.
@@ -23,6 +24,10 @@ float32 array and promotes the product to float32; Adam's bias-corrected
 update is float32, one bounded group of leaves at a time; the update is
 cast to the param's dtype once.  On float32 params these
 rules change nothing.
+
+Adam updates its moments in place, and its ``apply`` adds each bounded
+group's update to the params before the next group is computed, so a
+step holds one copy of the moments and never a whole update.
 """
 
 from __future__ import annotations
@@ -45,6 +50,17 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable[[Sequence[torch.Tensor]], OptState]
     update: Callable[..., tuple[list, OptState]]
+    apply: Callable[..., OptState]
+
+
+def _applying(update) -> Callable[..., OptState]:
+    """``apply`` as ``update`` followed by ``apply_updates``."""
+    def apply(grads, state, params):
+        params = list(params)
+        upd, state = update(grads, state, params)
+        apply_updates(params, upd)
+        return state
+    return apply
 
 
 def _lr_at(lr: Schedule, step: int) -> tuple[float, bool]:
@@ -107,7 +123,7 @@ def sgd(lr: Schedule, momentum: float = 0.0) -> Optimizer:
             return _scale(mu, -lrv, strong), OptState(step, mu)
         return _scale(grads, -lrv, strong), OptState(step, None)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, _applying(update))
 
 
 def _groups(ts, limit: int) -> list[range]:
@@ -122,33 +138,64 @@ def _groups(ts, limit: int) -> list[range]:
     return out + [range(start, len(ts))] if len(ts) else out
 
 
+def _pieces(ts, limit: int) -> list[list[tuple]]:
+    """``_groups`` of ``ts`` as lists of pieces ``(i, lead, rows)``: leaf
+    ``i`` whole (``rows`` None) or, for a leaf of more than ``limit``
+    elements, a slice ``rows`` of its first ``lead`` axes flattened into
+    rows, at most ``limit`` elements a piece."""
+    out = []
+    for idx in _groups(ts, limit):
+        t = ts[idx[0]]
+        if len(idx) > 1 or t.numel() <= limit:
+            out.append([(i, 0, None) for i in idx])
+            continue
+        lead, row = 0, t.numel()
+        while row > limit and lead < t.dim():
+            row //= t.shape[lead]
+            lead += 1
+        per = max(1, limit // row)
+        out += [[(idx[0], lead, slice(r, r + per))]
+                for r in range(0, t.numel() // row, per)]
+    return out
+
+
+def _piece(t: torch.Tensor, lead: int, rows) -> torch.Tensor:
+    """The piece of ``t`` that ``_pieces`` names, as a view (``view``
+    raises where ``t`` has no flat layout, so an in-place write never
+    lands in a copy)."""
+    return t if rows is None else t.view(-1, *t.shape[lead:])[rows]
+
+
 # Adam's float32 temporaries (m_hat, its denominator, the decay term) live
-# for one group of leaves at a time (at most 2^26 elements, or one larger
-# leaf), never as model-sized lists.  A small model is one group, so its
-# launches are as before.
+# for one group of leaves at a time (at most 2^26 elements; a larger leaf
+# in slices of its leading axes), never as model-sized lists.  A small
+# model is one group, so its launches are as before.
 GROUP_ELEMS = 1 << 26
 
 
 def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
-    """The moments keep the params' dtype; the bias-corrected update is
+    """The moments keep the params' dtype and are updated in place (the
+    state handed in is the state returned); the bias-corrected update is
     float32 (the reference's ``bc1``/``bc2`` are float32 arrays) and comes
-    back cast to the params' dtype, as ``apply_updates`` would cast it."""
+    back cast to the params' dtype, as ``apply_updates`` would cast it.
+    Every op is elementwise, so the groups (``GROUP_ELEMS``) change no
+    bit.  ``update`` returns the whole update; ``apply`` adds each group's
+    to the params before it computes the next, so no whole update exists."""
 
     def init(params):
         return OptState(0, (_zeros(params), _zeros(params)))
 
     @torch.no_grad()
-    def update(grads, state, params=None):
+    def run(grads, state, params, sink) -> OptState:
+        """One step; ``sink(piece, update)`` takes each piece's update."""
         step = state.step + 1
-        m_old, v_old = state.inner
-        grads = list(grads)
+        m_all, v_all = state.inner
         lrv, strong = _lr_at(lr, step)
         bc1 = float(1 - np.float32(b1) ** np.float32(step))
         bc2 = float(1 - np.float32(b2) ** np.float32(step))
         decay = None
         if weight_decay and params is not None:
-            params = list(params)
             if any(p.dtype in (torch.bfloat16, torch.float16)
                    for p in params):
                 # the reference's ``lrv * weight_decay`` is a float32
@@ -158,16 +205,16 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
                 # float32 params keep the float64 product (within one
                 # float32 ulp of the reference's)
                 decay = lrv * weight_decay
-        m, v, upd = [], [], []
-        for idx in _groups(grads, GROUP_ELEMS):
-            g = [grads[i] for i in idx]
-            mg, vg = [m_old[i] for i in idx], [v_old[i] for i in idx]
-            mg = torch._foreach_add(torch._foreach_mul(mg, _coefs(b1, mg)),
-                                    torch._foreach_mul(g, _coefs(1 - b1, g)))
-            vg = torch._foreach_add(
-                torch._foreach_mul(vg, _coefs(b2, vg)),
-                torch._foreach_mul(torch._foreach_mul(g, _coefs(1 - b2, g)),
-                                   g))
+        for group in _pieces(grads, GROUP_ELEMS):
+            g = [_piece(grads[i].contiguous(), lead, rows)
+                 for i, lead, rows in group]
+            mg = [_piece(m_all[i], lead, rows) for i, lead, rows in group]
+            vg = [_piece(v_all[i], lead, rows) for i, lead, rows in group]
+            torch._foreach_mul_(mg, _coefs(b1, mg))
+            torch._foreach_add_(mg, torch._foreach_mul(g, _coefs(1 - b1, g)))
+            torch._foreach_mul_(vg, _coefs(b2, vg))
+            torch._foreach_add_(vg, torch._foreach_mul(
+                torch._foreach_mul(g, _coefs(1 - b2, g)), g))
             # fresh float32 lists, so the in-place steps below never touch
             # the moments (``.float()`` of a float32 moment is the moment)
             u = torch._foreach_div([t.float() for t in mg], bc1)
@@ -178,14 +225,37 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
             torch._foreach_div_(u, den)
             del den
             if decay is not None:
-                u = torch._foreach_sub(
-                    u, _scale([params[i] for i in idx], decay, strong))
-            upd += [x.to(t.dtype) for x, t in zip(u, mg)]
-            m += mg
-            v += vg
-        return upd, OptState(step, (m, v))
+                u = torch._foreach_sub(u, _scale(
+                    [_piece(params[i], lead, rows)
+                     for i, lead, rows in group], decay, strong))
+            for piece, x, t in zip(group, u, mg):
+                sink(piece, x.to(t.dtype))
+        return OptState(step, (m_all, v_all))
 
-    return Optimizer(init, update)
+    def update(grads, state, params=None):
+        grads = list(grads)
+        params = None if params is None else list(params)
+        upd = [None] * len(grads)
+
+        def keep(piece, u):
+            i, lead, rows = piece
+            if rows is None:
+                upd[i] = u
+                return
+            if upd[i] is None:
+                upd[i] = torch.empty(grads[i].shape, dtype=u.dtype,
+                                     device=u.device)
+            _piece(upd[i], lead, rows).copy_(u)
+        return upd, run(grads, state, params, keep)
+
+    def apply(grads, state, params):
+        params = list(params)
+
+        def add(piece, u):
+            _piece(params[piece[0]], *piece[1:]).add_(u)
+        return run(list(grads), state, params, add)
+
+    return Optimizer(init, update, apply)
 
 
 def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
@@ -222,7 +292,7 @@ def rowwise_adagrad(lr: Schedule, eps: float = 1e-8) -> Optimizer:
             acc.append(a)
         return upd, OptState(step, acc)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, _applying(update))
 
 
 @torch.no_grad()

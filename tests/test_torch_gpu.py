@@ -1021,3 +1021,70 @@ def test_train_launcher_defaults_to_cuda(cuda, capsys):
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert "device=cuda" in capsys.readouterr().out
     assert flash_attention_cuda.launches == n0 + 2 * 2   # 2 layers, 2 steps
+
+
+# ---- the MoE layer ------------------------------------------------------------
+
+
+def _moe_inputs(dev, dtype, D=256, F=128, E=4, B=2, S=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, D), generator=g)
+    p = {"router": torch.randn((D, E), generator=g) * 2 / D ** 0.5,
+         "wg": torch.randn((E, D, F), generator=g) / D ** 0.5,
+         "wu": torch.randn((E, D, F), generator=g) / D ** 0.5,
+         "wo": torch.randn((E, F, D), generator=g) / F ** 0.5}
+    return (x.to(dev, dtype),
+            {k: v.to(dev, torch.float32 if k == "router" else dtype)
+             for k, v in p.items()})
+
+
+@pytest.mark.parametrize("E, K", [(4, 2), (64, 8)])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_on_cuda_matches_cpu(cuda, no_tf32, E, K, capacity_factor):
+    """float32 ``moe_apply`` on the card and on the CPU: the same routes
+    (``top_e``, ``tok_buf``, dropped slots), output and load-balance loss
+    within 1e-5 of their largest entries."""
+    from repro_torch.models import layers as L
+    kw = dict(n_experts=E, top_k=K, capacity_factor=capacity_factor)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        x, p = _moe_inputs(dev, torch.float32, E=E)
+        r = L.moe_route(x, p["router"], **kw)
+        y, aux = L.moe_apply(p, x, act="swiglu", **kw)
+        outs.append((r, y.cpu(), float(aux)))
+    (rc, yc, ac), (rh, yh, ah) = outs
+    assert torch.equal(rc.top_e.cpu(), rh.top_e)
+    assert torch.equal(rc.tok_buf.cpu(), rh.tok_buf)
+    assert torch.equal(rc.slot.cpu(), rh.slot)
+    assert float((yc - yh).abs().max()) <= 1e-5 * float(yh.abs().max())
+    assert abs(ac - ah) <= 1e-5 * abs(ah)
+
+
+def test_moe_bf16_combine_is_deterministic_on_cuda(cuda):
+    """Two card runs of bf16 ``moe_apply`` (output and input gradient,
+    the ordered combine and its transpose) are bit-equal."""
+    from repro_torch.models import layers as L
+    runs = []
+    for _ in range(2):
+        x, p = _moe_inputs(cuda, torch.bfloat16, E=64, D=512, F=256,
+                           S=1024)
+        x.requires_grad_(True)
+        y, _ = L.moe_apply(p, x, n_experts=64, top_k=8,
+                           capacity_factor=1.25, act="swiglu")
+        (gx,) = torch.autograd.grad(y.float().square().sum(), x)
+        runs.append((y.view(torch.int16), gx.view(torch.int16)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_moe_router_refuses_tf32(cuda):
+    from repro_torch.models import layers as L
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(ValueError, match="TF32"):
+            L.moe_route(torch.zeros((1, 4, 8), device=cuda),
+                        torch.zeros((8, 4), device=cuda), n_experts=4,
+                        top_k=2, capacity_factor=1.25)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -5,15 +5,27 @@ model is the h2o-danube-1.8b SMOKE config (``resolve(1)``) with the JAX
 LM's own weights carried across by ``params_from_jax``, on a 96-token
 prompt, past the config's window of 64; the other dense archs
 (qwen2.5-14b with QKV biases, made random here, phi4-mini-3.8b with tied
-embeddings, granite-34b with one KV head) are held the same way.  In
-float32 the JAX LM runs its blockwise attention scan and the port its
-materialized plain attention, so they differ by float32 summation order
-only: 1e-4.  In bfloat16 both
-round every matmul and residual to bf16 at the same places but accumulate
-in different orders.  Logits reach 1.6 in size, where one bf16 step is
+embeddings, granite-34b with one KV head) and the MoE archs (olmoe-1b-7b,
+dbrx-132b: routed experts, the load-balance loss beside the logits) are
+held the same way.  In float32 the JAX LM runs its blockwise attention
+scan and the port its materialized plain attention, so they differ by
+float32 summation order only: 1e-4.  In bfloat16 both round every
+matmul and residual to bf16 at the same places but accumulate in
+different orders.  Logits reach 1.6 in size, where one bf16 step is
 0.0078; the two sides stay within 2e-2 (about two steps), and decode is
 teacher-forced with the JAX tokens so that a near-tie cannot fork the two
 sequences.
+
+In bf16 the MoE archs route each token by float32 router logits of a bf16
+stream that the two sides round at different places, so a token whose
+k-th and (k+1)-th router probabilities are nearly tied may go to another
+expert on each side, which moves its logits by an expert's output.  So
+there a row (a position) may differ beyond 2e-2 only where, in some
+layer, the port's k-th and (k+1)-th probabilities are within 1e-2
+(``NEAR_TIE``), and at most 2% of the forward's rows may (the SMOKE
+routers start near uniform, so such near ties are common; flips are
+not).  ``tests/test_torch_moe.py`` holds ``moe_apply`` itself to the
+reference bit for bit in bf16, on the same input.
 """
 
 import dataclasses
@@ -31,12 +43,12 @@ from repro_torch.configs import get_smoke
 from repro_torch.launch import serve as S
 from repro_torch.launch import steps as ST
 from repro_torch.models import layers as L
-from repro_torch.models.config import MoEConfig
 from repro_torch.models.transformer import (LM, params_from_jax,
                                             params_to_jax)
 
 PROMPT = 96
 N_DECODE = 8
+NEAR_TIE = 1e-2
 CFG = get_smoke("h2o-danube-1.8b").resolve(1)
 
 
@@ -150,7 +162,35 @@ def run_both(request):
     return _run_both("h2o-danube-1.8b", request.param)
 
 
+class _Margins:
+    """Records, per ``moe_route`` call of the port, each position's margin
+    between its k-th and (k+1)-th router probability; ``take()`` returns
+    the least over the calls since the last ``take`` (B, S), or None."""
+
+    def __init__(self, monkeypatch):
+        self.seen = []
+        route = L.moe_route
+
+        def record(x, router, **kw):
+            r = route(x, router, **kw)
+            p = r.probs.sort(-1, descending=True).values
+            k = r.top_e.shape[-1]
+            self.seen.append((p[..., k - 1] - p[..., k]).numpy())
+            return r
+        monkeypatch.setattr(L, "moe_route", record)
+
+    def take(self):
+        out = np.min(self.seen, axis=0) if self.seen else None
+        self.seen = []
+        return out
+
+
 def _run_both(arch, dtype):
+    with pytest.MonkeyPatch.context() as mp:
+        return _run_both_recorded(arch, dtype, _Margins(mp))
+
+
+def _run_both_recorded(arch, dtype, margins):
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     model, tree = _jax_params(jdt, arch)
     cfg = model.cfg
@@ -164,15 +204,19 @@ def _run_both(arch, dtype):
     tparams = params_from_jax(tree)
     tprompt = torch.as_tensor(prompt)
     res = {"dtype": dtype, "cfg": cfg}
-    res["forward"] = (np.asarray(jax.jit(model.forward)(params, prompt)[0],
-                                 np.float32),
-                      ours.forward(tparams, tprompt)[0].float().numpy())
+    jlogits, jaux = jax.jit(model.forward)(params, prompt)
+    tlogits, taux = ours.forward(tparams, tprompt)
+    res["forward"] = (np.asarray(jlogits, np.float32),
+                      tlogits.float().numpy())
+    res["aux"] = (float(jaux), float(taux))
+    res["margin"] = margins.take()
 
     jlog, jcache = jax.jit(lambda p, t: model.prefill(p, t,
                                                       capacity=capacity))(
         params, prompt)
     tlog, tcache = ours.prefill(tparams, tprompt, capacity=capacity)
     res["prefill"] = (np.asarray(jlog, np.float32), tlog.float().numpy())
+    res["prefill_margin"] = margins.take()
     # copies: decode_step writes into the port's cache in place
     res["cache"] = [(np.asarray(jcache["layers"][n], np.float32),
                      tcache["layers"][n].float().numpy().copy())
@@ -191,7 +235,7 @@ def _run_both(arch, dtype):
         jtok = jnp.argmax(jlog[:, -1], -1)[:, None].astype(jnp.int32)
         ttok = tlog[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         steps.append((np.asarray(jlog, np.float32), tlog.float().numpy(),
-                      np.asarray(jtok), ttok.numpy()))
+                      np.asarray(jtok), ttok.numpy(), margins.take()))
     res["decode"] = steps
     res["decode_pos"] = (int(jcache["pos"]), tcache["pos"])
     return res
@@ -222,7 +266,7 @@ def test_lm_prefill_logits_and_cache(run_both):
 
 
 def test_lm_greedy_decode(run_both):
-    for jlog, tlog, jtok, ttok in run_both["decode"]:
+    for jlog, tlog, jtok, ttok, _ in run_both["decode"]:
         np.testing.assert_allclose(tlog, jlog, rtol=_tol(run_both),
                                    atol=_tol(run_both))
         if run_both["dtype"] == "float32":
@@ -231,8 +275,7 @@ def test_lm_greedy_decode(run_both):
 
 
 @pytest.mark.parametrize("change", [
-    {"block": "hybrid"}, {"block": "rwkv"},
-    {"moe": MoEConfig(n_experts=4, top_k=2)}, {"frontend": "vlm"}])
+    {"block": "hybrid"}, {"block": "rwkv"}, {"frontend": "vlm"}])
 def test_unsupported_blocks_raise(change):
     cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -357,9 +400,107 @@ def test_dense_prefill_logits_and_cache(run_dense):
 
 
 def test_dense_greedy_decode(run_dense):
-    for jlog, tlog, jtok, ttok in run_dense["decode"]:
+    for jlog, tlog, jtok, ttok, _ in run_dense["decode"]:
         np.testing.assert_allclose(tlog, jlog, rtol=_tol(run_dense),
                                    atol=_tol(run_dense))
         if run_dense["dtype"] == "float32":
             np.testing.assert_array_equal(ttok, jtok)
     assert run_dense["decode_pos"] == (PROMPT + N_DECODE,) * 2
+
+
+# ---- the MoE archs ------------------------------------------------------------
+
+MOE = ("olmoe-1b-7b", "dbrx-132b")
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_moe_params_round_trip_exactly(arch, dtype):
+    """The float32 router of a bf16 model is carried bit for bit."""
+    _, tree = _jax_params(dtype, arch)
+    params = params_from_jax(tree)
+    assert "mlp" not in params["layers"]
+    assert params["layers"]["moe"]["router"].dtype == torch.float32
+    assert params["layers"]["moe"]["wg"].dtype == (
+        torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+    back = params_to_jax(params)
+    flat, treedef = jax.tree.flatten(tree)
+    flat_back, treedef_back = jax.tree.flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_params_has_the_reference_layout(arch):
+    _, tree = _jax_params(jnp.bfloat16, arch)
+    ours = LM(get_smoke(arch).resolve(1), device="cpu").init_params(0)
+    assert jax.tree.map(lambda t: tuple(t.shape), ours) == jax.tree.map(
+        lambda a: a.shape, tree)
+    assert jax.tree.map(lambda t: str(t.dtype).split(".")[-1],
+                        ours) == jax.tree.map(lambda a: str(a.dtype), tree)
+
+
+@pytest.fixture(scope="module", params=[
+    (a, d) for a in MOE for d in ("float32", "bfloat16")],
+    ids=lambda p: f"{p[0]}-{p[1]}")
+def run_moe(request):
+    return _run_both(*request.param)
+
+
+def _moe_close(res, out, ref, margin):
+    """``out`` within ``_tol`` of ``ref`` row by row (a row: the trailing
+    axes at one (b, s)), but in bf16 at a row where the port's router
+    had a near tie (``margin < NEAR_TIE``); returns the share of rows
+    beyond the tolerance."""
+    tol = _tol(res)
+    far = ~np.isclose(out, ref, rtol=tol, atol=tol).reshape(
+        *margin.shape, -1).all(-1)
+    if res["dtype"] == "float32":
+        assert not far.any()
+    else:
+        assert not (far & (margin >= NEAR_TIE)).any()
+    return float(far.mean())
+
+
+def test_moe_forward_logits_and_aux(run_moe):
+    ref, out = run_moe["forward"]
+    assert out.shape == (2, PROMPT, run_moe["cfg"].vocab_padded)
+    assert _moe_close(run_moe, out, ref, run_moe["margin"]) <= 0.02
+    jaux, taux = run_moe["aux"]
+    assert taux > 0
+    np.testing.assert_allclose(taux, jaux,
+                               rtol=1e-5 if run_moe["dtype"] == "float32"
+                               else 1e-3)
+
+
+def test_moe_prefill_logits_and_cache(run_moe):
+    cfg = run_moe["cfg"]
+    ref, out = run_moe["prefill"]
+    margin = run_moe["prefill_margin"]
+    _moe_close(run_moe, out, ref, margin[:, -1:])
+    for ref_c, out_c in run_moe["cache"]:
+        assert out_c.shape == (cfg.n_layers, 2, PROMPT + N_DECODE,
+                               cfg.n_kv_heads, cfg.head_dim)
+        for layer in range(cfg.n_layers):
+            _moe_close(run_moe, out_c[layer, :, :PROMPT],
+                       ref_c[layer, :, :PROMPT], margin)
+    assert run_moe["pos"] == (PROMPT, PROMPT)
+
+
+def test_moe_greedy_decode(run_moe):
+    for jlog, tlog, jtok, ttok, margin in run_moe["decode"]:
+        _moe_close(run_moe, tlog, jlog, margin)
+        if run_moe["dtype"] == "float32":
+            np.testing.assert_array_equal(ttok, jtok)
+    assert run_moe["decode_pos"] == (PROMPT + N_DECODE,) * 2
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_serve_on_the_cpu(arch):
+    res = S.serve(arch, batch=2, prompt_len=40, tokens=4, device="cpu")
+    cfg = get_smoke(arch).resolve(1)
+    assert res.cfg.moe == cfg.moe and res.tokens.shape == (2, 4)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.vocab_padded)).all()
+    assert torch.isfinite(res.last_logits).all()

@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 DENSE = ("h2o-danube-1.8b", "qwen2.5-14b", "phi4-mini-3.8b", "granite-34b")
+MOE = ("olmoe-1b-7b", "dbrx-132b")
 
 
 def _rand(rng, *shape, scale=0.5):
@@ -243,7 +244,7 @@ def test_remat_gives_the_same_gradients(arch):
 # ---- the launcher -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_launcher_on_the_cpu(arch, capsys):
     losses = TR.main(["--arch", arch, "--smoke", "--steps", "2",
                       "--device", "cpu", "--seq", "64"])
@@ -263,8 +264,8 @@ def test_launcher_and_train_step_need_a_card_unless_told_cpu():
 
 
 def test_configs_registry():
-    assert set(DENSE) <= set(C.ARCH_NAMES)
-    for arch in DENSE:
+    assert set(DENSE + MOE) <= set(C.ARCH_NAMES)
+    for arch in DENSE + MOE:
         for get, jget in ((C.get_full, JC.get_full),
                           (C.get_smoke, JC.get_smoke)):
             assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
@@ -274,4 +275,4 @@ def test_configs_registry():
                 arch, shape)
     assert C.LONG_CONTEXT_ARCHS == JC.LONG_CONTEXT_ARCHS
     with pytest.raises(KeyError, match="does not run"):
-        C.get_full("dbrx-132b")
+        C.get_full("rwkv6-1.6b")

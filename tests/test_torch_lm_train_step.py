@@ -44,12 +44,14 @@ B, S = 4, 64
 
 
 def _grads_jax(model, params, batch, n):
-    """The reference train step's gradient: ``forward_loss`` per
-    microbatch, accumulated in float32 (n <= 4) and cast, as
-    ``repro/launch/steps.py:61-84`` does."""
+    """The reference train step's gradient: ``forward_loss`` (with
+    experts, plus 0.01 x the load-balance loss) per microbatch,
+    accumulated in float32 (n <= 4) and cast, as
+    ``repro/launch/steps.py:53-84`` does."""
     def loss_fn(p, b):
-        return model.forward_loss(p, b["tokens"], b["labels"],
-                                  loss_mask=b["loss_mask"])[0]
+        loss, aux = model.forward_loss(p, b["tokens"], b["labels"],
+                                       loss_mask=b["loss_mask"])
+        return loss + 0.01 * aux if model.cfg.moe else loss
     if n == 1:
         return jax.value_and_grad(loss_fn)(params, batch)
     loss, acc = 0.0, jax.tree.map(

@@ -165,3 +165,55 @@ def test_adam_groups_keep_the_bits(name, limit, monkeypatch):
     monkeypatch.setattr(opt.optimizers, "GROUP_ELEMS", 1 << 26)
     for a, b in zip(_run_both(MAKERS[name], steps=5)[1], f32):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_adam_slices_a_large_leaf_keeping_the_bits(name, dtype, monkeypatch):
+    """A leaf larger than ``GROUP_ELEMS`` is updated in slices of at most
+    ``GROUP_ELEMS`` elements along its leading axes: 5 steps of
+    ``apply`` on a (6, 5, 7) leaf beside small ones, with the limit at
+    40 and 1, give the params and moments of one whole group bit for
+    bit; the moments are updated in place, and ``update`` +
+    ``apply_updates`` is ``apply``."""
+    shapes = [(7,), (6, 5, 7), (5, 3)]
+    rng = np.random.default_rng(2)
+    init = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) * 0.1 for s in shapes]
+             for _ in range(5)]
+
+    def run(limit, via_update=False):
+        monkeypatch.setattr(opt.optimizers, "GROUP_ELEMS", limit)
+        o = MAKERS[name](opt)
+        params = [torch.tensor(p).to(dtype) for p in init]
+        state = o.init(params)
+        moments = [t.data_ptr() for part in state.inner for t in part]
+        for g in grads:
+            g = [torch.tensor(x).to(dtype) for x in g]
+            if via_update:
+                upd, state = o.update(g, state, params)
+                opt.apply_updates(params, upd)
+            else:
+                state = o.apply(g, state, params)
+        assert [t.data_ptr() for part in state.inner
+                for t in part] == moments
+        return [t.clone() for t in params + [*state.inner[0],
+                                             *state.inner[1]]]
+
+    whole = run(1 << 26)
+    pieces = opt.optimizers._pieces([torch.zeros(s) for s in shapes], 40)
+    assert pieces == [[(0, 0, None)]] + [
+        [(1, 1, slice(r, r + 1))] for r in range(6)] + [[(2, 0, None)]]
+    for limit in (40, 1):
+        assert all(sum(opt.optimizers._piece(torch.zeros(shapes[i]), lead,
+                                             rows).numel()
+                       for i, lead, rows in g) <= limit
+                   for g in opt.optimizers._pieces(
+                       [torch.zeros(s) for s in shapes], limit))
+        for a, b in zip(whole, run(limit)):
+            assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32),
+                               b.view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32))
+    for a, b in zip(whole, run(40, via_update=True)):
+        assert torch.equal(a, b)

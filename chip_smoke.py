@@ -7,10 +7,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: K1 (``src/repro_torch/csrc/embedding_bag.cu``, its forward and
-   its backward) and K2 (``src/repro_torch/csrc/flash_attention.cu``) with
-   nvcc for sm_90a into ``build/kernels/``, one nvcc per source, started
-   together; ptxas must report no spill in any bf16 (tensor-core) K2
-   instance;
+   its backward), K2 (``src/repro_torch/csrc/flash_attention.cu``), K3
+   (``src/repro_torch/csrc/selective_scan.cu``) and K4
+   (``src/repro_torch/csrc/wkv6.cu``) with nvcc for sm_90a into
+   ``build/kernels/``, one nvcc per source, started together; ptxas must
+   report no spill in any bf16 (tensor-core) K2 instance;
 3. K1's forward against its plain PyTorch version on the card, bit for
    bit: the reference's test sweep (rows x dim x pool x {f32, bf16}),
    padding at arbitrary positions with a zero, a signed-zero and a non-zero
@@ -197,6 +198,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step's loss (1e-5) and gradients (1e-4), greedy decode tokens equal;
    and two card runs of bf16 ``moe_apply`` at olmoe's width bit-equal.
    Each leg prints its seconds.
+15. (after phase 14) the hybrid SSM and RWKV path (``models/ssm``: the
+   selective scan K3 and the WKV-6 scan K4): (a) hymba-1.5b at full width
+   and depth (32 layers, seeded bf16) served through
+   ``launch.serve.serve``: 2 x 8192-token prompts and 32 tokens (prefill
+   ms, decode ms a token, tokens/s, peak, wall), K2 launched 32 times a
+   prefill and K3 32 times a prefill and a decode step, no other kernel,
+   the parameter tree equal to ``LM.param_layout``'s, then phase 7b's
+   profile (each kernel class's share); (b) rwkv6-1.6b (24 layers) the
+   same way, K4 24 times a prefill and a decode step; (c) K3
+   and K4 on layer 0's real inputs of those prompts against their plain
+   versions and a float64 run of the plain loop (phase 3b's rule; K3's
+   bf16 y within one bf16 ulp of plain's), and K2 on hymba's layer 0 by
+   ``attention_ulp_err`` (head dim 64, 25 query over 5 KV heads, window
+   1024); (d) both archs at SMOKE, seeded, float32, on the card and on
+   the CPU: logits within 1e-4, 8 greedy tokens equal; (e) K3's and K4's
+   medians of 10 after 2 warm-ups and their plain versions' of 3 after 1
+   at the served shapes, beside the bound.  Each leg prints its seconds.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -411,6 +429,15 @@ def phase_build(builds) -> dict:
     for name, (lib, no_spill) in builds.items():
         _report_build(lib, secs[name], no_spill)
     return secs
+
+
+def check_idle(counters, busy, where: str) -> None:
+    """Fail if a kernel other than those in ``busy`` launched on a path
+    (every count was set to 0 at the path's start)."""
+    idle = {type(c).__name__: c.launches for c in counters
+            if all(c is not b for b in busy)}
+    check(not any(idle.values()), f"{where}: other kernels launched: "
+          f"{idle}")
 
 
 def bits_equal(torch, out, ref) -> bool:
@@ -721,6 +748,8 @@ def phase_main_path(torch, np, K, counters, summary: dict):
                        for d in range(task.n_devices) if counts[d]]
     launches = K.embedding_bag_cuda.launches
     bwd_launches = K.embedding_bag_grad_cuda.launches
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the main path")
     tele.disable()
     summary["measured"] = measured
     check(launches > 0, "the main path launched K1 no time")
@@ -1019,13 +1048,11 @@ def phase_serve(torch, counters, FA, summary: dict):
                 tokens=SERVE_TOKENS, size="full", device="cuda")
     wall = time.perf_counter() - t0
     launches = FA.flash_attention_cuda.launches
-    others = {type(c).__name__: c.launches for c in counters
-              if c is not FA.flash_attention_cuda}
     cfg = res.cfg
     check(launches == 2 * cfg.n_layers,
           f"K2 launched {launches} times in 2 prefills of {cfg.n_layers} "
           "layers")
-    check(not any(others.values()), f"other kernels launched: {others}")
+    check_idle(counters, (FA.flash_attention_cuda,), "the LM serve path")
     check(bool(torch.isfinite(res.last_logits.float()).all()),
           "finite logits")
     check(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS), "token shape")
@@ -1053,17 +1080,19 @@ def phase_serve(torch, counters, FA, summary: dict):
     return res, launches
 
 
-def phase_profile(torch, res, summary: dict) -> dict:
+def phase_profile(torch, res, summary: dict, key: str = "profile") -> dict:
     """Where the LM path's time goes: torch.profiler over one prefill and
-    over 4 decode steps of the served model (weights from phase 7).  The
-    busy share is the kernels' summed device time over the window's wall
-    time (one stream); the profiler slows the host, so the idle share it
-    gives is an upper bound."""
+    over 4 decode steps of the served model (weights from phase 7, or
+    15's), with each kernel class's share of the kernels' time.  The busy
+    share is the kernels' summed device time over the window's wall time
+    (one stream); the profiler slows the host, so the idle share it gives
+    is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps as ST
     model = ST.build_model(res.cfg, device="cuda")
-    prefill = ST.make_prefill_step(model, capacity=SERVE_PROMPT + 4)
+    prefill = ST.make_prefill_step(model,
+                                   capacity=res.prompts.shape[1] + 4)
     decode = ST.make_decode_step(model)
     state = {}
 
@@ -1093,17 +1122,24 @@ def phase_profile(torch, res, summary: dict) -> dict:
                        if e.device_type == DeviceType.CUDA),
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
+        shares = {}
+        for k, ms, _ in rows:
+            cls = _kernel_class(k)
+            shares[cls] = shares.get(cls, 0.0) + ms / busy
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                      "idle_share": 1 - busy / wall_ms if busy else None,
+                     "class_shares": shares,
                      "top": [{"name": k[:80], "ms": ms, "calls": n}
                              for k, ms, n in rows[:8]]}
-        log(f"[profile] {name}: wall {wall_ms:.1f} ms under the profiler, "
-            f"kernels {busy:.1f} ms"
-            + (f" (idle share <= {1 - busy / wall_ms:.3f})" if busy
+        split = ", ".join(f"{c} {v:.3f}" for c, v in shares.items())
+        log(f"[profile] {res.cfg.name} {name}: wall {wall_ms:.1f} ms under "
+            f"the profiler, kernels {busy:.1f} ms"
+            + (f" (idle share <= {1 - busy / wall_ms:.3f}); shares of the "
+               f"kernels {split}" if busy
                else " (no device time recorded: not measured)"))
         for k, ms, n in rows[:8]:
             log(f"[profile]   {ms:9.3f} ms {n:5d}x {k[:80]}")
-    summary["profile"] = out
+    summary[key] = out
     return out
 
 
@@ -1407,6 +1443,8 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
                 f"{np.round(est.bwd_comp, 3).tolist()}): error {rel:+.2%}")
     launches = {"fwd": K.embedding_bag_cuda.launches,
                 "bwd": K.embedding_bag_grad_cuda.launches}
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the training path")
     tele.disable()
     log(f"[train] K1 launches on the training path: {launches['fwd']} "
         f"forward, {launches['bwd']} backward ({calib['fwd']} and "
@@ -1719,6 +1757,8 @@ def phase_table1(torch, np, K, counters, ctx, summary: dict) -> dict:
                 "bwd": K.embedding_bag_grad_cuda.launches}
     check(launches["fwd"] > 0 and launches["bwd"] > 0,
           f"the table 1 path launched K1 {launches}")
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the table 1 path")
     log(f"[table1] K1 launches on the table 1 path: {launches['fwd']} "
         f"forward, {launches['bwd']} backward (live timing of "
         f"{len(live)} placements)")
@@ -2012,6 +2052,8 @@ def dlrm_full_width(torch, np, K, counters, task0, summary) -> dict:
         del model, train, inputs
     out["launches"] = {"fwd": K.embedding_bag_cuda.launches,
                        "bwd": K.embedding_bag_grad_cuda.launches}
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the DLRM training path")
     out["steps"] = steps_run
     return out
 
@@ -2406,6 +2448,8 @@ def sharded_lookup(torch, np, K, counters, shard_ctx) -> dict:
     torch.cuda.synchronize()
     launches = {"fwd": K.embedding_bag_cuda.launches,
                 "bwd": K.embedding_bag_grad_cuda.launches}
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the sharded lookup")
     check(launches == {"fwd": plan.n_shards, "bwd": plan.n_shards},
           f"sharded lookup: K1 launches {launches}, expected one forward "
           f"and one backward for each of the {plan.n_shards} shards")
@@ -2505,6 +2549,8 @@ def phase_search_shard(torch, np, K, counters, ctx, summary: dict) -> dict:
                        "bwd": K.embedding_bag_grad_cuda.launches}
     check(search_launches["fwd"] > 0 and search_launches["bwd"] > 0,
           f"the search path launched K1 {search_launches}")
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the search path")
     torch.cuda.empty_cache()
     lookup = sharded_lookup(torch, np, K, counters, shard)
     torch.cuda.empty_cache()
@@ -3043,6 +3089,8 @@ def phase_serving(torch, np, K, counters, ctx, summary: dict) -> dict:
                 "bwd": K.embedding_bag_grad_cuda.launches}
     check(launches["fwd"] > 0 and launches["bwd"] > 0,
           f"the serving path launched K1 {launches}")
+    check_idle(counters, (K.embedding_bag_cuda, K.embedding_bag_grad_cuda),
+               "the placement serving path")
     checks = {}
     for label, raw, a, n_devices in b11["picks"] + b12["picks"]:
         checks[label] = placement_kernel_checks(
@@ -3116,6 +3164,10 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "K2"
+    if "selective_scan" in low:
+        return "K3"
+    if "wkv6" in low:
+        return "K4"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass")):
         return "cuBLAS"
     return "other"
@@ -3253,13 +3305,11 @@ def lm_train_full(torch, np, FA, counters, summary: dict) -> tuple:
         if i:
             times.append(t0.elapsed_time(t1))
     launches = FA.flash_attention_cuda.launches
-    others = {type(c).__name__: c.launches for c in counters
-              if c is not FA.flash_attention_cuda}
     n_steps = len(batches)
     check(launches == cfg.n_layers * n_steps,
           f"K2 launched {launches} times in {n_steps} steps of "
           f"{cfg.n_layers} layers")
-    check(not any(others.values()), f"other kernels launched: {others}")
+    check_idle(counters, (FA.flash_attention_cuda,), "the LM train path")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = sorted(times)[len(times) // 2]
@@ -3543,9 +3593,7 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
         del params, cache, logits, batch
         torch.cuda.empty_cache()
     launches = FA.flash_attention_cuda.launches
-    others = {type(c).__name__: c.launches for c in counters
-              if c is not FA.flash_attention_cuda}
-    check(not any(others.values()), f"other kernels launched: {others}")
+    check_idle(counters, (FA.flash_attention_cuda,), "the dense configs")
     summary["lm_dense"] = out
     return launches
 
@@ -3638,11 +3686,6 @@ MOE_PROFILE_SPANS = {
     "routing": (lambda e: e.name == "moe.route", None)}
 
 
-def _other_launches(counters, FA) -> dict:
-    return {type(c).__name__: c.launches for c in counters
-            if c is not FA.flash_attention_cuda}
-
-
 def moe_serve(torch, FA, counters, summary: dict):
     """14 (a): olmoe-1b-7b at full width and depth (16 layers, seeded bf16)
     served through the entry point: 2 x 8192-token prompts, 32 tokens;
@@ -3661,8 +3704,7 @@ def moe_serve(torch, FA, counters, summary: dict):
     check(launches == 2 * cfg.n_layers,
           f"K2 launched {launches} times in 2 prefills of {cfg.n_layers} "
           "layers")
-    others = _other_launches(counters, FA)
-    check(not any(others.values()), f"other kernels launched: {others}")
+    check_idle(counters, (FA.flash_attention_cuda,), "the MoE path")
     check(bool(torch.isfinite(res.last_logits.float()).all()),
           "finite logits")
     check(res.tokens.shape == (2, SERVE_TOKENS), "token shape")
@@ -3739,8 +3781,7 @@ def moe_train(torch, np, FA, counters, params, summary: dict) -> tuple:
     per_step = 2 * cfg.n_layers        # remat runs each forward twice
     check(launches == per_step * n_steps,
           f"K2 launched {launches} times in {n_steps} steps")
-    others = _other_launches(counters, FA)
-    check(not any(others.values()), f"other kernels launched: {others}")
+    check_idle(counters, (FA.flash_attention_cuda,), "the MoE path")
     check(all(math.isfinite(x) for x in losses + auxs),
           f"losses {losses}, aux {auxs}")
     peak = torch.cuda.max_memory_allocated()
@@ -3842,8 +3883,7 @@ def moe_dbrx(torch, np, FA, plain, counters, summary: dict) -> int:
           f"dbrx loss {loss}, aux {aux}")
     launches = FA.flash_attention_cuda.launches
     check(launches == 2 * cfg.n_layers, f"dbrx: K2 launched {launches}")
-    others = _other_launches(counters, FA)
-    check(not any(others.values()), f"other kernels launched: {others}")
+    check_idle(counters, (FA.flash_attention_cuda,), "the MoE path")
     peak = torch.cuda.max_memory_allocated()
     out = {"params": n_params, "layers": cfg.n_layers, "loss": loss,
            "moe_aux": aux, "train_s": train_s, "serve_s": serve_s,
@@ -4011,6 +4051,346 @@ def phase_moe(torch, np, FA, plain, counters, summary: dict) -> dict:
     return launches
 
 
+SSM_SERVE_PROMPT = 8192          # 15 (a), (b): as phases 7 and 14 serve
+SSM_CROSS_SEQ = 80               # 15 (d): SMOKE, float32, past hymba's window
+SSM_CROSS_DECODE = 8
+
+
+class _FirstCall:
+    """While active, keeps the arguments of the first call of
+    ``module.name`` (the call itself still runs)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def record(*args):
+            if self.args is None:
+                self.args = args
+            return self.fn(*args)
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _f64_errs(out, plain_out, ref64) -> dict:
+    """Phase 3b's rule: the kernel's largest error against float64 at most
+    twice plain float32's plus 1e-6."""
+    e_k = float((out.double() - ref64).abs().max())
+    e_p = float((plain_out.double() - ref64).abs().max())
+    return {"kernel": e_k, "plain": e_p, "limit": 2 * e_p + 1e-6,
+            "share": e_k / (2 * e_p + 1e-6)}
+
+
+def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
+    """15 (a), (b): ``arch`` at full width and depth (seeded bf16) served
+    through the entry point: 2 x 8192-token prompts, 32 tokens; then
+    layer 0's real scan inputs, kept from one more untimed prefill, and
+    torch.profiler over a prefill and 4 decode steps (phase 7b's)."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import tree_leaves
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = serve(arch, batch=2, prompt_len=SSM_SERVE_PROMPT,
+                tokens=SERVE_TOKENS, size="full", device="cuda")
+    wall = time.perf_counter() - t0
+    cfg = res.cfg
+    n = cfg.n_layers
+    hybrid = cfg.block == "hybrid"
+    scan = SS.selective_scan_cuda if hybrid else WK.wkv6_cuda
+    # a warm-up and a timed prefill, then SERVE_TOKENS - 1 decode steps
+    expect = {id(scan): n * (2 + SERVE_TOKENS - 1)}
+    if hybrid:
+        expect[id(FA.flash_attention_cuda)] = 2 * n
+    launches = {type(c).__name__: c.launches for c in counters}
+    for c in counters:
+        want = expect.get(id(c), 0)
+        check(c.launches == want, f"{cfg.name}: {type(c).__name__} "
+              f"launched {c.launches} times, not {want}")
+    check(bool(torch.isfinite(res.last_logits.float()).all()),
+          f"{cfg.name}: finite logits")
+    check(res.tokens.shape == (2, SERVE_TOKENS), "token shape")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_padded)).all()),
+          "token ids in range")
+    check(res.pos == SSM_SERVE_PROMPT + SERVE_TOKENS - 1, "cache position")
+    # the tree against param_layout, which tests/test_torch_lm_ssm.py
+    # holds to the reference's jax.eval_shape at full width
+    model = ST.build_model(cfg, device="cuda")
+    layout = [(tuple(s.shape), s.dtype)
+              for s in tree_leaves(model.param_layout())]
+    got = [(tuple(t.shape), t.dtype) for t in tree_leaves(res.params)]
+    check(got == layout, f"{cfg.name}: the tree is not param_layout's")
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
+    with torch.no_grad(), _FirstCall(
+            scan_ops if hybrid else wkv_ops,
+            "selective_scan" if hybrid else "wkv6") as rec:
+        model.prefill(res.params, res.prompts)
+    del model
+    phase_profile(torch, res, summary, key=f"ssm_profile {cfg.name}")
+    for c in counters:
+        c.launches = launches[type(c).__name__]
+    out = {"arch": cfg.name, "layers": n, "params": n_params,
+           "param_count_approx": cfg.param_count(), "batch": 2,
+           "prompt": SSM_SERVE_PROMPT, "tokens": SERVE_TOKENS,
+           "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token,
+           "decode_tokens_per_s": res.decode_tokens_per_s,
+           "peak_memory_bytes": res.peak_memory_bytes, "wall_s": wall,
+           "launches": launches}
+    log(f"[ssm serve] {cfg.name}: {n} layers, {n_params} params "
+        f"(param_count() {cfg.param_count()}, approximate), bf16; batch 2 x "
+        f"{SSM_SERVE_PROMPT} tokens")
+    log(f"[ssm serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms; decode "
+        f"{res.decode_ms_per_token:.2f} ms/token, "
+        f"{res.decode_tokens_per_s:.1f} tokens/s; peak "
+        f"{res.peak_memory_bytes / 1e9:.2f} GB; wall {wall:.1f} s; launches "
+        f"{launches}; request 0: {res.tokens[0, :12].tolist()} ...")
+    summary.setdefault("ssm_serve", {})[cfg.name] = out
+    return res, rec.args, launches
+
+
+def k3_checks(torch, SS, args) -> dict:
+    """15 (c): K3 on layer 0's real inputs at the served shape against
+    plain and a float64 run of the plain loop: float32 x by phase 3b's
+    rule (y and hT); the served bf16 x: y within one bf16 ulp of plain's,
+    hT by the same rule.  Launches here are put back."""
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    x, rest = args[0], args[1:]
+    n0 = SS.selective_scan_cuda.launches
+    out = {"shape": list(x.shape), "state_dim": int(rest[3].shape[1])}
+    with torch.no_grad():
+        y64, h64 = selective_scan_plain(x.double(),
+                                        *(t.double() for t in rest))
+        # plain on bf16 x is plain on its float32 values, y rounded once
+        yp32, hp = selective_scan_plain(x.float(), *rest)
+        for name, xin in (("float32", x.float()), ("bfloat16", x)):
+            y, hT = SS.selective_scan_cuda(xin, *rest)
+            yp = yp32.to(xin.dtype)
+            torch.cuda.synchronize()
+            e = {"hT": _f64_errs(hT, hp, h64),
+                 "max_abs_vs_plain": float((y.float() - yp.float()).abs()
+                                           .max())}
+            if name == "float32":
+                e["y"] = _f64_errs(y, yp, y64)
+            else:
+                lim = torch.maximum(bf16_ulp(torch, y), bf16_ulp(torch, yp))
+                d = (y.float() - yp.float()).abs()
+                e["y_ulps"] = float((d / lim.clamp(min=1e-38)).max())
+                check(e["y_ulps"] <= 1, f"K3 bf16 y {e['y_ulps']} ulps "
+                      "from plain's")
+            for k in ("y", "hT"):
+                if k in e:
+                    check(e[k]["share"] <= 1, f"K3 {name} {k}: {e[k]}")
+            out[name] = e
+            del y, hT, yp
+    SS.selective_scan_cuda.launches = n0
+    f, b = out["float32"], out["bfloat16"]
+    log(f"[ssm k3] layer 0 of the served prompts, x {tuple(x.shape)}: "
+        f"float32 y max |err| vs float64 {f['y']['kernel']:.3g} (limit "
+        f"{f['y']['limit']:.3g}: plain {f['y']['plain']:.3g}), hT "
+        f"{f['hT']['kernel']:.3g} (limit {f['hT']['limit']:.3g}); bf16 y "
+        f"within {b['y_ulps']:.3g} ulp of plain's, hT {b['hT']['kernel']:.3g}"
+        f" (limit {b['hT']['limit']:.3g})")
+    return out
+
+
+def k4_checks(torch, WK, args) -> dict:
+    """15 (c): K4 on layer 0's real inputs at the served shape against
+    plain and a float64 run of the plain loop, by phase 3b's rule (y and
+    sT), on the served bf16 r, k, v and on their float32 values.
+    Launches here are put back."""
+    from repro_torch.kernels.wkv6.ref import wkv6_plain
+    r, k, v, w, u, s0 = args
+    u = u.float()
+    n0 = WK.wkv6_cuda.launches
+    out = {"shape": list(r.shape)}
+    with torch.no_grad():
+        y64, s64 = wkv6_plain(*(t.double() for t in (r, k, v, w, u, s0)))
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            rkv = [t.to(dt) for t in (r, k, v)]
+            y, sT = WK.wkv6_cuda(*rkv, w, u, s0)
+            yp, sp = wkv6_plain(*rkv, w, u, s0)
+            torch.cuda.synchronize()
+            e = {"y": _f64_errs(y, yp, y64), "sT": _f64_errs(sT, sp, s64),
+                 "max_abs_vs_plain": float((y - yp).abs().max())}
+            for key in ("y", "sT"):
+                check(e[key]["share"] <= 1, f"K4 {name} {key}: {e[key]}")
+            out[name] = e
+            del y, sT, yp, sp
+    WK.wkv6_cuda.launches = n0
+    for name in ("float32", "bfloat16"):
+        e = out[name]
+        log(f"[ssm k4] layer 0 of the served prompts, r {tuple(r.shape)}, "
+            f"{name} r/k/v: y max |err| vs float64 {e['y']['kernel']:.3g} "
+            f"(limit {e['y']['limit']:.3g}: plain {e['y']['plain']:.3g}), sT "
+            f"{e['sT']['kernel']:.3g} (limit {e['sT']['limit']:.3g})")
+    return out
+
+
+def scan_yardstick(torch, kernel, plain, args, *, name: str, source: str,
+                   replaces: str, nbytes: int, ops: int, err: float,
+                   summary: dict) -> dict:
+    """15 (e): a scan kernel's median of 10 after 2 warm-ups at the served
+    shape, its plain version's median of 3 after 1, and the bound."""
+    from repro_torch.profiling.microbench import median_time_ms
+    n0 = kernel.launches
+    with torch.no_grad():
+        ms = median_time_ms(kernel, args, warmup=2, repeats=10)
+        plain_ms = median_time_ms(plain, args, warmup=1, repeats=3)
+    kernel.launches = n0
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None}
+    summary.setdefault("ssm_yardstick", {})[name] = {
+        "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_share": row["bound_ms"] / ms, **row}
+    log(f"[ssm yardstick] {name}: {ms:.3f} ms ({row['bound_ms'] / ms:.1%} of "
+        f"the bound {row['bound_ms']:.3f} ms, {row['bound_by']}: "
+        f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} G float32 ops), plain "
+        f"{plain_ms:.1f} ms; no single PyTorch call computes it (library: "
+        "none)")
+    return row
+
+
+def ssm_cross_device(torch, np, counters, summary: dict) -> dict:
+    """15 (d): hymba-1.5b and rwkv6-1.6b at SMOKE, seeded, float32, on the
+    card (K2, K3, K4) and on the CPU (plain): a 2 x 80-token prefill and 8
+    greedy tokens; every logit within 1e-4, the tokens equal."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    out = {}
+    for arch in ("hymba-1.5b", "rwkv6-1.6b"):
+        cfg = get_smoke(arch).resolve(1)
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, SSM_CROSS_SEQ)), dtype=torch.int32)
+        runs, params = [], None
+        for dev in ("cuda", "cpu"):
+            model = ST.build_model(cfg, dtype=torch.float32, device=dev)
+            params = model.init_params(0) if params is None else map_params(
+                lambda t: t.cpu().clone(), params)
+            logits, cache = model.prefill(
+                params, prompt.to(dev),
+                capacity=SSM_CROSS_SEQ + SSM_CROSS_DECODE)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            lgs, toks = [logits.cpu()], [tok.cpu()]
+            for _ in range(SSM_CROSS_DECODE - 1):
+                logits, cache = model.decode_step(params, cache, tok)
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                lgs.append(logits.cpu())
+                toks.append(tok.cpu())
+            runs.append((lgs, torch.cat(toks, 1)))
+        (lg, tg), (lc, tc) = runs
+        err = max(float((a - b).abs().max()) for a, b in zip(lg, lc))
+        check(err <= 1e-4, f"{arch}: logits cuda vs cpu {err}")
+        check(torch.equal(tg, tc), f"{arch}: greedy tokens {tg.tolist()} vs "
+              f"{tc.tolist()}")
+        out[arch] = {"logits_max_abs_err": err, "tokens": tg.tolist()}
+        log(f"[ssm cross] {arch} SMOKE, float32, 2 x {SSM_CROSS_SEQ} + "
+            f"{SSM_CROSS_DECODE} tokens: cuda == cpu, logits max |err| "
+            f"{err:.3g} (limit 1e-4), greedy tokens equal "
+            f"{tg[0].tolist()}")
+    launches = {type(c).__name__: c.launches for c in counters}
+    summary["ssm_cross_device"] = out
+    return launches
+
+
+def phase_ssm(torch, np, FA, SS, WK, plain, counters, summary: dict) -> dict:
+    """The hybrid SSM and RWKV path.  Returns each kernel's launches by
+    path (``"k2"``, ``"k3"``, ``"k4"``) and K3's and K4's rows.  Each leg
+    prints its seconds."""
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    from repro_torch.kernels.wkv6.ref import wkv6_plain
+    legs = dict.fromkeys(("a hymba serve", "b rwkv serve", "c kernel checks",
+                          "d cuda vs cpu", "e yardsticks"), 0.0)
+    names = {k: type(c).__name__ for k, c in (
+        ("k2", FA.flash_attention_cuda), ("k3", SS.selective_scan_cuda),
+        ("k4", WK.wkv6_cuda))}
+    paths = {"k2": {}, "k3": {}, "k4": {}}
+    rows, checks = {}, {}
+
+    t0 = time.perf_counter()
+    res, args, launches = ssm_serve(torch, FA, SS, WK, counters,
+                                    "hymba-1.5b", summary)
+    paths["k2"]["hybrid serve"] = launches[names["k2"]]
+    paths["k3"]["hybrid serve"] = launches[names["k3"]]
+    legs["a hymba serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = res.cfg
+    checks["k3"] = k3_checks(torch, SS, args)
+    checks["k2"] = k2_train_forward_check(
+        torch, FA, plain, *_layer0_qkv(torch, cfg, res.params, res.prompts),
+        cfg.sliding_window, "hymba-1.5b layer 0 of the served prompts")
+    legs["c kernel checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, dt, Bc, Cc, A, h0 = args
+    B, S, Di = x.shape
+    N = A.shape[1]
+    rows["k3"] = scan_yardstick(
+        torch, SS.selective_scan_cuda, selective_scan_plain, args,
+        name="selective_scan", source="src/repro_torch/csrc/selective_scan.cu",
+        replaces="src/repro/models/ssm.py:39 (_ssm_recurrence's lax.scan "
+                 "at :55; no Pallas kernel)",
+        nbytes=(2 * x.numel() * x.element_size() + dt.numel() * 4
+                + (Bc.numel() + Cc.numel() + A.numel() + 2 * h0.numel()) * 4),
+        ops=B * S * Di * (7 * N + 1),
+        err=checks["k3"]["float32"]["max_abs_vs_plain"], summary=summary)
+    del res, args, x, dt, Bc, Cc, A, h0
+    torch.cuda.empty_cache()
+    legs["e yardsticks"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res, args, launches = ssm_serve(torch, FA, SS, WK, counters,
+                                    "rwkv6-1.6b", summary)
+    paths["k4"]["rwkv serve"] = launches[names["k4"]]
+    legs["b rwkv serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["k4"] = k4_checks(torch, WK, args)
+    legs["c kernel checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r, k, v, w, u, s0 = args
+    B, S, H, hd = r.shape
+    k4_args = (r, k, v, w, u.float(), s0)
+    rows["k4"] = scan_yardstick(
+        torch, WK.wkv6_cuda, wkv6_plain, k4_args, name="wkv6",
+        source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/models/ssm.py:123 (rwkv_time_mix's lax.scan at "
+                 ":151; no Pallas kernel)",
+        nbytes=(3 * r.numel() * r.element_size() + w.numel() * 4
+                + r.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4),
+        ops=B * S * H * hd * hd * 7,
+        err=checks["k4"]["float32"]["max_abs_vs_plain"], summary=summary)
+    del res, args, k4_args, r, k, v, w, u, s0
+    torch.cuda.empty_cache()
+    legs["e yardsticks"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    launches = ssm_cross_device(torch, np, counters, summary)
+    for key in paths:
+        paths[key]["ssm cuda vs cpu"] = launches[names[key]]
+    legs["d cuda vs cpu"] = time.perf_counter() - t0
+    summary["ssm_kernel_checks"] = checks
+    for name, secs in legs.items():
+        log(f"[ssm] leg {name}: {secs:.1f} s")
+    summary["ssm_legs_s"] = legs
+    return {"paths": paths, "rows": rows}
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4039,20 +4419,24 @@ def main() -> int:
         embedding_bag_plain)
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.kernels.selective_scan import kernel as SS
+    from repro_torch.kernels.wkv6 import kernel as WK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     counters = (K.embedding_bag_cuda, K.embedding_bag_grad_cuda,
-                FA.flash_attention_cuda)
+                FA.flash_attention_cuda, SS.selective_scan_cuda,
+                WK.wkv6_cuda)
     phases: dict = {}
     summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "phase_s": phases}
     summary["nvidia_smi"] = run("1 device", phase_device, phases=phases)
     summary["build_s"] = run(
-        "2 build K1 and K2", phase_build,
+        "2 build K1, K2, K3 and K4", phase_build,
         {"K1": (K.LIBRARY, None),
-         "K2": (FA.LIBRARY, "flash_fwd_tc_kernel")}, phases=phases)
+         "K2": (FA.LIBRARY, "flash_fwd_tc_kernel"),
+         "K3": (SS.LIBRARY, None), "K4": (WK.LIBRARY, None)}, phases=phases)
     summary["kernel_check_cases"] = run(
         "3 K1 checks", phase_kernel_checks, torch, np, K,
         embedding_bag_plain, phases=phases)
@@ -4108,6 +4492,10 @@ def main() -> int:
     lm_launches.update(run("14 MoE path", phase_moe, torch, np, FA,
                            attention_plain, counters, summary,
                            phases=phases))
+    torch.cuda.empty_cache()
+    ssm = run("15 hybrid SSM and RWKV path", phase_ssm, torch, np, FA, SS, WK,
+              attention_plain, counters, summary, phases=phases)
+    lm_launches.update(ssm["paths"]["k2"])
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],
@@ -4124,7 +4512,10 @@ def main() -> int:
             {**bwd_row, "launches": sum(bwd_paths.values()),
              "launches_by_path": bwd_paths},
             {**k2_row, "launches": k2_launches + sum(lm_launches.values()),
-             "launches_by_path": {"serve": k2_launches, **lm_launches}}]
+             "launches_by_path": {"serve": k2_launches, **lm_launches}},
+            *({**ssm["rows"][key],
+               "launches": sum(ssm["paths"][key].values()),
+               "launches_by_path": ssm["paths"][key]} for key in ("k3", "k4"))]
     summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -2,14 +2,19 @@
 
 ``PlacementSession`` buckets tasks by padded ``(M_pad, D)`` shape, pads
 each task's (sorted) features to the bucket's table count with masked
-rows, pads the batch to a power of two with fully masked rows, and
-decodes the whole bucket in ONE batched ``decode_candidates`` call on the
-agent's device.
+rows, and decodes the bucket on the agent's device in batched
+``decode_candidates`` calls of exactly ``DECODE_BATCH`` tasks each, the
+last one filled up with fully masked rows.
 
 The padded decode is exact, not approximate: masked rows contribute
 nothing to the policy/cost device sums or memory, and the Gumbel noise of
 the sampled candidates is drawn per step and shared by the bucket, so the
 session returns the *same* assignments as per-task ``DreamShard.place``.
+It is also batch-invariant: every decode of a bucket has one shape,
+whatever tasks share the call, so each float32 product (cuBLAS chooses
+its kernel, and so its summation order, by shape) gives a task's rows the
+same bits in a service flush of a few tasks as in a ``place_many`` of
+many, and a near tie in the greedy argmax cannot flip between them.
 An optional ``refiner`` (a ``search.SearchPlacer``) then refines each
 decoded placement through the oracle.
 """
@@ -25,6 +30,10 @@ from repro_torch.core import features as FEAT
 from repro_torch.core import rollout as R
 from repro_torch.data.tasks import Task
 from repro_torch.embedding.plan import build_plan
+
+# tasks in every decode call: one fixed count makes the decode
+# batch-invariant (the service's default max_batch)
+DECODE_BATCH = 16
 
 
 def pad_feature_batch(entries, m_pad: int, b_pad: int | None = None):
@@ -102,61 +111,70 @@ class PlacementSession:
         return (self._pad_tables(task.n_tables), task.n_devices)
 
     def place_many(self, tasks: list[Task]) -> list[Placement]:
-        """Place a suite, decoding each ``(M_pad, D)`` bucket in one call."""
+        """Place a suite, decoding each ``(M_pad, D)`` bucket in calls of
+        ``DECODE_BATCH`` tasks."""
         tasks = list(tasks)
-        agent = self.agent
-        cfg = agent.cfg
         buckets: dict[tuple, list[int]] = {}
         for i, t in enumerate(tasks):
             buckets.setdefault(self.bucket_key(t), []).append(i)
 
         out: list[Placement | None] = [None] * len(tasks)
         for (m_pad, n_devices), idxs in buckets.items():
-            B = len(idxs)
-            b_pad = 1 << max(0, B - 1).bit_length()
-            entries, orders = [], []
-            for i in idxs:
-                f, s, order = agent._inference_inputs(tasks[i].raw_features)
-                entries.append((f[order], s[order]))
-                orders.append(order)
-            feats, sizes, tmask = pad_feature_batch(entries, m_pad, b_pad)
-            shape = (m_pad, n_devices, self.n_candidates, b_pad)
-            fresh = shape not in self._shapes
-            if fresh:
-                self._shapes.add(shape)
-                self.num_compiles += 1
-                tele.count("session.bucket_compiles")
-            dev = agent.device
-            with tele.span("session.decode", m_pad=m_pad,
-                           n_devices=n_devices, tasks=B, b_pad=b_pad,
-                           fresh_compile=fresh):
-                actions, est = R.decode_candidates(
-                    agent.policy_net, agent.cost_net,
-                    torch.as_tensor(feats, device=dev),
-                    torch.as_tensor(sizes, device=dev),
-                    agent.oracle.mem_capacity_gb, n_devices=n_devices,
-                    n_candidates=self.n_candidates,
-                    tmask=torch.as_tensor(tmask, device=dev),
-                    use_cost=cfg.use_cost_features,
-                    reward_mode=cfg.reward_mode,
-                    log_targets=agent._log_targets)
-                actions, est = actions.cpu().numpy(), est.cpu().numpy()
-            self.num_decode_calls += 1
-            tele.count("session.decode_calls")
-            for j, i in enumerate(idxs):
-                t, order = tasks[i], orders[j]
-                best = int(np.argmin(est[j]))
-                assignment = np.empty(t.n_tables, dtype=np.int64)
-                assignment[order] = actions[j, best, :t.n_tables]
-                out[i] = Placement(
-                    assignment=assignment,
-                    plan=build_plan(t.raw_features, assignment, n_devices),
-                    n_devices=n_devices, strategy="dreamshard",
-                    est_cost_ms=float(est[j, best]),
-                    candidates=self.n_candidates, oracle_evals=0)
+            for c0 in range(0, len(idxs), DECODE_BATCH):
+                self._decode(tasks, idxs[c0:c0 + DECODE_BATCH], m_pad,
+                             n_devices, out)
         if self.refiner is not None:
             out = [self.refiner.refine(t, p) for t, p in zip(tasks, out)]
         return out
+
+    def _decode(self, tasks, idxs, m_pad: int, n_devices: int,
+                out: list) -> None:
+        """Decode ``tasks[i]`` for ``i`` in ``idxs`` (at most
+        ``DECODE_BATCH`` of one bucket) in one call padded to
+        ``DECODE_BATCH`` tasks; the placements go to ``out[i]``."""
+        agent = self.agent
+        cfg = agent.cfg
+        B, b_pad = len(idxs), DECODE_BATCH
+        entries, orders = [], []
+        for i in idxs:
+            f, s, order = agent._inference_inputs(tasks[i].raw_features)
+            entries.append((f[order], s[order]))
+            orders.append(order)
+        feats, sizes, tmask = pad_feature_batch(entries, m_pad, b_pad)
+        shape = (m_pad, n_devices, self.n_candidates, b_pad)
+        fresh = shape not in self._shapes
+        if fresh:
+            self._shapes.add(shape)
+            self.num_compiles += 1
+            tele.count("session.bucket_compiles")
+        dev = agent.device
+        with tele.span("session.decode", m_pad=m_pad,
+                       n_devices=n_devices, tasks=B, b_pad=b_pad,
+                       fresh_compile=fresh):
+            actions, est = R.decode_candidates(
+                agent.policy_net, agent.cost_net,
+                torch.as_tensor(feats, device=dev),
+                torch.as_tensor(sizes, device=dev),
+                agent.oracle.mem_capacity_gb, n_devices=n_devices,
+                n_candidates=self.n_candidates,
+                tmask=torch.as_tensor(tmask, device=dev),
+                use_cost=cfg.use_cost_features,
+                reward_mode=cfg.reward_mode,
+                log_targets=agent._log_targets)
+            actions, est = actions.cpu().numpy(), est.cpu().numpy()
+        self.num_decode_calls += 1
+        tele.count("session.decode_calls")
+        for j, i in enumerate(idxs):
+            t, order = tasks[i], orders[j]
+            best = int(np.argmin(est[j]))
+            assignment = np.empty(t.n_tables, dtype=np.int64)
+            assignment[order] = actions[j, best, :t.n_tables]
+            out[i] = Placement(
+                assignment=assignment,
+                plan=build_plan(t.raw_features, assignment, n_devices),
+                n_devices=n_devices, strategy="dreamshard",
+                est_cost_ms=float(est[j, best]),
+                candidates=self.n_candidates, oracle_evals=0)
 
     def place(self, task: Task) -> Placement:
         return self.place_many([task])[0]

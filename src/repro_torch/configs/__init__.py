@@ -4,20 +4,24 @@ for the archs whose blocks the port's ``LM`` runs.
 The four dense decoders: h2o-danube-1.8b (sliding window), qwen2.5-14b
 (QKV biases), phi4-mini-3.8b (tied embeddings) and granite-34b (MQA);
 the two MoE decoders: dbrx-132b (16 experts, top-4) and olmoe-1b-7b (64
-experts, top-8).  The other archs of the JAX registry wait for their
-blocks (ROADMAP queue, LM substrate: hybrid SSM, RWKV, frontends).
+experts, top-8); hymba-1.5b (attention and a selective SSM in parallel)
+and rwkv6-1.6b (RWKV-6).  The other archs of the JAX registry wait for
+their frontends (ROADMAP queue, LM substrate: frontends).
 """
 
 from repro_torch.configs import (dbrx_132b, granite_34b, h2o_danube_1p8b,
-                                 olmoe_1b_7b, phi4_mini_3p8b, qwen2p5_14b)
+                                 hymba_1p5b, olmoe_1b_7b, phi4_mini_3p8b,
+                                 qwen2p5_14b, rwkv6_1p6b)
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape  # noqa: F401
 
 _MODULES = {
+    "hymba-1.5b": hymba_1p5b,
     "qwen2.5-14b": qwen2p5_14b,
     "dbrx-132b": dbrx_132b,
     "granite-34b": granite_34b,
     "phi4-mini-3.8b": phi4_mini_3p8b,
     "olmoe-1b-7b": olmoe_1b_7b,
+    "rwkv6-1.6b": rwkv6_1p6b,
     "h2o-danube-1.8b": h2o_danube_1p8b,
 }
 

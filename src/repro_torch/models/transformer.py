@@ -1,32 +1,38 @@
-"""Decoder-only LM for attention blocks: the dense decoders
-(h2o-danube-1.8b, qwen2.5-14b, phi4-mini-3.8b, granite-34b) and the MoE
-ones (olmoe-1b-7b, dbrx-132b).
+"""Decoder-only LM: the dense decoders (h2o-danube-1.8b, qwen2.5-14b,
+phi4-mini-3.8b, granite-34b), the MoE ones (olmoe-1b-7b, dbrx-132b),
+hymba's hybrid block (hymba-1.5b) and RWKV-6 (rwkv6-1.6b).
 
-The counterpart of ``repro/models/transformer.py`` for ``block="attn"``
-without frontends, at ``tp = 1``: GQA and MQA, QKV biases, tied
-embeddings, and top-k routed experts (``layers.moe_apply``) in place of
-the MLP, whose load-balance losses ``forward`` and ``forward_loss``
-return averaged over the layers.  Parameters are a nested dict of tensors in the
-reference's pytree layout, with each layer's weights stacked along a
-leading ``L`` axis; the layer loop is a Python loop over that axis (the
-reference's ``layer_loop="unrolled"``), each layer under
+The counterpart of ``repro/models/transformer.py`` without frontends, at
+``tp = 1``: GQA and MQA, QKV biases, tied embeddings, top-k routed
+experts (``layers.moe_apply``) in place of the MLP, whose load-balance
+losses ``forward`` and ``forward_loss`` return averaged over the layers;
+``block="hybrid"`` adds a selective SSM (``ssm.ssm_apply``) to attention
+on the same normed input; ``block="rwkv"`` is RWKV-6 time mixing, then
+channel mixing, with no attention.  Parameters are a nested dict of
+tensors in the reference's pytree layout, with each layer's weights
+stacked along a leading ``L`` axis; the layer loop is a Python loop over
+that axis (the reference's ``layer_loop="unrolled"``), each layer under
 ``torch.utils.checkpoint`` when ``remat`` is on and autograd records.
 
 Entry points:
   * ``forward``      -- train/eval logits over a full sequence
   * ``forward_loss`` -- the chunked cross-entropy, with no ``(B, S, Vp)``
     logits
-  * ``prefill``      -- forward + a populated KV cache
+  * ``prefill``      -- forward + a populated cache
   * ``decode_step``  -- one token against the (circular) cache
 
 Train and prefill attention run through the flash attention op with KV
 heads unexpanded (K2 on the card; its backward recomputes the blockwise
-scan in ``q_chunk``/``kv_chunk`` blocks).  The cache is updated in place:
-``prefill`` allocates it and ``decode_step`` writes its token into the
-tensors it is given, returning them with ``pos`` advanced.
+scan in ``q_chunk``/``kv_chunk`` blocks); the SSM's and RWKV's scans
+over time run through K3 and K4 on the card.  The cache (KV, and the
+SSM's state and conv carry, or RWKV's WKV state and token-shift rows) is
+updated in place: ``prefill`` allocates it and ``decode_step`` writes its
+token into the tensors it is given, returning them with ``pos`` advanced.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,11 +40,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
+
+class ParamSpec(NamedTuple):
+    """One leaf of ``LM.param_layout``: its shape and dtype, and how
+    ``init_params`` fills it: ``"normal"`` (x ``value``), ``"full"`` (at
+    ``value``) or ``"log_range"`` (log(1..N) along the last axis)."""
+    shape: tuple
+    dtype: torch.dtype
+    init: str
+    value: float = 0.0
+
+
 _LATER = {
-    "block": "hybrid SSM (hymba) and RWKV blocks (ROADMAP queue, LM "
-             "substrate: hybrid SSM, RWKV)",
     "frontend": "the VLM/audio frontends (ROADMAP queue, LM substrate: "
                 "frontends)",
 }
@@ -52,14 +68,14 @@ class LM:
         if cfg.tp != 1 or not cfg.head_dim:
             raise ValueError("config must be resolve(1)d: the port runs "
                              "unsharded (sharding is on the ROADMAP queue)")
-        unsupported = [key for key, bad in (
-            ("block", cfg.block != "attn"),
-            ("frontend", cfg.frontend is not None)) if bad]
-        if unsupported:
+        if cfg.frontend is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the port does not run "
-                f"{'; '.join(_LATER[k] for k in unsupported)} yet")
-        if cfg.n_heads_padded != cfg.n_heads or cfg.n_heads % cfg.n_kv_heads:
+                f"{cfg.name}: the port does not run {_LATER['frontend']} "
+                "yet")
+        if cfg.block not in ("attn", "hybrid", "rwkv"):
+            raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
+        if cfg.block != "rwkv" and (cfg.n_heads_padded != cfg.n_heads
+                                    or cfg.n_heads % cfg.n_kv_heads):
             raise NotImplementedError(
                 f"{cfg.name}: query heads must group evenly over KV heads")
         self.cfg = cfg
@@ -71,38 +87,61 @@ class LM:
 
     # ---- parameters ----------------------------------------------------------
 
-    def init_params(self, seed: int) -> dict:
-        """Weights drawn as normal x 0.02 (norms at 1) by a generator on
-        the model's device seeded with ``seed``; shapes as in the
-        reference (no ``lm_head`` with tied embeddings; QKV biases at
+    def param_layout(self) -> dict:
+        """The parameter tree, each leaf a ``ParamSpec`` (shape, dtype and
+        how ``init_params`` draws it), allocating nothing: shapes as in
+        the reference (no ``lm_head`` with tied embeddings; QKV biases at
         zero; on MoE layers a float32 ``router`` and stacked experts in
-        place of the ``mlp``)."""
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        place of the ``mlp``; on hybrid layers an ``ssm`` subtree with
+        ``conv`` at 0.2, ``logA = log(1..N)`` in float32 and ``dskip`` at
+        1; on RWKV layers the ``ln1``/``ln2``/``rwkv`` layout, ``mu`` and
+        ``u`` at 0.5 and ``w_bias`` at -6 in float32), every other weight
+        normal x 0.02 and every norm at 1."""
         cfg, dt = self.cfg, self.dtype
         n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-        hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
 
-        def normal(*shape, dtype=dt):
-            w = torch.randn(shape, generator=generator, device=self.device)
-            return w.mul_(0.02).to(dtype)     # one float32 temporary
+        def normal(*shape, scale=0.02, dtype=dt):
+            return ParamSpec(shape, dtype, "normal", scale)
 
-        def ones(*shape):
-            return torch.ones(shape, dtype=dt, device=self.device)
+        def full(*shape, value=1.0, dtype=dt):
+            return ParamSpec(shape, dtype, "full", value)
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dt, device=self.device)
-
-        params = {"embed": normal(cfg.vocab_padded, d),
-                  "final_norm": ones(d)}
+        params = {"embed": normal(cfg.vocab_padded, d), "final_norm": full(d)}
         if not cfg.tie_embeddings:
             params["lm_head"] = normal(d, cfg.vocab_padded)
-        lay = {"ln1": ones(n, d), "ln2": ones(n, d),
-               "wq": normal(n, d, Hq * hd), "wk": normal(n, d, Hkv * hd),
-               "wv": normal(n, d, Hkv * hd), "wo": normal(n, Hq * hd, d)}
+        lay = params["layers"] = {"ln1": full(n, d), "ln2": full(n, d)}
+        if cfg.block == "rwkv":
+            H = d // SSM.RWKV_HEAD_DIM
+            lay["rwkv"] = {
+                "att": {"mu": normal(n, 5, d, scale=0.5),
+                        **{w: normal(n, d, d) for w in
+                           ("wr", "wk", "wv", "wg", "ww", "wo")},
+                        "w_bias": full(n, d, value=-6.0,
+                                       dtype=torch.float32),
+                        "u": normal(n, H, SSM.RWKV_HEAD_DIM, scale=0.5)},
+                "ffn": {"mu": normal(n, 2, d, scale=0.5),
+                        "wk": normal(n, d, f), "wv": normal(n, f, d),
+                        "wr": normal(n, d, d)}}
+            return params
+        hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
+        lay.update({"wq": normal(n, d, Hq * hd), "wk": normal(n, d, Hkv * hd),
+                    "wv": normal(n, d, Hkv * hd),
+                    "wo": normal(n, Hq * hd, d)})
         if cfg.qkv_bias:
-            lay["bq"] = zeros(n, Hq * hd)
-            lay["bk"] = zeros(n, Hkv * hd)
-            lay["bv"] = zeros(n, Hkv * hd)
+            for b, width in (("bq", Hq * hd), ("bk", Hkv * hd),
+                             ("bv", Hkv * hd)):
+                lay[b] = full(n, width, value=0.0)
+        if cfg.block == "hybrid":
+            di, N = cfg.ssm.expand * d, cfg.ssm.state_dim
+            lay["ssm"] = {"in_proj": normal(n, d, 2 * di),
+                          "conv": normal(n, cfg.ssm.conv_width, di,
+                                         scale=0.2),
+                          "wdt": normal(n, di),
+                          "wB": normal(n, di, N), "wC": normal(n, di, N),
+                          "logA": ParamSpec((n, di, N), torch.float32,
+                                            "log_range"),
+                          "out_proj": normal(n, di, d),
+                          "dskip": full(n, di)}
         if cfg.moe:
             E = cfg.moe.n_experts
             lay["moe"] = {"router": normal(n, d, E, dtype=torch.float32),
@@ -112,8 +151,31 @@ class LM:
             lay["mlp"] = {"wu": normal(n, d, f), "wo": normal(n, f, d)}
             if cfg.act == "swiglu":
                 lay["mlp"]["wg"] = normal(n, d, f)
-        params["layers"] = lay
         return params
+
+    def init_params(self, seed: int) -> dict:
+        """Weights by ``param_layout``, the normal ones drawn by a generator
+        on the model's device seeded with ``seed``.  A stacked leaf is
+        drawn one layer at a time, so the float32 temporary is one
+        layer's slice, never a whole leaf."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def make(spec: ParamSpec) -> torch.Tensor:
+            if spec.init == "full":
+                return torch.full(spec.shape, spec.value, dtype=spec.dtype,
+                                  device=self.device)
+            if spec.init == "log_range":     # log(1..N) along the last axis
+                r = torch.arange(1, spec.shape[-1] + 1, dtype=spec.dtype,
+                                 device=self.device)
+                return torch.log(r).expand(spec.shape).contiguous()
+            out = torch.empty(spec.shape, dtype=spec.dtype,
+                              device=self.device)
+            for part in (out if len(spec.shape) > 2 else (out,)):
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       device=self.device).mul_(spec.value))
+            return out
+
+        return map_params(make, self.param_layout())
 
     # ---- sublayers -------------------------------------------------------------
 
@@ -163,13 +225,49 @@ class LM:
         return L.mlp_apply(lp["mlp"], h, cfg.act), 0.0
 
     def _layer(self, lp, x, positions, cache=None, pos=None):
-        """One block. Returns (x, aux)."""
+        """One block. Returns (x, aux); the layer's cache, when given, is
+        updated in place."""
         cfg = self.cfg
+        if cfg.block == "rwkv":
+            return self._rwkv_layer(lp, x, cache), 0.0
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + self._attn(lp, h, positions, cache=cache, pos=pos)
+        mix = self._attn(lp, h, positions, cache=cache, pos=pos)
+        if cfg.block == "hybrid":        # the SSM heads on the same input
+            st = (None, None) if cache is None else (cache["ssm_state"],
+                                                      cache["conv"])
+            y, (state, conv) = SSM.ssm_apply(lp["ssm"], h, state=st[0],
+                                             conv_carry=st[1])
+            mix = mix + y
+            if cache is not None:
+                cache["ssm_state"].copy_(state)
+                cache["conv"].copy_(conv)
+        x = x + mix
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         y, aux = self._ffn(lp, h)
         return x + y, aux
+
+    def _rwkv_layer(self, lp, x, cache=None):
+        """RWKV-6: time mixing, then channel mixing, each on its own normed
+        input and token-shift row."""
+        cfg = self.cfg
+        B, d = x.shape[0], cfg.d_model
+        H, hd = d // SSM.RWKV_HEAD_DIM, SSM.RWKV_HEAD_DIM
+        if cache is None:
+            sx0 = sx1 = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+            st0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                              device=x.device)
+        else:
+            sx0, sx1, st0 = cache["sx_att"], cache["sx_ffn"], cache["wkv"]
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, sx_att, wkv = SSM.rwkv_time_mix(lp["rwkv"]["att"], h, sx0, st0)
+        x = x + y
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        y, sx_ffn = SSM.rwkv_channel_mix(lp["rwkv"]["ffn"], h, sx1)
+        if cache is not None:
+            cache["wkv"].copy_(wkv)
+            cache["sx_att"].copy_(sx_att)
+            cache["sx_ffn"].copy_(sx_ffn)
+        return x + y
 
     def _layers(self, params, x, positions, cache=None, pos=None):
         """The layer stack. Returns (x, the mean of the layers' aux)."""
@@ -249,12 +347,30 @@ class LM:
         return nll / torch.clamp(msum, min=1.0), aux
 
     def init_cache(self, batch: int, capacity: int) -> dict:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-        return {"layers": {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device)},
-            "pos": 0}
+        """Zeros: the KV cache (attention blocks), the SSM's float32 state
+        and conv carry (hybrid), or RWKV's float32 WKV state and its two
+        token-shift rows (rwkv), each stacked over the layers."""
+        cfg, n = self.cfg, self.cfg.n_layers
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros((n, batch, *shape), dtype=dtype,
+                               device=self.device)
+
+        c = {}
+        if cfg.block in ("attn", "hybrid"):
+            c["k"] = zeros(capacity, cfg.n_kv_heads, cfg.head_dim)
+            c["v"] = zeros(capacity, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.block == "hybrid":
+            di = cfg.ssm.expand * cfg.d_model
+            c["ssm_state"] = zeros(di, cfg.ssm.state_dim,
+                                   dtype=torch.float32)
+            c["conv"] = zeros(cfg.ssm.conv_width - 1, di)
+        if cfg.block == "rwkv":
+            H, hd = cfg.d_model // SSM.RWKV_HEAD_DIM, SSM.RWKV_HEAD_DIM
+            c["wkv"] = zeros(H, hd, hd, dtype=torch.float32)
+            c["sx_att"] = zeros(cfg.d_model)
+            c["sx_ffn"] = zeros(cfg.d_model)
+        return {"layers": c, "pos": 0}
 
     @torch.no_grad()
     def prefill(self, params: dict, tokens: torch.Tensor,

@@ -15,7 +15,11 @@ a column-sharded lookup against the whole-table plan's, b11's quick
 serving regime replayed through ``PlacementService`` on the card against
 the CPU, with a JSONL trace of a served replay, and the RNN baseline on
 the card against the CPU (its reprs under the default cuDNN flags, one
-update's gradient and its greedy placements).
+update's gradient and its greedy placements), K3 and K4 (the SSM's and
+RWKV's scans) against their plain versions and a float64 run, their
+refusal of a gradient, hymba and rwkv at SMOKE on the card against the
+CPU, and the placement decode's batch invariance (a task decoded alone
+and in batches of 3, 16 and 20: every step's logits bit-equal).
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -1088,3 +1092,200 @@ def test_moe_router_refuses_tf32(cuda):
                         top_k=2, capacity_factor=1.25)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# ---- K3 and K4: the SSM and RWKV scans --------------------------------------
+
+
+def _ulp(x):
+    """One bfloat16 ulp at |x|; 0 at 0."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x.float()),
+                                                e - 8))
+
+
+def _f64_rule(out, plain, ref64):
+    """The kernel's largest error against float64 at most twice plain
+    float32's plus 1e-6 (phase 3b's rule); returns both errors."""
+    e_k = float((out.double() - ref64).abs().max())
+    e_p = float((plain.double() - ref64).abs().max())
+    assert e_k <= 2 * e_p + 1e-6, (e_k, e_p)
+    return e_k, e_p
+
+
+def _scan_inputs(dev, B, S, Di, N, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, Di), generator=g) * 0.5
+    dt = torch.nn.functional.softplus(torch.randn((B, S, Di), generator=g)
+                                      - 1.0)
+    Bc = torch.randn((B, S, N), generator=g) * 0.3
+    Cc = torch.randn((B, S, N), generator=g) * 0.3
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(Di, N)
+    h0 = torch.randn((B, Di, N), generator=g) * 0.1
+    return [t.contiguous().to(dev) for t in (x, dt, Bc, Cc, A, h0)]
+
+
+def _wkv_inputs(dev, B, S, H, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    shape = (B, S, H, 64)
+    r, k, v = (torch.randn(shape, generator=g) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=g) - 4.0))
+    u = torch.randn((H, 64), generator=g) * 0.5
+    s0 = torch.randn((B, H, 64, 64), generator=g) * 0.1
+    return [t.to(dev) for t in (r, k, v, w, u, s0)]
+
+
+# SMOKE's widths, then a full-width slice of 256 steps
+SCAN_SHAPES = [(2, 96, 512, 8), (2, 256, 3200, 16)]
+WKV_SHAPES = [(2, 96, 4), (2, 256, 32)]
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_selective_scan_kernel_matches_plain(cuda, shape):
+    """K3 against its plain version and a float64 run: float32 by the
+    float64 rule (y and hT); bf16 x: y within one bf16 ulp of plain's."""
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    ins = _scan_inputs(cuda, *shape)
+    n0 = selective_scan_cuda.launches
+    y, hT = selective_scan_cuda(*ins)
+    torch.cuda.synchronize()
+    assert selective_scan_cuda.launches == n0 + 1
+    yp, hp = selective_scan_plain(*ins)
+    y64, h64 = selective_scan_plain(*(t.double() for t in ins))
+    _f64_rule(y, yp, y64)
+    _f64_rule(hT, hp, h64)
+    xb = ins[0].to(torch.bfloat16)
+    yb, hb = selective_scan_cuda(xb, *ins[1:])
+    ypb, hpb = selective_scan_plain(xb, *ins[1:])
+    assert yb.dtype == torch.bfloat16
+    assert bool(((yb.float() - ypb.float()).abs()
+                 <= torch.maximum(_ulp(yb), _ulp(ypb))).all())
+    _, h64b = selective_scan_plain(xb.double(), *(t.double()
+                                                  for t in ins[1:]))
+    _f64_rule(hb, hpb, h64b)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
+def test_wkv6_kernel_matches_plain(cuda, shape):
+    """K4 against its plain version and a float64 run by the float64 rule
+    (y and sT), in float32 and with bf16 r, k, v."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_plain
+    ins = _wkv_inputs(cuda, *shape)
+    for dt in (torch.float32, torch.bfloat16):
+        args = [t.to(dt) for t in ins[:3]] + ins[3:]
+        n0 = wkv6_cuda.launches
+        y, sT = wkv6_cuda(*args)
+        torch.cuda.synchronize()
+        assert wkv6_cuda.launches == n0 + 1 and y.dtype == torch.float32
+        yp, sp = wkv6_plain(*args)
+        y64, s64 = wkv6_plain(*(t.double() for t in args))
+        _f64_rule(y, yp, y64)
+        _f64_rule(sT, sp, s64)
+
+
+def test_scans_refuse_a_gradient_on_cuda(cuda):
+    """K3 and K4 have no backward: a CUDA input that needs a gradient
+    raises and names the ROADMAP item; under no_grad they launch."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    ins = _scan_inputs(cuda, 1, 8, 128, 8)
+    ins[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        scan_ops.selective_scan(*ins)
+    with torch.no_grad():
+        scan_ops.selective_scan(*ins)
+    ins = _wkv_inputs(cuda, 1, 8, 2)
+    ins[3].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        wkv_ops.wkv6(*ins)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_ssm_train_step_on_cuda_raises(cuda, arch):
+    """make_train_step of these blocks on the card fails loudly (no
+    quiet plain backward)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    cfg = get_smoke(arch).resolve(1)
+    model = ST.build_model(cfg, remat=False, dtype=torch.float32,
+                           device=cuda)
+    params = model.init_params(0)
+    opt, step = ST.make_train_step(model)
+    state = opt.init(tree_leaves(params))
+    tokens = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        step(params, state, {"tokens": tokens, "labels": tokens})
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_ssm_lm_on_cuda_matches_cpu(cuda, no_tf32, arch):
+    """SMOKE, float32, seeded: the card (K2, K3 / K4) against the CPU's
+    plain run: prefill logits within 1e-4, 8 greedy tokens equal."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.models.transformer import LM, map_params
+    cfg = get_smoke(arch).resolve(1)
+    kern = selective_scan_cuda if arch == "hymba-1.5b" else wkv6_cuda
+    n0 = kern.launches
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 80)), dtype=torch.int32)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = LM(cfg, dtype=torch.float32, device=dev)
+        params = (model.init_params(0) if dev.type == "cuda" else
+                  map_params(lambda t: t.cpu(), runs[0][2]))
+        logits, cache = model.prefill(params, prompt.to(dev), capacity=88)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        first, toks = logits.cpu(), [tok.cpu()]
+        for _ in range(7):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok.cpu())
+        runs.append((first, torch.cat(toks, 1), params))
+    assert kern.launches == n0 + cfg.n_layers * 8
+    (lg, tg, _), (lc, tc, _) = runs
+    assert float((lg - lc).abs().max()) <= 1e-4
+    assert torch.equal(tg, tc)
+
+
+def test_placement_decode_is_batch_invariant_on_cuda(cuda, no_tf32):
+    """A DLRM-50 (4) test task decoded alone and in batches of 3, 16 and
+    20 (``PlacementSession.place_many``): every step's policy logits of
+    its row and its assignment bit-equal."""
+    from repro_torch.api import PlacementSession, SimOracle
+    from repro_torch.api.session import DECODE_BATCH
+    from repro_torch.core.trainer import DreamShard, DreamShardConfig
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import make_benchmark_suite
+    _, test = make_benchmark_suite(make_dlrm_pool(seed=0), n_tables=50,
+                                   n_devices=4, n_tasks=20)
+    agent = DreamShard(test[:4], SimOracle(seed=0), DreamShardConfig(seed=0),
+                       device=cuda)
+    session = PlacementSession(agent, n_candidates=16)
+    logits = []
+    hook = agent.policy_net.head.register_forward_hook(
+        lambda _m, _a, out: logits.append(out.detach().clone()))
+
+    def decode(tasks, pos):
+        logits.clear()
+        out = session.place_many(tasks)[pos].assignment
+        call = pos // DECODE_BATCH
+        per = len(logits) // -(-len(tasks) // DECODE_BATCH)
+        rows = [t[pos % DECODE_BATCH]
+                for t in logits[call * per:(call + 1) * per]]
+        return out, rows
+    try:
+        alone, rows = decode([test[0]], 0)
+        for n, pos in ((3, 2), (16, 7), (20, 17)):
+            others = test[1:n]
+            a, r = decode(others[:pos] + [test[0]] + others[pos:], pos)
+            assert np.array_equal(a, alone)
+            assert len(r) == len(rows)
+            assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(r, rows))
+    finally:
+        hook.remove()

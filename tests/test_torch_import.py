@@ -51,7 +51,11 @@ def test_port_modules_found():
               "serve.service", "data.traffic", "telemetry.sinks",
               "telemetry.report", "launch.serve_workflow",
               "core.rnn_policy", "launch.train", "configs.qwen2p5_14b",
-              "configs.phi4_mini_3p8b", "configs.granite_34b"):
+              "configs.phi4_mini_3p8b", "configs.granite_34b",
+              "configs.hymba_1p5b", "configs.rwkv6_1p6b", "models.ssm",
+              "kernels.selective_scan.ops", "kernels.selective_scan.kernel",
+              "kernels.selective_scan.ref", "kernels.wkv6.ops",
+              "kernels.wkv6.kernel", "kernels.wkv6.ref"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 

@@ -274,8 +274,7 @@ def test_lm_greedy_decode(run_both):
     assert run_both["decode_pos"] == (PROMPT + N_DECODE,) * 2
 
 
-@pytest.mark.parametrize("change", [
-    {"block": "hybrid"}, {"block": "rwkv"}, {"frontend": "vlm"}])
+@pytest.mark.parametrize("change", [{"frontend": "vlm"}])
 def test_unsupported_blocks_raise(change):
     cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -275,4 +275,4 @@ def test_configs_registry():
                 arch, shape)
     assert C.LONG_CONTEXT_ARCHS == JC.LONG_CONTEXT_ARCHS
     with pytest.raises(KeyError, match="does not run"):
-        C.get_full("rwkv6-1.6b")
+        C.get_full("musicgen-large")

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Time warm placement decode: an untrained DreamShard agent (seed 0, 16
 candidates) places the 20 DLRM-50 (4) test tasks with ``place_many``, as
-``chip_smoke.py``'s phase 4 does, many times over.
+``chip_smoke.py``'s phase 4 does, many times over; with ``--tasks 1``
+only test task 0, as a serving miss decodes one task.  With
+``--profile``, one more warm call runs under torch.profiler: its device
+kernels are counted and summed, the 8 largest by name.
 
     python tools/time_place_many.py [--src DIR] [--repeats 20]
-        [--device cpu]
+        [--tasks N] [--profile] [--device cpu]
 
 ``--src`` is the ``src`` directory to import ``repro_torch`` from (default:
 this checkout's), so that two trees can be timed in one process order
@@ -29,6 +32,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--tasks", type=int, default=20,
+                    help="place the first N test tasks a call")
+    ap.add_argument("--profile", action="store_true",
+                    help="also count one warm call's device kernels")
     ap.add_argument("--device", default=None,
                     help="torch device of the agent (default: cuda)")
     args = ap.parse_args()
@@ -52,19 +59,36 @@ def main() -> None:
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        placer.place_many(test)
+        placer.place_many(test[:args.tasks])
         if cuda:
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    profile = None
+    if args.profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            placer.place_many(test[:args.tasks])
+            if cuda:
+                torch.cuda.synchronize()
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in p.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        profile = {"kernels": sum(r[2] for r in rows),
+                   "device_ms": sum(r[1] for r in rows),
+                   "top": [[k[:60], ms, n] for k, ms, n in rows[:8]]}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip() if cuda else None
     print(json.dumps({"src": os.path.relpath(os.path.abspath(args.src), ROOT),
-                      "card": card, "cold_ms": times[0],
+                      "card": card, "tasks": args.tasks, "cold_ms": times[0],
                       "warm_ms": times[1:],
                       "warm_median_ms": float(np.median(times[1:])),
-                      "warm_min_ms": float(np.min(times[1:]))}))
+                      "warm_min_ms": float(np.min(times[1:])),
+                      "profile": profile}))
 
 
 if __name__ == "__main__":

@@ -211,10 +211,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions and a float64 run of the plain loop (phase 3b's rule; K3's
    bf16 y within one bf16 ulp of plain's), and K2 on hymba's layer 0 by
    ``attention_ulp_err`` (head dim 64, 25 query over 5 KV heads, window
-   1024); (d) both archs at SMOKE, seeded, float32, on the card and on
-   the CPU: logits within 1e-4, 8 greedy tokens equal; (e) K3's and K4's
-   medians of 10 after 2 warm-ups and their plain versions' of 3 after 1
-   at the served shapes, beside the bound.  Each leg prints its seconds.
+   1024); K3's hT and float32 y and K4's sT equal plain's bit for bit;
+   (d) both archs at SMOKE, seeded, float32, on the card and on the CPU:
+   logits within 1e-4, 8 greedy tokens equal; (e) K3's and K4's medians
+   of 10 after 2 warm-ups and their plain versions' of 3 after 1 at the
+   served shapes, beside the bound (K3's with its exponentials at the
+   SFU's rate), each kernel's time at the decode shape (S 1), its
+   registers and its resident warps an SM; it fails if a kernel takes
+   half of the serial design's time or more (that design's prefill and
+   decode times are printed beside (a)'s and (b)'s, not checked).  Each
+   leg prints its seconds.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -240,6 +246,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+SFU_EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM MUFU.EX2: 16 a clock an SM
 BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 BATCH = 65536                    # the paper's DLRM batch
 MAX_ROWS = 2 ** 20
@@ -4086,6 +4093,20 @@ def _f64_errs(out, plain_out, ref64) -> dict:
             "share": e_k / (2 * e_p + 1e-6)}
 
 
+# The serial scans' prefill (2 x 8192) and decode ms a token, the range
+# of four smokes on an NVIDIA H100 80GB HBM3 at 700 W: one thread a
+# channel (K3) and one 64-thread block a head (K4).  Printed beside this
+# run's for comparison, not checked: another card's clock or the host's
+# load moves them.
+SSM_SERIAL_DESIGN = {"hymba-1.5b": {"prefill_ms": (394.5, 400.9),
+                                    "decode_ms_per_token": (80.94, 83.40)},
+                     "rwkv6-1.6b": {"prefill_ms": (320.9, 325.0),
+                                    "decode_ms_per_token": (25.66, 29.69)}}
+# K3's and K4's times at the yardstick with the serial scans on that card;
+# a kernel that takes half of it or more has fallen back to that design
+SSM_SERIAL_MS = {"selective_scan": 3.274, "wkv6": 5.164}
+
+
 def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
     """15 (a), (b): ``arch`` at full width and depth (seeded bf16) served
     through the entry point: 2 x 8192-token prompts, 32 tokens; then
@@ -4148,11 +4169,18 @@ def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
     log(f"[ssm serve] {cfg.name}: {n} layers, {n_params} params "
         f"(param_count() {cfg.param_count()}, approximate), bf16; batch 2 x "
         f"{SSM_SERVE_PROMPT} tokens")
+    serial = SSM_SERIAL_DESIGN[cfg.name]
     log(f"[ssm serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms; decode "
         f"{res.decode_ms_per_token:.2f} ms/token, "
         f"{res.decode_tokens_per_s:.1f} tokens/s; peak "
         f"{res.peak_memory_bytes / 1e9:.2f} GB; wall {wall:.1f} s; launches "
         f"{launches}; request 0: {res.tokens[0, :12].tolist()} ...")
+    log(f"[ssm serve] {cfg.name}: the serial scans' prefill "
+        f"{serial['prefill_ms'][0]}-{serial['prefill_ms'][1]} ms, decode "
+        f"{serial['decode_ms_per_token'][0]}-"
+        f"{serial['decode_ms_per_token'][1]} ms/token (H100 80GB HBM3, "
+        "700 W)")
+    out["serial_design"] = serial
     summary.setdefault("ssm_serve", {})[cfg.name] = out
     return res, rec.args, launches
 
@@ -4161,7 +4189,8 @@ def k3_checks(torch, SS, args) -> dict:
     """15 (c): K3 on layer 0's real inputs at the served shape against
     plain and a float64 run of the plain loop: float32 x by phase 3b's
     rule (y and hT); the served bf16 x: y within one bf16 ulp of plain's,
-    hT by the same rule.  Launches here are put back."""
+    hT by the same rule.  hT (both) and float32 y equal plain's bit for
+    bit.  Launches here are put back."""
     from repro_torch.kernels.selective_scan.ref import selective_scan_plain
     x, rest = args[0], args[1:]
     n0 = SS.selective_scan_cuda.launches
@@ -4177,9 +4206,15 @@ def k3_checks(torch, SS, args) -> dict:
             torch.cuda.synchronize()
             e = {"hT": _f64_errs(hT, hp, h64),
                  "max_abs_vs_plain": float((y.float() - yp.float()).abs()
-                                           .max())}
+                                           .max()),
+                 "hT_bits_equal": bits_equal(torch, hT, hp)}
+            check(e["hT_bits_equal"], f"K3 {name} hT differs from plain's "
+                  "bits")
             if name == "float32":
                 e["y"] = _f64_errs(y, yp, y64)
+                e["y_bits_equal"] = bits_equal(torch, y, yp)
+                check(e["y_bits_equal"], "K3 float32 y differs from plain's "
+                      "bits")
             else:
                 lim = torch.maximum(bf16_ulp(torch, y), bf16_ulp(torch, yp))
                 d = (y.float() - yp.float()).abs()
@@ -4198,15 +4233,16 @@ def k3_checks(torch, SS, args) -> dict:
         f"{f['y']['limit']:.3g}: plain {f['y']['plain']:.3g}), hT "
         f"{f['hT']['kernel']:.3g} (limit {f['hT']['limit']:.3g}); bf16 y "
         f"within {b['y_ulps']:.3g} ulp of plain's, hT {b['hT']['kernel']:.3g}"
-        f" (limit {b['hT']['limit']:.3g})")
+        f" (limit {b['hT']['limit']:.3g}); hT (both) and float32 y equal "
+        "plain's bit for bit")
     return out
 
 
 def k4_checks(torch, WK, args) -> dict:
     """15 (c): K4 on layer 0's real inputs at the served shape against
     plain and a float64 run of the plain loop, by phase 3b's rule (y and
-    sT), on the served bf16 r, k, v and on their float32 values.
-    Launches here are put back."""
+    sT), on the served bf16 r, k, v and on their float32 values; sT
+    equals plain's bit for bit.  Launches here are put back."""
     from repro_torch.kernels.wkv6.ref import wkv6_plain
     r, k, v, w, u, s0 = args
     u = u.float()
@@ -4221,7 +4257,10 @@ def k4_checks(torch, WK, args) -> dict:
             yp, sp = wkv6_plain(*rkv, w, u, s0)
             torch.cuda.synchronize()
             e = {"y": _f64_errs(y, yp, y64), "sT": _f64_errs(sT, sp, s64),
-                 "max_abs_vs_plain": float((y - yp).abs().max())}
+                 "max_abs_vs_plain": float((y - yp).abs().max()),
+                 "sT_bits_equal": bits_equal(torch, sT, sp)}
+            check(e["sT_bits_equal"], f"K4 {name} sT differs from plain's "
+                  "bits")
             for key in ("y", "sT"):
                 check(e[key]["share"] <= 1, f"K4 {name} {key}: {e[key]}")
             out[name] = e
@@ -4232,36 +4271,53 @@ def k4_checks(torch, WK, args) -> dict:
         log(f"[ssm k4] layer 0 of the served prompts, r {tuple(r.shape)}, "
             f"{name} r/k/v: y max |err| vs float64 {e['y']['kernel']:.3g} "
             f"(limit {e['y']['limit']:.3g}: plain {e['y']['plain']:.3g}), sT "
-            f"{e['sT']['kernel']:.3g} (limit {e['sT']['limit']:.3g})")
+            f"{e['sT']['kernel']:.3g} (limit {e['sT']['limit']:.3g}), equal "
+            "to plain's bit for bit")
     return out
 
 
-def scan_yardstick(torch, kernel, plain, args, *, name: str, source: str,
-                   replaces: str, nbytes: int, ops: int, err: float,
-                   summary: dict) -> dict:
+def scan_yardstick(torch, kernel, plain, args, decode_args, occupancy, *,
+                   name: str, source: str, replaces: str, nbytes: int,
+                   ops: int, exps: int, err: float, summary: dict) -> dict:
     """15 (e): a scan kernel's median of 10 after 2 warm-ups at the served
-    shape, its plain version's median of 3 after 1, and the bound."""
+    shape and at the decode shape (``decode_args``: S 1), its plain
+    version's median of 3 after 1, the bound (the largest of the bytes,
+    the float32 operations and the exponentials at the SFU's rate), its
+    registers and resident warps an SM (``occupancy``).  Fails if the
+    kernel takes half of the serial design's time or more."""
     from repro_torch.profiling.microbench import median_time_ms
     n0 = kernel.launches
     with torch.no_grad():
         ms = median_time_ms(kernel, args, warmup=2, repeats=10)
+        decode_ms = median_time_ms(kernel, decode_args, warmup=2, repeats=10)
         plain_ms = median_time_ms(plain, args, warmup=1, repeats=3)
     kernel.launches = n0
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "float32 operations": ops / F32_FLOP_PER_S * 1e3,
+             "exp (SFU)": exps / SFU_EXP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None}
+           "plain_ms": plain_ms, "bound_ms": terms[term],
+           "bound_by": "bytes" if term == "bytes" else "operations",
+           "bound_term": term, "library_ms": None, "decode_ms": decode_ms,
+           "registers": occupancy["registers"],
+           "warps_per_sm": occupancy["warps_per_sm"]}
     summary.setdefault("ssm_yardstick", {})[name] = {
-        "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "bound_share": row["bound_ms"] / ms, **row}
+        "bytes": nbytes, "ops": ops, "exps": exps, "bound_terms_ms": terms,
+        "bound_share": row["bound_ms"] / ms, "occupancy": occupancy,
+        "serial_design_ms": SSM_SERIAL_MS[name], **row}
     log(f"[ssm yardstick] {name}: {ms:.3f} ms ({row['bound_ms'] / ms:.1%} of "
-        f"the bound {row['bound_ms']:.3f} ms, {row['bound_by']}: "
-        f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} G float32 ops), plain "
-        f"{plain_ms:.1f} ms; no single PyTorch call computes it (library: "
-        "none)")
+        f"the bound {row['bound_ms']:.3f} ms, {term}: {nbytes / 1e9:.3f} GB "
+        f"{terms['bytes']:.3f} ms, {ops / 1e9:.2f} G float32 ops "
+        f"{terms['float32 operations']:.3f} ms, {exps / 1e9:.3f} G exp "
+        f"{terms['exp (SFU)']:.3f} ms); the serial design "
+        f"{SSM_SERIAL_MS[name]} ms; decode shape {decode_ms:.4f} ms; plain "
+        f"{plain_ms:.1f} ms; {occupancy['registers']} registers, "
+        f"{occupancy['warps_per_sm']} warps an SM; no single PyTorch call "
+        "computes it (library: none)")
+    check(ms < SSM_SERIAL_MS[name] / 2, f"{name}: {ms:.3f} ms is not below "
+          f"half of the serial design's {SSM_SERIAL_MS[name]} ms")
     return row
 
 
@@ -4310,6 +4366,13 @@ def ssm_cross_device(torch, np, counters, summary: dict) -> dict:
     return launches
 
 
+def _decode_shape(args, n_seq: int) -> tuple:
+    """A scan's arguments cut to the last step (S 1): the first ``n_seq``
+    run along time."""
+    return tuple(a[:, -1:].contiguous() for a in args[:n_seq]) + tuple(
+        args[n_seq:])
+
+
 def phase_ssm(torch, np, FA, SS, WK, plain, counters, summary: dict) -> dict:
     """The hybrid SSM and RWKV path.  Returns each kernel's launches by
     path (``"k2"``, ``"k3"``, ``"k4"``) and K3's and K4's rows.  Each leg
@@ -4343,12 +4406,13 @@ def phase_ssm(torch, np, FA, SS, WK, plain, counters, summary: dict) -> dict:
     N = A.shape[1]
     rows["k3"] = scan_yardstick(
         torch, SS.selective_scan_cuda, selective_scan_plain, args,
+        _decode_shape(args, 4), SS.selective_scan_cuda.occupancy(x.dtype, N),
         name="selective_scan", source="src/repro_torch/csrc/selective_scan.cu",
         replaces="src/repro/models/ssm.py:39 (_ssm_recurrence's lax.scan "
                  "at :55; no Pallas kernel)",
         nbytes=(2 * x.numel() * x.element_size() + dt.numel() * 4
                 + (Bc.numel() + Cc.numel() + A.numel() + 2 * h0.numel()) * 4),
-        ops=B * S * Di * (7 * N + 1),
+        ops=B * S * Di * (7 * N + 1), exps=B * S * Di * N,
         err=checks["k3"]["float32"]["max_abs_vs_plain"], summary=summary)
     del res, args, x, dt, Bc, Cc, A, h0
     torch.cuda.empty_cache()
@@ -4367,13 +4431,14 @@ def phase_ssm(torch, np, FA, SS, WK, plain, counters, summary: dict) -> dict:
     B, S, H, hd = r.shape
     k4_args = (r, k, v, w, u.float(), s0)
     rows["k4"] = scan_yardstick(
-        torch, WK.wkv6_cuda, wkv6_plain, k4_args, name="wkv6",
+        torch, WK.wkv6_cuda, wkv6_plain, k4_args, _decode_shape(k4_args, 4),
+        WK.wkv6_cuda.occupancy(r.dtype), name="wkv6",
         source="src/repro_torch/csrc/wkv6.cu",
         replaces="src/repro/models/ssm.py:123 (rwkv_time_mix's lax.scan at "
                  ":151; no Pallas kernel)",
         nbytes=(3 * r.numel() * r.element_size() + w.numel() * 4
                 + r.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4),
-        ops=B * S * H * hd * hd * 7,
+        ops=B * S * H * hd * hd * 7, exps=0,
         err=checks["k4"]["float32"]["max_abs_vs_plain"], summary=summary)
     del res, args, k4_args, r, k, v, w, u, s0
     torch.cuda.empty_cache()

@@ -15,103 +15,354 @@
 //   s[i][j]  = w[i] * s[i][j] + kv[i][j]
 // r, k and v in the model's dtype are widened to float32.  The state's
 // products and sums are rounded one at a time (__fmul_rn, __fadd_rn: no
-// contraction into FMAs, and u * kv is not refolded as (u * k) * v), so
-// it evolves with the plain version's bits.  y's dot over i runs in
-// kAcc interleaved partial sums (i mod kAcc), each term added by one FMA,
-// then summed pairwise: its rounding error is that of a 64 / kAcc-term
-// sum, below plain's einsum's, and the step's chain of dependent adds is
-// kAcc times shorter.  Layouts, all contiguous: r, k,
-// v (B, S, H, 64) float32 or bfloat16; w (B, S, H, 64), u (H, 64), s0, sT
-// (B, H, 64, 64), y (B, S, H, 64) float32.
+// contraction into FMAs), so every element evolves with the plain
+// version's bits; an element's chain never reads another element, so any
+// split of the state across threads keeps them.  y is held to the plain
+// version only by the float64 rule (its dot over i is a cuBLAS reduction
+// there), so its bonus term is refolded:
+//   y[j] = sum_i r[i] * s[i][j]  +  v[j] * (sum_i r[i] * u[i] * k[i]),
+// the second sum one scalar a head and step, and the first summed in FMA
+// partial sums, then across lanes by shuffles.  Layouts, all contiguous
+// and 16-byte aligned: r, k, v (B, S, H, 64) float32 or bfloat16; w (B,
+// S, H, 64), u (H, 64), s0, sT (B, H, 64, 64), y (B, S, H, 64) float32.
 //
-// Design (simple first): one block of 64 threads per (b, h); thread j
-// owns the state's column j, 64 floats in registers.  The block walks
-// the time axis in chunks of 16 steps: the chunk's r, k, w and v rows are
-// staged in shared memory (coalesced loads), then each step reads r[i],
-// k[i], w[i] and u[i] as shared-memory broadcasts.  At rwkv6-1.6b's
-// prefill (B 2, H 32) that is 64 blocks of two warps: accepted for now.
-// Decode runs the same kernel at S = 1.
+// Design.  Column j of a head's state needs only v[j] and the head's
+// shared r, k, w rows, so a head's 64 columns are split across kSlices
+// blocks of kCols columns, and a column group's 64 rows across kLanes
+// neighbouring lanes of a warp: a thread holds kColsT columns of kRows
+// rows (rows 4 l + 4 kLanes m + q, q < 4) in registers, and reads each
+// row's r, k, w once for all its columns.  A state costs one multiply and
+// one add a step, plus kv and one FMA of y's partial sum; each column's
+// sum is finished by log2(kLanes) __shfl_xor_sync steps.  At rwkv6-1.6b's
+// prefill (B 2, H 32) that is 128 blocks of 4 warps, 8 lanes a column
+// group, 2 columns of 8 rows a thread (chosen by measurement over 4, 8 and
+// 16 lanes and 1, 2 and 4 columns: PERF.md).  The time axis is staged in
+// chunks of kChunk steps through a ring of kRing buffers filled by
+// cp.async (16-byte copies of the raw rows, a fixed share a thread), each
+// completing on its own mbarrier, so chunks c + 1 and c + 2 are in flight
+// while chunk c is computed.  A prep pass widens a chunk's r, k, v to
+// float32 and forms sum_i r u k once a step (double-buffered, one
+// __syncthreads a chunk), so the scan reads a thread's rows as 16-byte
+// shared-memory loads.  Decode (S = 1) issues one chunk of one step.
 //
-// Bound: operations.  7 float32 operations a state element and step: at
-// (2, 8192, 32, 64) 1.5e10, 0.224 ms at 67 TFLOP/s; r, k, v, w and y once
-// each in bf16 are about 0.47 GB, 0.141 ms at 3.35 TB/s.  This design is
-// latency-bound on the serial time loop.
+// Bound: operations.  7 float32 operations a state element and step in
+// the reference's grouping: at (2, 8192, 32, 64) 1.5e10, 0.224 ms at 67
+// TFLOP/s; r, k, v, w and y once each in bf16 are about 0.47 GB, 0.141
+// ms at 3.35 TB/s.  This design issues 4 float32 instructions a state
+// element and step (kv, the FMA of y, w * s, + kv) plus 3 16-byte shared
+// loads a row group and the shuffles; with 2 warps an SM scheduler it is
+// bound by instruction latency and the shared-memory pipe, not by the
+// float32 rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kHead = 64;       // RWKV_HEAD_DIM: threads a block
-constexpr int kChunk = 16;      // time steps staged at a time
-constexpr int kAcc = 8;         // partial sums of y's dot over i
+constexpr int kHead = 64;                    // RWKV_HEAD_DIM
+constexpr int kThreads = 128;                // threads a block
+constexpr int kLanes = 8;                    // lanes a column group
+constexpr int kColsT = 2;                    // state columns a thread
+constexpr int kRows = kHead / kLanes;        // state rows a thread
+constexpr int kGroupsW = 32 / kLanes;        // column groups a warp
+constexpr int kCols = kThreads / kLanes * kColsT;   // columns a block
+constexpr int kSlices = kHead / kCols;       // blocks a head
+constexpr int kChunk = 16;                   // time steps a ring buffer
+constexpr int kRing = 3;                     // ring buffers
+constexpr int kGroups = kHead / 4;           // 4-row groups of a step
+static_assert(kRows % 4 == 0 && kCols * kLanes == kThreads * kColsT &&
+                  kSlices * kCols == kHead && kColsT <= kLanes,
+              "layout");
+static_assert((kChunk * kGroups) % kThreads == 0 && kGroups == 16,
+              "prep covers the chunk, a step a half warp");
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// One ring buffer: a chunk's raw rows as cp.async left them.
+template <typename T>
+struct Stage {
+  alignas(16) T r[kChunk][kHead];
+  alignas(16) T k[kChunk][kHead];
+  alignas(16) float w[kChunk][kHead];
+  alignas(16) T v[kChunk][kCols];
+};
+
+// A chunk widened to float32 for the scan, with sum_i r u k a step.
+struct Prep {
+  alignas(16) float r[kChunk][kHead];
+  alignas(16) float k[kChunk][kHead];
+  alignas(16) float w[kChunk][kHead];
+  float v[kChunk][kCols];
+  float ruk[kChunk];
+};
+
+template <typename T>
+struct Shared {
+  Stage<T> ring[kRing];
+  Prep prep[2];
+  uint64_t bar[kRing];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// The mbarrier counts one arrival of this thread once all its earlier
+// cp.async copies have landed (init count = the block's threads).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Four consecutive elements of a staged row as float32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kHead)
+__global__ void __launch_bounds__(kThreads)
     wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, const float* __restrict__ s0,
                 float* __restrict__ y, float* __restrict__ sT, int S,
                 int H) {
-  __shared__ float sr[kChunk][kHead];
-  __shared__ float sk[kChunk][kHead];
-  __shared__ float sv[kChunk][kHead];
-  __shared__ float sw[kChunk][kHead];
-  __shared__ float su[kHead];
-  const int j = threadIdx.x;
-  const int bh = blockIdx.x;                 // b * H + h
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared<T>& sm = *reinterpret_cast<Shared<T>*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x / kSlices;               // b * H + h
   const int b = bh / H, hh = bh % H;
-  su[j] = u[hh * kHead + j];
+  const int j0 = (blockIdx.x % kSlices) * kCols;
+  const int lane = tid % 32;
+  const int l = lane % kLanes;                       // lane in the group
+  // the thread's first column in the block; it owns kColsT of them
+  const int jl = ((tid / 32) * kGroupsW + lane / kLanes) * kColsT;
+  const int j = j0 + jl;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
 
-  float s[kHead];
+  // prep: thread tid owns row group g of steps tid / kGroups + ...
+  const int g = tid % kGroups;
+  float ug[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ug[q] = u[hh * kHead + 4 * g + q];
+
+  float s[kColsT][kRows];
   const size_t sbase = static_cast<size_t>(bh) * kHead * kHead;
 #pragma unroll
-  for (int i = 0; i < kHead; ++i) s[i] = s0[sbase + i * kHead + j];
+  for (int e = 0; e < kRows; ++e) {
+    const int i = 4 * l + 4 * kLanes * (e / 4) + e % 4;
+#pragma unroll
+    for (int cc = 0; cc < kColsT; ++cc)
+      s[cc][e] = s0[sbase + i * kHead + j + cc];
+  }
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int len = min(kChunk, S - t0);
-    __syncthreads();                 // the previous chunk is consumed
-#pragma unroll 4
-    for (int q = 0; q < len; ++q) {
-      const size_t off =
-          ((static_cast<size_t>(b) * S + t0 + q) * H + hh) * kHead + j;
-      sr[q][j] = load_f32(r + off);
-      sk[q][j] = load_f32(k + off);
-      sv[q][j] = load_f32(v + off);
-      sw[q][j] = w[off];
+  if (tid < kRing) mbar_init(&sm.bar[tid], kThreads);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  // Start chunk c's copies into ring buffer c % kRing.
+  // A thread copies pieces p = tid + i kThreads of each array's chunk,
+  // the same in every chunk (fixed trip counts, hoisted offsets).
+  constexpr int kPer = 16 / sizeof(T);                  // elements a piece
+  constexpr int kRowP = kHead / kPer, kWP = kHead / 4, kVP = kCols / kPer;
+  const size_t step_stride = static_cast<size_t>(H) * kHead;
+  auto issue = [&](int c) {
+    Stage<T>& st = sm.ring[c % kRing];
+    const int t0 = c * kChunk, len = min(kChunk, S - t0);
+    const size_t base =
+        ((static_cast<size_t>(b) * S + t0) * H + hh) * kHead;   // (b, t0, h)
+#pragma unroll
+    for (int i = 0; i < (kChunk * kRowP + kThreads - 1) / kThreads; ++i) {
+      const int p = tid + i * kThreads, t = p / kRowP, q = p % kRowP;
+      if (p < kChunk * kRowP && t < len) {
+        const size_t off = base + t * step_stride + q * kPer;
+        cp_async16(&st.r[t][q * kPer], r + off);
+        cp_async16(&st.k[t][q * kPer], k + off);
+      }
     }
+#pragma unroll
+    for (int i = 0; i < (kChunk * kWP + kThreads - 1) / kThreads; ++i) {
+      const int p = tid + i * kThreads, t = p / kWP, q = p % kWP;
+      if (p < kChunk * kWP && t < len)
+        cp_async16(&st.w[t][q * 4], w + base + t * step_stride + q * 4);
+    }
+#pragma unroll
+    for (int i = 0; i < (kChunk * kVP + kThreads - 1) / kThreads; ++i) {
+      const int p = tid + i * kThreads, t = p / kVP, q = p % kVP;
+      if (p < kChunk * kVP && t < len)
+        cp_async16(&st.v[t][q * kPer],
+                   v + base + t * step_stride + j0 + q * kPer);
+    }
+    cp_async_arrive(&sm.bar[c % kRing]);
+  };
+
+  issue(0);
+  if (n_chunks > 1) issue(1);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 2 < n_chunks) issue(c + 2);
+    mbar_wait(&sm.bar[c % kRing], (c / kRing) & 1);
+    const Stage<T>& st = sm.ring[c % kRing];
+    Prep& pp = sm.prep[c % 2];
+    const int t0 = c * kChunk, len = min(kChunk, S - t0);
+
+    // Prep, over the chunk's len steps: widen r, k, v, copy w, and sum_i
+    // r u k a step by shuffles among the 16 lanes (a half warp) of a step
+    const unsigned half = 0xffffu << (tid & 16);
+#pragma unroll
+    for (int it = 0; it < kChunk * kGroups / kThreads; ++it) {
+      const int t = (tid + it * kThreads) / kGroups;
+      if (t < len) {
+        const float4 rr = load4(&st.r[t][4 * g]);
+        const float4 kk = load4(&st.k[t][4 * g]);
+        *reinterpret_cast<float4*>(&pp.r[t][4 * g]) = rr;
+        *reinterpret_cast<float4*>(&pp.k[t][4 * g]) = kk;
+        *reinterpret_cast<float4*>(&pp.w[t][4 * g]) = load4(&st.w[t][4 * g]);
+        float ruk = rr.x * ug[0] * kk.x;
+        ruk = fmaf(rr.y * ug[1], kk.y, ruk);
+        ruk = fmaf(rr.z * ug[2], kk.z, ruk);
+        ruk = fmaf(rr.w * ug[3], kk.w, ruk);
+#pragma unroll
+        for (int o = 1; o < kGroups; o <<= 1)
+          ruk += __shfl_xor_sync(half, ruk, o);
+        if (g == 0) pp.ruk[t] = ruk;
+      }
+    }
+    for (int p = tid; p < len * kCols; p += kThreads)
+      pp.v[p / kCols][p % kCols] = to_f32(st.v[p / kCols][p % kCols]);
     __syncthreads();
-    for (int q = 0; q < len; ++q) {
-      const float vj = sv[q][j];
-      float acc[kAcc];
+
+    // one step: each state's y term and update, then y's column sums
+    auto step = [&](int t) {
+      float vj[kColsT], acc[kColsT][2];
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kHead; ++i) {
-        const float kv = __fmul_rn(sk[q][i], vj);
-        acc[i % kAcc] = __fmaf_rn(
-            sr[q][i], __fadd_rn(s[i], __fmul_rn(su[i], kv)), acc[i % kAcc]);
-        s[i] = __fadd_rn(__fmul_rn(sw[q][i], s[i]), kv);
+      for (int cc = 0; cc < kColsT; ++cc) {
+        vj[cc] = pp.v[t][jl + cc];
+        acc[cc][0] = acc[cc][1] = 0.f;
       }
 #pragma unroll
-      for (int width = kAcc / 2; width > 0; width /= 2) {
+      for (int m = 0; m < kRows / 4; ++m) {
+        const int i = 4 * l + 4 * kLanes * m;
+        const float4 rr = *reinterpret_cast<const float4*>(&pp.r[t][i]);
+        const float4 kk = *reinterpret_cast<const float4*>(&pp.k[t][i]);
+        const float4 ww = *reinterpret_cast<const float4*>(&pp.w[t][i]);
+        const float rq[4] = {rr.x, rr.y, rr.z, rr.w};
+        const float kq[4] = {kk.x, kk.y, kk.z, kk.w};
+        const float wq[4] = {ww.x, ww.y, ww.z, ww.w};
 #pragma unroll
-        for (int a = 0; a < width; ++a)
-          acc[a] = __fadd_rn(acc[a], acc[a + width]);
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int cc = 0; cc < kColsT; ++cc) {
+            float& se = s[cc][4 * m + q];
+            const float kv = __fmul_rn(kq[q], vj[cc]);
+            acc[cc][q & 1] = fmaf(rq[q], se, acc[cc][q & 1]);
+            se = __fadd_rn(__fmul_rn(wq[q], se), kv);
+          }
+        }
       }
-      y[((static_cast<size_t>(b) * S + t0 + q) * H + hh) * kHead + j] =
-          acc[0];
+      const float ruk = pp.ruk[t];
+      const size_t row =
+          ((static_cast<size_t>(b) * S + t0 + t) * H + hh) * kHead + j;
+#pragma unroll
+      for (int cc = 0; cc < kColsT; ++cc) {
+        float sum = acc[cc][0] + acc[cc][1];
+#pragma unroll
+        for (int o = 1; o < kLanes; o <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (l == cc) y[row + cc] = fmaf(vj[cc], ruk, sum);
+      }
+    };
+    if (len == kChunk) {
+#pragma unroll
+      for (int t = 0; t < kChunk; ++t) step(t);
+    } else {
+      for (int t = 0; t < len; ++t) step(t);
     }
   }
 #pragma unroll
-  for (int i = 0; i < kHead; ++i) sT[sbase + i * kHead + j] = s[i];
+  for (int e = 0; e < kRows; ++e) {
+    const int i = 4 * l + 4 * kLanes * (e / 4) + e % 4;
+#pragma unroll
+    for (int cc = 0; cc < kColsT; ++cc) sT[sbase + i * kHead + j + cc] = s[cc][e];
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* r, const void* k, const void* v,
+                   const float* w, const float* u, const float* s0, float* y,
+                   float* sT, int batch, int S, int H, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(Shared<T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * H * kSlices);
+  wkv6_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), w, u, s0, y, sT, S, H);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t occupancy(int* out) {
+  constexpr size_t smem = sizeof(Shared<T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, wkv6_kernel<T>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wkv6_kernel<T>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = blocks;
+  out[2] = kThreads;
+  out[3] = static_cast<int>(smem);
+  out[4] = kLanes;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -120,28 +371,41 @@ extern "C" {
 
 // Launch K4 on `stream`.  r, k, v: (B, S, H, 64) float32 (is_bf16 = 0) or
 // bfloat16 (is_bf16 = 1); w, y (B, S, H, 64), u (H, 64), s0, sT (B, H,
-// 64, 64) float32; all contiguous.  Returns the cudaError_t of the launch
-// (0 = success).
+// 64, 64) float32; all contiguous, r, k, v and w 16-byte aligned (else
+// cudaErrorMisalignedAddress, with nothing launched).  Returns the
+// cudaError_t of the launch (0 = success).
 int wkv6_fwd(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* s0, void* y, void* sT, int is_bf16,
              int batch, int s_len, int n_heads, int device, void* stream) {
+  // the staging copies move 16 bytes at a time
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p);
+  };
+  if ((addr(r) | addr(k) | addr(v) | addr(w)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid(batch * n_heads);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    wkv6_kernel<T><<<grid, kHead, 0, st>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k),
-        static_cast<const T*>(v), f32(w), f32(u), f32(s0),
-        static_cast<float*>(y), static_cast<float*>(sT), s_len, n_heads);
-  } else {
-    wkv6_kernel<float><<<grid, kHead, 0, st>>>(
-        f32(r), f32(k), f32(v), f32(w), f32(u), f32(s0),
-        static_cast<float*>(y), static_cast<float*>(sT), s_len, n_heads);
-  }
-  return static_cast<int>(cudaGetLastError());
+  float* yo = static_cast<float*>(y);
+  float* so = static_cast<float*>(sT);
+  if (is_bf16)
+    err = launch<__nv_bfloat16>(r, k, v, f32(w), f32(u), f32(s0), yo, so,
+                                batch, s_len, n_heads, st);
+  else
+    err = launch<float>(r, k, v, f32(w), f32(u), f32(s0), yo, so, batch,
+                        s_len, n_heads, st);
+  return static_cast<int>(err);
+}
+
+// The instance that wkv6_fwd launches for `is_bf16`, on `device`: out[0]
+// registers a thread, out[1] resident blocks an SM, out[2] threads a
+// block, out[3] shared memory bytes a block, out[4] lanes a column.
+int wkv6_occupancy(int is_bf16, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = is_bf16 ? occupancy<__nv_bfloat16>(out) : occupancy<float>(out);
+  return static_cast<int>(err);
 }
 
 const char* wkv6_error_string(int code) {

@@ -42,11 +42,14 @@ class CudaLibrary:
 
     ``signatures`` maps each exported C function to ``(argtypes,
     restype)``; ``load()`` declares them on the loaded library.
+    ``source`` builds another file instead (e.g. another checkout's
+    ``csrc/<name>.cu``).
     """
 
-    def __init__(self, name: str, signatures: dict):
+    def __init__(self, name: str, signatures: dict,
+                 source: str | os.PathLike | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = Path(source) if source else CSRC / f"{name}.cu"
         self.signatures = signatures
         self.build_log = ""        # nvcc/ptxas output of the last build
         self._lib = None

@@ -24,6 +24,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("selective_scan", {
     "selective_scan_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _P], _I),
+    "selective_scan_occupancy": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     "selective_scan_error_string": ([_I], ctypes.c_char_p),
 })
 
@@ -61,6 +62,24 @@ class SelectiveScanKernel:
         self.launches += 1
         return y, hT
 
+    def occupancy(self, dtype: torch.dtype, state_dim: int,
+                  device: int | None = None) -> dict:
+        """The instance launched for x of ``dtype`` and N ``state_dim``:
+        registers a thread and resident blocks and warps an SM
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        lib = LIBRARY.load()
+        dev = torch.cuda.current_device() if device is None else device
+        out = (_I * 5)()
+        rc = lib.selective_scan_occupancy(int(dtype == torch.bfloat16),
+                                          state_dim, dev, out)
+        if rc != 0:
+            raise RuntimeError(
+                "selective_scan occupancy query failed: "
+                f"{lib.selective_scan_error_string(rc).decode()} ({rc})")
+        return {"registers": out[0], "blocks_per_sm": out[1],
+                "threads": out[2], "warps_per_sm": out[1] * out[2] // 32,
+                "smem_bytes": out[3], "channels_per_block": out[4]}
+
 
 def _check(x, dt, Bc, Cc, A, h0) -> None:
     ts = (x, dt, Bc, Cc, A, h0)
@@ -86,7 +105,8 @@ def _check(x, dt, Bc, Cc, A, h0) -> None:
         raise ValueError(f"state dim {N} is not one of {STATE_DIMS}")
     if B == 0 or S == 0 or Di == 0:
         raise ValueError(f"empty scan: x {tuple(x.shape)}")
-    if B > 65535 or S >= 2 ** 31:
+    # the grid is B x (blocks a row of Di), one or more channels a block
+    if B * Di >= 2 ** 31 or S >= 2 ** 31:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("inputs must be contiguous")

@@ -21,9 +21,11 @@ from repro_torch.kernels.build import CudaLibrary
 HEAD_DIM = 64                      # RWKV_HEAD_DIM: the source's block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_MISALIGNED = 716                  # cudaErrorMisalignedAddress
 LIBRARY = CudaLibrary("wkv6", {
     "wkv6_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                  _I),
+    "wkv6_occupancy": ([_I, _I, ctypes.POINTER(_I)], _I),
     "wkv6_error_string": ([_I], ctypes.c_char_p),
 })
 
@@ -52,11 +54,29 @@ class WKV6Kernel:
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
             int(r.dtype == torch.bfloat16), B, S, H, dev, stream)
+        if rc == _MISALIGNED:
+            raise ValueError("r, k, v and w must be 16-byte aligned (the "
+                             "kernel stages them with 16-byte cp.async)")
         if rc != 0:
             raise RuntimeError("wkv6 kernel launch failed: "
                                f"{lib.wkv6_error_string(rc).decode()} ({rc})")
         self.launches += 1
         return y, sT
+
+    def occupancy(self, dtype: torch.dtype, device: int | None = None) -> dict:
+        """The instance launched for r, k, v of ``dtype``: registers a
+        thread and resident blocks and warps an SM
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        lib = LIBRARY.load()
+        dev = torch.cuda.current_device() if device is None else device
+        out = (_I * 5)()
+        rc = lib.wkv6_occupancy(int(dtype == torch.bfloat16), dev, out)
+        if rc != 0:
+            raise RuntimeError("wkv6 occupancy query failed: "
+                               f"{lib.wkv6_error_string(rc).decode()} ({rc})")
+        return {"registers": out[0], "blocks_per_sm": out[1],
+                "threads": out[2], "warps_per_sm": out[1] * out[2] // 32,
+                "smem_bytes": out[3], "lanes_per_column": out[4]}
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -84,7 +104,8 @@ def _check(r, k, v, w, u, s0) -> None:
             f"s0 {tuple(s0.shape)}")
     if B * H == 0 or S == 0:
         raise ValueError(f"empty scan: r {tuple(r.shape)}")
-    if B * H >= 2 ** 31 or S >= 2 ** 31:
+    # the grid is B x H x (blocks a head), at most one a column
+    if B * H * hd >= 2 ** 31 or S >= 2 ** 31:
         raise ValueError(f"shape {tuple(r.shape)} exceeds the launch grid")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("inputs must be contiguous")

@@ -24,6 +24,16 @@ NO_BACKWARD = ("K4 (the RWKV-6 WKV scan) has no backward kernel yet: "
                "kernels, then make_train_step on the card)")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, copied where it starts off a 16-byte boundary of
+    its storage: K4 stages r, k, v and w 16 bytes at a time.  The
+    allocators' blocks start on wider boundaries, and the kernel refuses
+    any other start."""
+    t = t.contiguous()
+    return t if t.storage_offset() * t.element_size() % 16 == 0 \
+        else t.clone()
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
@@ -35,7 +45,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if any(t.is_cuda for t in ts):
         if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
             raise NotImplementedError(NO_BACKWARD)
-        return wkv6_cuda(r.contiguous(), k.contiguous(), v.contiguous(),
-                         w.contiguous(), u.float().contiguous(),
-                         s0.contiguous())
+        return wkv6_cuda(*(_aligned(t) for t in (r, k, v, w)),
+                         u.float().contiguous(), s0.contiguous())
     return wkv6_plain(r, k, v, w, u, s0)

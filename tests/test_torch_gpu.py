@@ -1135,9 +1135,25 @@ def _wkv_inputs(dev, B, S, H, seed=0):
     return [t.to(dev) for t in (r, k, v, w, u, s0)]
 
 
-# SMOKE's widths, then a full-width slice of 256 steps
-SCAN_SHAPES = [(2, 96, 512, 8), (2, 256, 3200, 16)]
-WKV_SHAPES = [(2, 96, 4), (2, 256, 32)]
+# SMOKE's widths, a full-width slice of 256 steps, then the kernels'
+# edges: S of 1 (decode), one less and one more than a chunk (32 steps
+# for K3, 16 for K4), Di not a multiple of a block's channels (128 / N)
+# and odd (bf16 rows that start mid-word), N 4, 8 and 16, B 1 and 3, H 1,
+# 5 and 32
+SCAN_SHAPES = [(2, 96, 512, 8), (2, 256, 3200, 16), (2, 1, 3200, 16),
+               (3, 15, 100, 4), (1, 17, 99, 8), (3, 33, 77, 16),
+               (1, 256, 200, 4), (3, 17, 3199, 16), (2, 31, 101, 8)]
+WKV_SHAPES = [(2, 96, 4), (2, 256, 32), (2, 1, 32), (3, 15, 5), (1, 17, 1),
+              (3, 33, 5), (1, 256, 1)]
+
+
+def _same_bits(a, b):
+    """True where two float tensors hold the same bits everywhere."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int16 if a.element_size() == 2
+                            else torch.int32),
+        b.contiguous().view(torch.int16 if b.element_size() == 2
+                            else torch.int32))
 
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
@@ -1183,6 +1199,94 @@ def test_wkv6_kernel_matches_plain(cuda, shape):
         y64, s64 = wkv6_plain(*(t.double() for t in args))
         _f64_rule(y, yp, y64)
         _f64_rule(sT, sp, s64)
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_selective_scan_state_and_y_bits_are_plain(cuda, shape):
+    """K3 updates every state with plain's rounded operations in plain's
+    order (expf is torch.exp's) and adds y over n from 0 upward: hT and
+    float32 y equal plain's bit for bit, and hT on bf16 x too."""
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    ins = _scan_inputs(cuda, *shape)
+    for x in (ins[0], ins[0].to(torch.bfloat16)):
+        y, hT = selective_scan_cuda(x, *ins[1:])
+        yp, hp = selective_scan_plain(x, *ins[1:])
+        assert _same_bits(hT, hp)
+        assert _same_bits(y, yp)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
+def test_wkv6_state_bits_are_plain(cuda, shape):
+    """K4 updates every state element with plain's rounded operations in
+    plain's order: sT equals plain's bit for bit, in float32 and with
+    bf16 r, k, v."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_plain
+    ins = _wkv_inputs(cuda, *shape)
+    for dt in (torch.float32, torch.bfloat16):
+        args = [t.to(dt) for t in ins[:3]] + ins[3:]
+        assert _same_bits(wkv6_cuda(*args)[1], wkv6_plain(*args)[1])
+
+
+def test_scans_give_the_same_bits_twice(cuda):
+    """Two launches of K3 and of K4 on one input write the same bits."""
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    for kern, ins in ((selective_scan_cuda, _scan_inputs(cuda, 2, 257, 3200,
+                                                         16)),
+                      (wkv6_cuda, _wkv_inputs(cuda, 2, 257, 32))):
+        for dt in (torch.float32, torch.bfloat16):
+            n = 1 if kern is selective_scan_cuda else 3
+            args = [t.to(dt) for t in ins[:n]] + ins[n:]
+            a, b = kern(*args), kern(*args)
+            assert all(_same_bits(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("split", ["chunk", "steps"])
+def test_scans_carry_the_state_across_calls(cuda, split):
+    """A scan cut at chunk boundaries (K4's 16 steps, K3's 32), or run one
+    step a call as decode runs it, carries the state as one call does: y
+    and the last state bit for bit."""
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    S = 40
+    cuts = [0, 16, 32, S] if split == "chunk" else list(range(S + 1))
+    for kern, ins, n_low in (
+            (selective_scan_cuda, _scan_inputs(cuda, 2, S, 200, 16), 1),
+            (wkv6_cuda, _wkv_inputs(cuda, 2, S, 5), 3)):
+        # x (K3), r, k, v (K4) in bf16; 4 inputs along time, then A or u,
+        # then the state
+        n_seq, state = 4, 5
+        ins = [t.to(torch.bfloat16) for t in ins[:n_low]] + ins[n_low:]
+        y_all, s_all = kern(*ins)
+        s, ys = ins[state], []
+        for a, b in zip(cuts, cuts[1:]):
+            part = [t[:, a:b].contiguous() for t in ins[:n_seq]]
+            y, s = kern(*part, *ins[n_seq:state], s)
+            ys.append(y)
+        assert _same_bits(torch.cat(ys, 1), y_all)
+        assert _same_bits(s, s_all)
+
+
+def test_wkv6_takes_a_view_off_a_16_byte_boundary(cuda):
+    """K4 stages r, k, v and w 16 bytes at a time: the wrapper refuses a
+    view that starts between two 16-byte boundaries, launching nothing,
+    and the op copies such a view and gives the aligned input's bits."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+    ins = _wkv_inputs(cuda, 2, 20, 3)
+    buf = torch.empty(ins[0].numel() + 1, device=cuda)
+    r_off = buf[1:].view(ins[0].shape)             # 4 bytes past a boundary
+    r_off.copy_(ins[0])
+    n0 = wkv6_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv6_cuda(r_off, *ins[1:])
+    assert wkv6_cuda.launches == n0
+    with torch.no_grad():
+        got = wkv_ops.wkv6(r_off, *ins[1:])
+        want = wkv_ops.wkv6(*ins)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
 
 
 def test_scans_refuse_a_gradient_on_cuda(cuda):

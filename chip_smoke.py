@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: K1 (``src/repro_torch/csrc/embedding_bag.cu``, its forward and
    its backward), K2 (``src/repro_torch/csrc/flash_attention.cu``), K3
-   (``src/repro_torch/csrc/selective_scan.cu``) and K4
-   (``src/repro_torch/csrc/wkv6.cu``) with nvcc for sm_90a into
+   (``src/repro_torch/csrc/selective_scan.cu``, with K3-bwd) and K4
+   (``src/repro_torch/csrc/wkv6.cu``, with K4-bwd) with nvcc for sm_90a into
    ``build/kernels/``, one nvcc per source, started together; ptxas must
    report no spill in any bf16 (tensor-core) K2 instance;
 3. K1's forward against its plain PyTorch version on the card, bit for
@@ -221,6 +221,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    half of the serial design's time or more (that design's prefill and
    decode times are printed beside (a)'s and (b)'s, not checked).  Each
    leg prints its seconds.
+16. (after phase 15) training the hybrid SSM and RWKV blocks (K3's and
+   K4's forward saving the state at every chunk's start; their backward
+   kernels K3-bwd and K4-bwd recomputing each chunk from it and walking
+   it back): (a) hymba-1.5b at full width and depth (32 layers,
+   1641579200 seeded bf16 params) trained by ``make_train_step`` (AdamW,
+   lr 3e-4, weight decay 0.1, no remat, as danube) on 2 x
+   4096 tokens (train_4k's sequence, its batch cut from 256): 1 warm-up
+   and 2 steps timed by CUDA events, tokens/s, finite losses, every leaf
+   moved (but the bf16 ones that rounding holds: norms at 1), the peak, K2, K3 and K3-bwd launched as many times a step as
+   the path needs them and no other kernel, then torch.profiler over one
+   step (``[ssm train profile]``: K3, K3-bwd, K2, the attention backward,
+   cuBLAS, AdamW, elementwise); (b) rwkv6-1.6b (24 layers, 1678264320
+   params) the same way with K4 and K4-bwd; (c) K3-bwd and K4-bwd on
+   layer 0's real train inputs (the forward's own arguments) and a
+   seeded dy against the plain backward and its float64 run by phase
+   3b's rule, every gradient, on the bf16 inputs and their float32
+   values, each run twice with the same bits; (d) both archs at SMOKE,
+   seeded, float32: one ``make_grad_fn`` step on the card and on the CPU
+   (plain autograd), the loss within 1e-5 and every gradient leaf within
+   1e-4 of its largest; (e) K3-bwd's and K4-bwd's medians of 10 after 2
+   warm-ups at the train shapes beside the bound (the bytes, the float32
+   operations, K3-bwd's exponentials at the SFU's rate), their registers,
+   resident warps and spills, and the plain backward's time of (c).
+   Each leg prints its seconds.
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -448,9 +472,11 @@ def check_idle(counters, busy, where: str) -> None:
 
 
 def bits_equal(torch, out, ref) -> bool:
-    """Same shape and the same bits (+0 and -0 differ here)."""
-    return out.shape == ref.shape and torch.equal(
-        out.contiguous().view(torch.int32), ref.contiguous().view(torch.int32))
+    """Same dtype, shape and bits (+0 and -0 differ here); float32 or a
+    2-byte float."""
+    view = torch.int16 if out.element_size() == 2 else torch.int32
+    return out.dtype == ref.dtype and out.shape == ref.shape and torch.equal(
+        out.contiguous().view(view), ref.contiguous().view(view))
 
 
 def _row0(torch, arena, kind: str) -> None:
@@ -3171,6 +3197,10 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "K2"
+    if "selective_scan_bwd" in low:
+        return "K3-bwd"
+    if "wkv6_bwd" in low:
+        return "K4-bwd"
     if "selective_scan" in low:
         return "K3"
     if "wkv6" in low:
@@ -3191,15 +3221,18 @@ def _under(e, pred) -> bool:
     return False
 
 
-def train_profile(torch, step, params, state, batch, spans=None) -> dict:
+def train_profile(torch, step, params, state, batch, spans=None,
+                  classify=_kernel_class, tag: str = "lm train profile"
+                  ) -> dict:
     """torch.profiler over one train step: kernel ms, idle share, and the
-    shares of K2, of the attention backward's blockwise recompute (every
-    kernel launched under autograd's ``_FlashAttentionBackward`` node) and
-    of cuBLAS's GEMMs (these two overlap: the recompute's matmuls are
-    cuBLAS's).  ``spans`` maps more names to ``(pred, outside)``: the
-    device time of the outermost host events that ``pred`` holds for and
-    that no event ``outside`` holds for encloses.  The profiler slows the
-    host, so the idle share is an upper bound."""
+    shares of each kernel class (``classify``: K2, cuBLAS's GEMMs, ...)
+    and of the attention backward's blockwise recompute (every kernel
+    launched under autograd's ``_FlashAttentionBackward`` node; it
+    overlaps cuBLAS: the recompute's matmuls are cuBLAS's).  ``spans``
+    maps more names to ``(pred, outside)``: the device time of the
+    outermost host events that ``pred`` holds for and that no event
+    ``outside`` holds for encloses.  The profiler slows the host, so the
+    idle share is an upper bound.  Log lines start with ``[tag]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3216,9 +3249,11 @@ def train_profile(torch, step, params, state, batch, spans=None) -> dict:
                    if e.device_type == DeviceType.CUDA
                    and e.key not in ranges), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    by_class = {"K2": 0.0, "cuBLAS": 0.0, "other": 0.0}
+    by_class: dict = {}
     for name, ms, _ in rows:
-        by_class[_kernel_class(name)] += ms
+        cls = classify(name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+
     def attn_bwd(e):
         return (e is not None and e.device_type == DeviceType.CPU
                 and e.name.endswith("_FlashAttentionBackward"))
@@ -3242,21 +3277,19 @@ def train_profile(torch, step, params, state, batch, spans=None) -> dict:
            "top": [{"name": k[:80], "ms": ms, "calls": n}
                    for k, ms, n in rows[:10]]}
     if busy:
-        log(f"[lm train profile] wall {wall_ms:.1f} ms under the profiler, "
-            f"kernels {busy:.1f} ms (idle share <= "
-            f"{out['idle_share']:.3f}); K2 {by_class['K2']:.1f} ms "
-            f"({out['share']['K2']:.3f}), attention backward (blockwise "
-            f"recompute) {recompute:.1f} ms "
-            f"({out['share']['attention backward']:.3f}), cuBLAS "
-            f"{by_class['cuBLAS']:.1f} ms ({out['share']['cuBLAS']:.3f}), "
-            f"other {by_class['other']:.1f} ms "
-            f"({out['share']['other']:.3f})" + "".join(
+        classes = sorted(by_class, key=lambda k: -by_class[k])
+        log(f"[{tag}] wall {wall_ms:.1f} ms under the profiler, kernels "
+            f"{busy:.1f} ms (idle share <= {out['idle_share']:.3f}); "
+            + ", ".join(f"{k} {by_class[k]:.1f} ms ({out['share'][k]:.3f})"
+                        for k in classes)
+            + f"; attention backward (blockwise recompute) {recompute:.1f} "
+            f"ms ({out['share']['attention backward']:.3f})" + "".join(
                 f"; {k} {v:.1f} ms ({out['share'][k]:.3f})"
                 for k, v in more.items()))
     else:
-        log("[lm train profile] no device time recorded: not measured")
+        log(f"[{tag}] no device time recorded: not measured")
     for k, ms, n in rows[:10]:
-        log(f"[lm train profile]   {ms:9.3f} ms {n:5d}x {k[:80]}")
+        log(f"[{tag}]   {ms:9.3f} ms {n:5d}x {k[:80]}")
     return out
 
 
@@ -4456,6 +4489,450 @@ def phase_ssm(torch, np, FA, SS, WK, plain, counters, summary: dict) -> dict:
     return {"paths": paths, "rows": rows}
 
 
+SSM_TRAIN_BATCH = 2              # 16 (a), (b): train_4k's sequence, its
+SSM_TRAIN_SEQ = 4096             # batch cut from 256 to 2
+SSM_TRAIN_TIMED = 2              # after 1 warm-up step
+SSM_TRAIN_PARAMS = {"hymba-1.5b": 1641579200, "rwkv6-1.6b": 1678264320}
+
+
+def _ssm_kernel_class(name: str) -> str:
+    """The train profile's classes: K2, K3, K3-bwd, K4, K4-bwd, cuBLAS,
+    AdamW's foreach kernels, and the rest (elementwise and reductions)."""
+    if "multi_tensor_apply" in name or "foreach" in name.lower():
+        return "AdamW"
+    cls = _kernel_class(name)
+    return "elementwise" if cls == "other" else cls
+
+
+def _leaf_names(tree: dict, prefix: str = "") -> list:
+    """Dotted names of a parameter tree's leaves in ``tree_leaves`` order
+    (keys sorted)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += (_leaf_names(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else [prefix + k])
+    return out
+
+
+def _bf16_held(torch, params: dict, lr: float) -> list:
+    """Names of the bf16 leaves that an early AdamW step cannot move: half
+    a bf16 ulp at their smallest |entry| is over 10 lr (Adam's first
+    steps move an entry by about lr), as for norm weights at 1."""
+    from repro_torch.models.transformer import tree_leaves
+    out = []
+    for name, t in zip(_leaf_names(params), tree_leaves(params)):
+        if t.dtype == torch.bfloat16:
+            low = float(t.float().abs().min())
+            if low > 0 and 2.0 ** (math.floor(math.log2(low)) - 8) > 10 * lr:
+                out.append(name)
+    return out
+
+
+def ssm_train(torch, np, FA, SS, WK, counters, arch: str,
+              summary: dict) -> tuple:
+    """16 (a), (b): ``arch`` at full width and depth (seeded bf16) trained
+    by ``make_train_step`` (AdamW, lr 3e-4, weight decay 0.1, no remat) on
+    2 x 4096
+    tokens: 1 warm-up and 2 steps timed by CUDA events; finite losses,
+    every leaf moved but those bf16 rounding holds (``_bf16_held``), the
+    launches of each kernel; then torch.profiler
+    over one more step.  Returns (launches by kernel, layer 0's scan
+    arguments of the first batch, kept from an untimed no-grad forward
+    before the steps)."""
+    from repro_torch.configs import get_full
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    cfg = get_full(arch).resolve(1)
+    hybrid = cfg.block == "hybrid"
+    remat = False                  # as danube: both steps fit (PERF.md)
+    n = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = ST.build_model(cfg, remat=remat, device="cuda")
+    params = model.init_params(0)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == SSM_TRAIN_PARAMS[arch],
+          f"{arch} has {n_params} params")
+    opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1)
+    state = opt.init(leaves)
+    batches = [_lm_batch(torch, np, cfg.vocab, SSM_TRAIN_BATCH,
+                         SSM_TRAIN_SEQ, "cuda", seed=i)
+               for i in range(1 + SSM_TRAIN_TIMED)]
+    with torch.no_grad(), _FirstCall(
+            scan_ops if hybrid else wkv_ops,
+            "selective_scan" if hybrid else "wkv6") as rec:
+        model.forward_loss(params, batches[0]["tokens"],
+                           batches[0]["labels"])
+    before = [t.to("cpu", copy=True) for t in leaves]
+    held = _bf16_held(torch, params, 3e-4)
+    scan, grad = ((SS.selective_scan_cuda, SS.selective_scan_grad_cuda)
+                  if hybrid else (WK.wkv6_cuda, WK.wkv6_grad_cuda))
+    fwd_per_step = n * (2 if remat else 1)  # remat re-runs each layer
+    expect = {id(scan): fwd_per_step, id(grad): n}
+    if hybrid:
+        expect[id(FA.flash_attention_cuda)] = fwd_per_step
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        params, state, metrics = step(params, state, batch)
+        t1.record()
+        t1.synchronize()
+        losses.append(float(metrics["loss"]))
+        if i:
+            times.append(t0.elapsed_time(t1))
+    n_steps = len(batches)
+    launches = {type(c).__name__: c.launches for c in counters}
+    for c in counters:
+        want = expect.get(id(c), 0) * n_steps
+        check(c.launches == want, f"{arch} train: {type(c).__name__} "
+              f"launched {c.launches} times in {n_steps} steps, not {want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    still = [name for name, a, b in zip(_leaf_names(params), before, leaves)
+             if torch.equal(a, b.cpu())]
+    del before
+    moved = len(leaves) - len(still)
+    stuck = sorted(set(still) - set(held))
+    check(not stuck, f"{arch}: leaves {stuck} did not move")
+    step_ms = sorted(times)[len(times) // 2]
+    tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    out = {"arch": arch, "layers": n, "params": n_params,
+           "batch": SSM_TRAIN_BATCH, "seq": SSM_TRAIN_SEQ, "remat": remat,
+           "step_ms": times, "median_step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
+           "peak_memory_bytes": peak, "free_at_peak_bytes": total - peak,
+           "leaves_moved": moved, "leaves_held_by_bf16": still,
+           "launches": launches}
+    log(f"[ssm train] {arch}: {n} layers, {n_params} params, bf16, AdamW "
+        f"(lr 3e-4, wd 0.1), {'remat' if remat else 'no remat'}; batch "
+        f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens")
+    log(f"[ssm train] {arch}: step ms {[round(t, 2) for t in times]} "
+        f"(median {step_ms:.2f}, 1 warm-up step before), "
+        f"{out['tokens_per_s']:.0f} tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}; peak {peak / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f} GB; {moved} of {len(leaves)} leaves moved, the "
+        f"rest held by bf16 rounding ({', '.join(still) or 'none'}); "
+        "launches a step "
+        + ", ".join(f"{type(c).__name__} {expect[id(c)]}" for c in counters
+                    if id(c) in expect))
+    for c in counters:
+        c.launches = 0
+    out["profile"] = train_profile(torch, step, params, state, batches[0],
+                                   classify=_ssm_kernel_class,
+                                   tag=f"ssm train profile {arch}")
+    for c in counters:
+        want = expect.get(id(c), 0)
+        check(c.launches == want, f"{arch} profiled step: "
+              f"{type(c).__name__} launched {c.launches} times, not {want}")
+        launches[type(c).__name__] += c.launches
+    del state, batches, params, leaves, model
+    torch.cuda.empty_cache()
+    summary.setdefault("ssm_train", {})[arch] = out
+    return launches, rec.args
+
+
+def _grad_checks(torch, names, kernel_runs, plain, ref64, what: str) -> dict:
+    """Phase 3b's float64 rule on every gradient of each run in
+    ``kernel_runs`` ({name: (run, run again, plain's gradients in the
+    run's dtypes)}), and the two runs' bits equal."""
+    out = {}
+    for name, (a, b, p) in kernel_runs.items():
+        e = {g: _f64_errs(k, pp, r)
+             for g, k, pp, r in zip(names, a, p, ref64)}
+        e["max_abs_vs_plain"] = max(float((k.double() - pp.double()).abs()
+                                          .max()) for k, pp in zip(a, p))
+        e["same_bits_twice"] = all(bits_equal(torch, x, y)
+                                   for x, y in zip(a, b))
+        check(e["same_bits_twice"], f"{what} {name}: two runs differ")
+        for g in names:
+            check(e[g]["share"] <= 1, f"{what} {name} {g}: {e[g]}")
+        out[name] = e
+        log(f"[ssm grad] {what}, {name} inputs: max |err| vs float64 "
+            + ", ".join(f"{g} {e[g]['kernel']:.3g} (limit "
+                        f"{e[g]['limit']:.3g})" for g in names)
+            + "; two runs bit-equal")
+    return out
+
+
+def _timed(torch, fn, *args):
+    """(fn(*args), its CUDA-event ms), one run."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    res = fn(*args)
+    t1.record()
+    t1.synchronize()
+    return res, t0.elapsed_time(t1)
+
+
+def k3_grad_checks(torch, SS, args) -> dict:
+    """16 (c): K3-bwd on layer 0's real train inputs (the forward's own
+    arguments) and a seeded dy of bf16 values, dhT None as training
+    passes it, on the bf16 x and on its float32 values, against the plain
+    backward (float32, timed) and its float64 run; each kernel run twice.
+    Launches here are put back."""
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_plain
+    x, dt, Bc, Cc, A, h0 = args
+    n0 = (SS.selective_scan_cuda.launches,
+          SS.selective_scan_grad_cuda.launches)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    runs = {}
+    with torch.no_grad():
+        plain, plain_ms = _timed(torch, selective_scan_bwd_plain, x.float(),
+                                 dt, Bc, Cc, A, h0, dy.float())
+        ref64 = selective_scan_bwd_plain(
+            *(t.double() for t in args), dy.double())
+        for name, xin in (("float32", x.float()), ("bfloat16", x)):
+            dyin = dy.to(xin.dtype)
+            _, _, hs = SS.selective_scan_cuda(xin, dt, Bc, Cc, A, h0,
+                                              save_states=True)
+            a = SS.selective_scan_grad_cuda(xin, dt, Bc, Cc, A, hs, dyin)
+            b = SS.selective_scan_grad_cuda(xin, dt, Bc, Cc, A, hs, dyin)
+            runs[name] = (a, b, (plain[0].to(xin.dtype),) + plain[1:])
+        torch.cuda.synchronize()
+    out = _grad_checks(torch, ("dx", "ddt", "dB", "dC", "dA", "dh0"), runs,
+                       plain, ref64, f"K3-bwd, x {tuple(x.shape)}")
+    out["plain_ms"] = plain_ms
+    SS.selective_scan_cuda.launches, SS.selective_scan_grad_cuda.launches = n0
+    return out
+
+
+def k4_grad_checks(torch, WK, args) -> dict:
+    """16 (c): K4-bwd as ``k3_grad_checks`` holds K3-bwd: layer 0's real
+    train inputs, a seeded float32 dy, dsT None; the bf16 r, k, v and
+    their float32 values."""
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain
+    r, k, v, w, u, s0 = args
+    u = u.float()
+    n0 = (WK.wkv6_cuda.launches, WK.wkv6_grad_cuda.launches)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dy = torch.randn(r.shape, generator=g, device="cuda")
+    runs = {}
+    with torch.no_grad():
+        plain, plain_ms = _timed(torch, wkv6_bwd_plain, r.float(), k.float(),
+                                 v.float(), w, u, s0, dy)
+        ref64 = wkv6_bwd_plain(*(t.double() for t in (r, k, v, w, u, s0)),
+                               dy.double())
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            rkv = [t.to(dt) for t in (r, k, v)]
+            _, _, hs = WK.wkv6_cuda(*rkv, w, u, s0, save_states=True)
+            a = WK.wkv6_grad_cuda(*rkv, w, u, hs, dy)
+            b = WK.wkv6_grad_cuda(*rkv, w, u, hs, dy)
+            runs[name] = (a, b, tuple(p.to(dt) for p in plain[:3])
+                          + plain[3:])
+        torch.cuda.synchronize()
+    out = _grad_checks(torch, ("dr", "dk", "dv", "dw", "du", "ds0"), runs,
+                       plain, ref64, f"K4-bwd, r {tuple(r.shape)}")
+    out["plain_ms"] = plain_ms
+    WK.wkv6_cuda.launches, WK.wkv6_grad_cuda.launches = n0
+    return out
+
+
+def ssm_train_cross_device(torch, np, counters, summary: dict) -> dict:
+    """16 (d): hymba-1.5b and rwkv6-1.6b at SMOKE, seeded, float32: one
+    ``make_grad_fn`` step on the card (K2, K3 / K4 and their backward)
+    and on the CPU (plain autograd) on 2 x 80 tokens: the loss within
+    1e-5 relative, every gradient leaf within 1e-4 of its largest
+    entry."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    out = {}
+    for arch in ("hymba-1.5b", "rwkv6-1.6b"):
+        cfg = get_smoke(arch).resolve(1)
+        gpu = ST.build_model(cfg, remat=False, dtype=torch.float32,
+                             device="cuda")
+        cpu = ST.build_model(cfg, remat=False, dtype=torch.float32,
+                             device="cpu")
+        params = gpu.init_params(0)
+        cparams = map_params(lambda t: t.cpu().clone(), params)
+        batch = _lm_batch(torch, np, cfg.vocab, 2, SSM_CROSS_SEQ, "cuda")
+        g, loss, _ = ST.make_grad_fn(gpu)(params, batch)
+        cg, closs, _ = ST.make_grad_fn(cpu)(
+            cparams, {k: v.cpu() for k, v in batch.items()})
+        loss_err = abs(float(loss) - float(closs)) / abs(float(closs))
+        grad_err = max(_max_rel(torch, a.cpu(), b) for a, b in zip(g, cg))
+        check(loss_err <= 1e-5, f"{arch}: loss cuda {float(loss)} cpu "
+              f"{float(closs)}")
+        check(grad_err <= 1e-4, f"{arch}: gradients cuda vs cpu {grad_err}")
+        out[arch] = {"loss": [float(loss), float(closs)],
+                     "loss_rel_err": loss_err, "grad_max_rel_err": grad_err}
+        log(f"[ssm train cross] {arch} SMOKE, float32, 2 x {SSM_CROSS_SEQ} "
+            f"tokens: cuda == cpu, loss rel err {loss_err:.3g} (limit "
+            f"1e-5), gradients max |err| / max |g| {grad_err:.3g} (limit "
+            "1e-4)")
+    launches = {type(c).__name__: c.launches for c in counters}
+    summary["ssm_train_cross_device"] = out
+    return launches
+
+
+def _spills(library, needle: str) -> str:
+    """ptxas's spill line for the kernel instance whose name holds
+    ``needle``."""
+    for name, spill, _ in ptxas_functions(library.build_log):
+        if needle in name:
+            return spill
+    return "not reported"
+
+
+def scan_grad_yardstick(torch, kernel, args, occupancy, *, name: str,
+                        source: str, replaces: str, spills: str,
+                        nbytes: int, ops: int, exps: int, err: float,
+                        plain_ms: float, summary: dict) -> dict:
+    """16 (e): a backward kernel's median of 10 after 2 warm-ups at the
+    train shape beside the bound (the largest of the bytes, the float32
+    operations and the exponentials at the SFU's rate), its registers,
+    resident warps and spills, and the plain backward's time from (c)."""
+    from repro_torch.profiling.microbench import median_time_ms
+    n0 = kernel.launches
+    with torch.no_grad():
+        ms = median_time_ms(kernel, args, warmup=2, repeats=10)
+    kernel.launches = n0
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "float32 operations": ops / F32_FLOP_PER_S * 1e3,
+             "exp (SFU)": exps / SFU_EXP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": terms[term],
+           "bound_by": "bytes" if term == "bytes" else "operations",
+           "bound_term": term, "library_ms": None,
+           "registers": occupancy["registers"],
+           "warps_per_sm": occupancy["warps_per_sm"], "spills": spills}
+    summary.setdefault("ssm_grad_yardstick", {})[name] = {
+        "bytes": nbytes, "ops": ops, "exps": exps, "bound_terms_ms": terms,
+        "bound_share": row["bound_ms"] / ms, "occupancy": occupancy, **row}
+    log(f"[ssm grad yardstick] {name}: {ms:.3f} ms ({row['bound_ms'] / ms:.1%}"
+        f" of the bound {row['bound_ms']:.3f} ms, {term}: {nbytes / 1e9:.3f} "
+        f"GB {terms['bytes']:.3f} ms, {ops / 1e9:.2f} G float32 ops "
+        f"{terms['float32 operations']:.3f} ms, {exps / 1e9:.3f} G exp "
+        f"{terms['exp (SFU)']:.3f} ms); plain backward {plain_ms:.1f} ms "
+        f"(one run); {occupancy['registers']} registers, "
+        f"{occupancy['warps_per_sm']} warps an SM, {spills}; no single "
+        "PyTorch call computes it (library: none)")
+    return row
+
+
+def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
+    """Training the hybrid SSM and RWKV blocks.  Returns each kernel's
+    launches by path (``"k2"``, ``"k3"``, ``"k3_bwd"``, ``"k4"``,
+    ``"k4_bwd"``) and K3-bwd's and K4-bwd's rows.  Each leg prints its
+    seconds."""
+    legs = dict.fromkeys(("a hymba train", "b rwkv train",
+                          "c kernel checks", "d cuda vs cpu",
+                          "e yardsticks"), 0.0)
+    names = {k: type(c).__name__ for k, c in (
+        ("k2", FA.flash_attention_cuda), ("k3", SS.selective_scan_cuda),
+        ("k3_bwd", SS.selective_scan_grad_cuda), ("k4", WK.wkv6_cuda),
+        ("k4_bwd", WK.wkv6_grad_cuda))}
+    paths = {k: {} for k in names}
+    rows, checks = {}, {}
+
+    t0 = time.perf_counter()
+    launches, args = ssm_train(torch, np, FA, SS, WK, counters,
+                               "hymba-1.5b", summary)
+    for key in ("k2", "k3", "k3_bwd"):
+        paths[key]["hybrid train"] = launches[names[key]]
+    legs["a hymba train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["k3_bwd"] = k3_grad_checks(torch, SS, args)
+    legs["c kernel checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, dt, Bc, Cc, A, h0 = args
+    B, S, Di = x.shape
+    N = A.shape[1]
+    with torch.no_grad():
+        _, _, hs = SS.selective_scan_cuda(*args, save_states=True)
+    SS.selective_scan_cuda.launches -= 1
+    dy = torch.randn_like(x.float()).to(x.dtype)
+    n_el = B * S * Di
+    rows["k3_bwd"] = scan_grad_yardstick(
+        torch, SS.selective_scan_grad_cuda, (x, dt, Bc, Cc, A, hs, dy),
+        SS.selective_scan_grad_cuda.occupancy(x.dtype, N),
+        name="selective_scan_bwd",
+        source="src/repro_torch/csrc/selective_scan.cu",
+        replaces="src/repro/models/ssm.py:55 (JAX's autodiff transpose of "
+                 "_ssm_recurrence's lax.scan; no Pallas kernel)",
+        spills=_spills(SS.LIBRARY, "selective_scan_bwd_kernelI13__nv_"
+                                   f"bfloat16Li{N}E"),
+        # read x, dy (bf16), dt, the saved states, B, C, A; write dx
+        # (bf16), ddt, dB, dC, dA, dh0
+        nbytes=(n_el * (2 * x.element_size() + 4 + x.element_size() + 4)
+                + hs.numel() * 4 + 4 * (Bc.numel() + Cc.numel()) * 2
+                + 4 * A.numel() * 2 + 4 * h0.numel()),
+        # 18 a (b, t, d, n): 3 to recompute h, 11 on the walk back, the
+        # sums over n (du, z A) and over channels (g u, dy h)
+        ops=18 * n_el * N, exps=n_el * N,
+        err=checks["k3_bwd"]["float32"]["max_abs_vs_plain"],
+        plain_ms=checks["k3_bwd"]["plain_ms"], summary=summary)
+    del args, x, dt, Bc, Cc, A, h0, hs, dy
+    torch.cuda.empty_cache()
+    legs["e yardsticks"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    launches, args = ssm_train(torch, np, FA, SS, WK, counters,
+                               "rwkv6-1.6b", summary)
+    for key in ("k4", "k4_bwd"):
+        paths[key]["rwkv train"] = launches[names[key]]
+    legs["b rwkv train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["k4_bwd"] = k4_grad_checks(torch, WK, args)
+    legs["c kernel checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r, k, v, w, u, s0 = args
+    u = u.float()
+    B, S, H, hd = r.shape
+    with torch.no_grad():
+        _, _, hs = WK.wkv6_cuda(r, k, v, w, u, s0, save_states=True)
+    WK.wkv6_cuda.launches -= 1
+    dy = torch.randn(r.shape, device="cuda")
+    n_el = B * S * H * hd
+    rows["k4_bwd"] = scan_grad_yardstick(
+        torch, WK.wkv6_grad_cuda, (r, k, v, w, u, hs, dy),
+        WK.wkv6_grad_cuda.occupancy(r.dtype), name="wkv6_bwd",
+        source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/models/ssm.py:151 (JAX's autodiff transpose of "
+                 "rwkv_time_mix's lax.scan; no Pallas kernel)",
+        spills=_spills(WK.LIBRARY, "wkv6_bwd_kernelI13__nv_bfloat16E"),
+        # read r, k, v (bf16), w, dy, the saved states, u; write dr, dk,
+        # dv (bf16), dw, du, ds0
+        nbytes=(n_el * (3 * r.element_size() + 8 + 3 * r.element_size()
+                        + 4) + hs.numel() * 4 + 2 * u.numel() * 4
+                + s0.numel() * 4),
+        # 14 a state element and step: 3 to recompute s, then dy s, G s,
+        # G v, G k each a product and a sum, and G's update (3)
+        ops=14 * n_el * hd, exps=0,
+        err=checks["k4_bwd"]["float32"]["max_abs_vs_plain"],
+        plain_ms=checks["k4_bwd"]["plain_ms"], summary=summary)
+    del args, r, k, v, w, u, s0, hs, dy
+    torch.cuda.empty_cache()
+    legs["e yardsticks"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    launches = ssm_train_cross_device(torch, np, counters, summary)
+    for key in paths:
+        paths[key]["ssm train cuda vs cpu"] = launches[names[key]]
+    legs["d cuda vs cpu"] = time.perf_counter() - t0
+    summary["ssm_grad_checks"] = checks
+    for name, secs in legs.items():
+        log(f"[ssm train] leg {name}: {secs:.1f} s")
+    summary["ssm_train_legs_s"] = legs
+    return {"paths": paths, "rows": rows}
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4492,7 +4969,8 @@ def main() -> int:
     t_start = time.perf_counter()
     counters = (K.embedding_bag_cuda, K.embedding_bag_grad_cuda,
                 FA.flash_attention_cuda, SS.selective_scan_cuda,
-                WK.wkv6_cuda)
+                SS.selective_scan_grad_cuda, WK.wkv6_cuda,
+                WK.wkv6_grad_cuda)
     phases: dict = {}
     summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "phase_s": phases}
@@ -4561,6 +5039,14 @@ def main() -> int:
     ssm = run("15 hybrid SSM and RWKV path", phase_ssm, torch, np, FA, SS, WK,
               attention_plain, counters, summary, phases=phases)
     lm_launches.update(ssm["paths"]["k2"])
+    torch.cuda.empty_cache()
+    train = run("16 hybrid SSM and RWKV training", phase_ssm_train, torch,
+                np, FA, SS, WK, counters, summary, phases=phases)
+    lm_launches.update(train["paths"]["k2"])
+    for key in ("k3", "k4"):
+        ssm["paths"][key].update(train["paths"][key])
+    ssm["rows"].update(train["rows"])
+    ssm["paths"].update({k: train["paths"][k] for k in ("k3_bwd", "k4_bwd")})
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],
@@ -4580,7 +5066,8 @@ def main() -> int:
              "launches_by_path": {"serve": k2_launches, **lm_launches}},
             *({**ssm["rows"][key],
                "launches": sum(ssm["paths"][key].values()),
-               "launches_by_path": ssm["paths"][key]} for key in ("k3", "k4"))]
+               "launches_by_path": ssm["paths"][key]}
+              for key in ("k3", "k4", "k3_bwd", "k4_bwd"))]
     summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -35,6 +35,28 @@
 // At hymba's prefill (B 2, Di 3200, N 16) that is 800 blocks of 4 warps,
 // 6 or 7 resident an SM.  Decode (S = 1) issues one chunk of one step.
 //
+// Training.  With hs given, the forward also writes the state at every
+// chunk's start (B, ceil(S / kChunk), Di, N), and K3-bwd (below) takes
+// it.  It replaces JAX's autodiff transpose of the same lax.scan (ssm.py
+// :55), also no Pallas kernel; autograd through the per-token loop in
+// torch would keep every step's state (~54 GB at hymba's 2 x 4096) and
+// launch several kernels a token.  With a_t = exp(dt_t A), u_t = dt_t x_t
+// and g_t = dL/dh_t (from dhT at the end):
+//   g_t = dy_t C_t + a_{t+1} g_{t+1},  dC_t = sum_d dy_t h_t,
+//   dB_t = sum_d g_t u_t,  du_t = sum_n g_t B_t,  z_t = g_t h_{t-1} a_t,
+//   ddt_t = sum_n z_t A + du_t x_t,  dA = sum_{b,t} z_t dt_t,
+//   dx_t = du_t dt_t (rounded once to x's dtype),  dh0 = a_1 g_1.
+// The sums over channels (dB, dC) span 400 blocks a batch row at hymba's
+// Di: each block leaves its share (its channels added in order), and a
+// second kernel adds the blocks' shares in block order, compensated, so
+// two runs give the same bits (no float atomics).  K3-bwd's bound at
+// (2, 4096, 3200, 16): bytes, 0.42 GB (x, dy, dx in bf16, dt, ddt, the
+// saved states) 0.126 ms; 7.5e9 float32 operations (18 a lane and step)
+// 0.113 ms; the forward's exponentials again, 4.19e8, 0.100 ms.  It
+// stages each chunk with plain loads and keeps the chunk's h, a and the
+// walk's four products in shared memory (111 KB a block, 2 blocks an
+// SM): a first design, right before fast.
+//
 // Bound: the exponentials.  B S Di N of them, at 16 MUFU.EX2 results a
 // clock an SM (132 SMs, 1.98 GHz boost): at (2, 8192, 3200, 16) 8.4e8,
 // 0.203 ms; x, dt and y once each plus B and C are about 0.42 GB in bf16,
@@ -47,8 +69,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -146,7 +170,9 @@ __device__ __forceinline__ float step(float& h, float a, float dt, float u,
   return __fmul_rn(h, c);
 }
 
-template <typename T, int N>
+// kSave: also write the state at every chunk's start to hs (training);
+// the serving instance compiles without the store.
+template <typename T, int N, bool kSave>
 __global__ void __launch_bounds__(kThreads)
     selective_scan_kernel(const T* __restrict__ x,
                           const float* __restrict__ dt,
@@ -154,8 +180,8 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ Cc,
                           const float* __restrict__ A,
                           const float* __restrict__ h0, T* __restrict__ y,
-                          float* __restrict__ hT, int S, int Di,
-                          int d_blocks) {
+                          float* __restrict__ hT, float* __restrict__ hs,
+                          int S, int Di, int d_blocks) {
   using Cf = Cfg<N>;
   constexpr int kCh = Cf::kCh;
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -247,6 +273,11 @@ __global__ void __launch_bounds__(kThreads)
     mbar_wait(&sm.bar[c % kRing], (c / kRing) & 1);
     const Stage<N>& st = sm.ring[c % kRing];
     const int t0 = c * kChunk, len = min(kChunk, S - t0);
+    // for training: the state at the chunk's start (the backward's anchor)
+    if constexpr (kSave) {
+      if (live)
+        hs[((static_cast<size_t>(b) * n_chunks + c) * Di + d) * N + n] = h;
+    }
 
     // u = dt * x once a (step, channel)
 #pragma unroll
@@ -321,61 +352,312 @@ __global__ void __launch_bounds__(kThreads)
   if (live) hT[(static_cast<size_t>(b) * Di + d) * N + n] = h;
 }
 
+// ---- K3's backward ---------------------------------------------------------
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// sum += v, compensated (Kahan), each operation rounded on its own
+__device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
+  const float y = __fsub_rn(v, comp);
+  const float t = __fadd_rn(sum, y);
+  comp = __fsub_rn(__fsub_rn(t, sum), y);
+  sum = t;
+}
+
+template <int N>
+struct BwdShared {
+  static constexpr int kCh = Cfg<N>::kCh;
+  // a step's per-lane products at [t][channel * (N + 1) + n] (the pad
+  // keeps a warp's reads of 8 channels and 4 steps on distinct banks):
+  // g B and z A are summed over n (du, ddt), g u and dy h over the
+  // block's channels (its share of dB, dC)
+  static constexpr int kRowP = kCh * (N + 1);
+  float gb[kChunk][kRowP];
+  float za[kChunk][kRowP];
+  float gu[kChunk][kRowP];
+  float dyh[kChunk][kRowP];
+  float hist[kChunk + 1][kThreads];   // a lane's h before step t, at [t]
+  float dec[kChunk][kThreads];        // a lane's exp(dt A) of step t
+  float dt[kCh][kChunk + 1];          // rows padded: the 16 states' reads
+  float x[kCh][kChunk + 1];           // of B and C fall on distinct banks
+  float dy[kCh][kChunk + 1];
+  float u[kCh][kChunk + 1];
+  float B[N][kChunk + 1];
+  float C[N][kChunk + 1];
+};
+
+// K3's backward.  The forward's layout (a lane a channel and state, kCh
+// channels a block), its chunks walked from the last to the first: the
+// chunk's h recomputed from the state the forward saved at its start
+// (hs), with the forward's rounded operations, so with its bits; then the
+// chunk walked back, g_t = dy_t C_t + a_{t+1} g_{t+1} carried in a
+// register, each step's products kept in shared memory and summed after
+// the chunk in fixed orders: over n (du, then ddt and dx), and over the
+// block's channels into its partial of dB and dC (`part`, summed over the
+// blocks by selective_scan_bwd_finish_kernel).  dA is a lane's sum over
+// its steps (a chunk's steps first), left per batch row in dA_part.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    selective_scan_bwd_kernel(
+        const T* __restrict__ x, const float* __restrict__ dt,
+        const float* __restrict__ Bc, const float* __restrict__ Cc,
+        const float* __restrict__ A, const float* __restrict__ hs,
+        const T* __restrict__ dy, const float* __restrict__ dhT,
+        T* __restrict__ dx, float* __restrict__ ddt,
+        float* __restrict__ part, float* __restrict__ dA_part,
+        float* __restrict__ dh0, int batch, int S, int Di, int d_blocks) {
+  constexpr int kCh = Cfg<N>::kCh;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdShared<N>& sm = *reinterpret_cast<BwdShared<N>*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / d_blocks, blk = blockIdx.x % d_blocks;
+  const int d0 = blk * kCh;
+  const int cl = tid / N, n = tid % N;          // the lane's channel, state
+  const int d = d0 + cl;
+  const bool live = d < Di;
+  const int q = cl * (N + 1) + n;               // the lane's product slot
+  const size_t row0 = static_cast<size_t>(b) * S;   // row (b, t = 0)
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  const size_t lane = (static_cast<size_t>(b) * Di + d) * N + n;
+  const float a = live ? A[static_cast<size_t>(d) * N + n] : 0.f;
+  // a_{t+1} g_{t+1}, from dL/dhT at the end
+  float carry = (live && dhT != nullptr) ? dhT[lane] : 0.f;
+  float dA_acc = 0.f;
+  // this block's partials of dB and dC: part is (d_blocks, batch, S, 2N)
+  float* const part_b =
+      part + (static_cast<size_t>(blk) * batch + b) * S * (2 * N);
+
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kChunk, len = min(kChunk, S - t0);
+    // stage the chunk; channels past Di and steps past S are zeros
+    for (int p = tid; p < kChunk * kCh; p += kThreads) {
+      const int t = p / kCh, cc = p % kCh;
+      float dtv = 0.f, xv = 0.f, dyv = 0.f;
+      if (t < len && d0 + cc < Di) {
+        const size_t off = (row0 + t0 + t) * Di + d0 + cc;
+        dtv = dt[off];
+        xv = to_f32(x[off]);
+        dyv = to_f32(dy[off]);
+      }
+      sm.dt[cc][t] = dtv;
+      sm.x[cc][t] = xv;
+      sm.dy[cc][t] = dyv;
+      sm.u[cc][t] = __fmul_rn(dtv, xv);
+    }
+    for (int p = tid; p < kChunk * N; p += kThreads) {
+      const int t = p / N, m = p % N;
+      const bool ok = t < len;
+      const size_t off = (row0 + t0 + t) * N + m;
+      sm.B[m][t] = ok ? Bc[off] : 0.f;
+      sm.C[m][t] = ok ? Cc[off] : 0.f;
+    }
+    __syncthreads();
+
+    // the chunk's states again, from the saved one at its start
+    float h = live
+        ? hs[((static_cast<size_t>(b) * n_chunks + c) * Di + d) * N + n]
+        : 0.f;
+    sm.hist[0][tid] = h;
+    for (int t = 0; t < len; ++t) {
+      const float dec = expf(__fmul_rn(sm.dt[cl][t], a));
+      h = __fadd_rn(__fmul_rn(h, dec), __fmul_rn(sm.u[cl][t], sm.B[n][t]));
+      sm.dec[t][tid] = dec;
+      sm.hist[t + 1][tid] = h;
+    }
+
+    // walked back: g_t, then the step's products and a_t g_t
+    float dA_chunk = 0.f;
+    for (int t = len - 1; t >= 0; --t) {
+      const float dyv = sm.dy[cl][t];
+      const float g = __fadd_rn(__fmul_rn(dyv, sm.C[n][t]), carry);
+      const float dec = sm.dec[t][tid];
+      const float z = __fmul_rn(__fmul_rn(g, sm.hist[t][tid]), dec);
+      sm.gb[t][q] = __fmul_rn(g, sm.B[n][t]);
+      sm.za[t][q] = __fmul_rn(z, a);
+      sm.gu[t][q] = __fmul_rn(g, sm.u[cl][t]);
+      sm.dyh[t][q] = __fmul_rn(dyv, sm.hist[t + 1][tid]);
+      dA_chunk = __fadd_rn(dA_chunk, __fmul_rn(z, sm.dt[cl][t]));
+      carry = __fmul_rn(dec, g);
+    }
+    dA_acc = __fadd_rn(dA_acc, dA_chunk);
+    __syncthreads();
+
+    // du (n from 0 upward), then ddt = sum_n z A + du x and dx = du dt:
+    // a thread a (channel, step)
+    for (int p = tid; p < kCh * kChunk; p += kThreads) {
+      const int cc = p % kCh, t = p / kCh;
+      if (t < len && d0 + cc < Di) {
+        const float* gb = &sm.gb[t][cc * (N + 1)];
+        const float* za = &sm.za[t][cc * (N + 1)];
+        float du = gb[0], zs = za[0];
+#pragma unroll
+        for (int m = 1; m < N; ++m) {
+          du = __fadd_rn(du, gb[m]);
+          zs = __fadd_rn(zs, za[m]);
+        }
+        const size_t off = (row0 + t0 + t) * Di + d0 + cc;
+        ddt[off] = __fadd_rn(zs, __fmul_rn(du, sm.x[cc][t]));
+        store_f32(dx + off, __fmul_rn(du, sm.dt[cc][t]));
+      }
+    }
+    // the block's share of dB and dC: a thread a (state, step), the
+    // channels in order
+    for (int p = tid; p < N * kChunk; p += kThreads) {
+      const int m = p % N, t = p / N;
+      if (t < len) {
+        float sb = sm.gu[t][m], sc = sm.dyh[t][m];
+#pragma unroll
+        for (int cc = 1; cc < kCh; ++cc) {
+          sb = __fadd_rn(sb, sm.gu[t][cc * (N + 1) + m]);
+          sc = __fadd_rn(sc, sm.dyh[t][cc * (N + 1) + m]);
+        }
+        float* pr = part_b + static_cast<size_t>(t0 + t) * (2 * N);
+        pr[m] = sb;
+        pr[N + m] = sc;
+      }
+    }
+    __syncthreads();
+  }
+  if (live) {
+    dh0[lane] = carry;
+    dA_part[lane] = dA_acc;
+  }
+}
+
+constexpr int kFinishThreads = 256;
+
+// dB and dC: each (b, t, n)'s block partials added in block order,
+// compensated; dA: each (d, n)'s batch rows added in order.
+template <int N>
+__global__ void __launch_bounds__(kFinishThreads)
+    selective_scan_bwd_finish_kernel(const float* __restrict__ part,
+                                     const float* __restrict__ dA_part,
+                                     float* __restrict__ dB,
+                                     float* __restrict__ dC,
+                                     float* __restrict__ dA, int batch,
+                                     int S, int Di, int d_blocks) {
+  const size_t i =
+      static_cast<size_t>(blockIdx.x) * kFinishThreads + threadIdx.x;
+  const size_t rows = static_cast<size_t>(batch) * S;     // (b, t)
+  if (i < rows * N) {
+    const size_t bt = i / N;
+    const int m = static_cast<int>(i % N);
+    const size_t stride = rows * (2 * N);                 // a block's
+    const float* p = part + bt * (2 * N) + m;
+    float sb = 0.f, eb = 0.f, sc = 0.f, ec = 0.f;
+    for (int k = 0; k < d_blocks; ++k, p += stride) {
+      kahan_add(sb, eb, p[0]);
+      kahan_add(sc, ec, p[N]);
+    }
+    dB[i] = sb;
+    dC[i] = sc;
+  }
+  const size_t plane = static_cast<size_t>(Di) * N;
+  if (i < plane) {
+    float s = dA_part[i];
+    for (int bb = 1; bb < batch; ++bb)
+      s = __fadd_rn(s, dA_part[bb * plane + i]);
+    dA[i] = s;
+  }
+}
+
+// ---- launches ----------------------------------------------------------------
+
+template <typename F>
+cudaError_t by_state_dim(int n, F&& f) {
+  switch (n) {
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int N>
+int d_blocks_of(int Di) {
+  return (Di + Cfg<N>::kCh - 1) / Cfg<N>::kCh;
+}
+
 template <typename T, int N>
 cudaError_t launch(const void* x, const float* dt, const float* Bc,
                    const float* Cc, const float* A, const float* h0, void* y,
-                   float* hT, int batch, int S, int Di, cudaStream_t stream) {
-  const int d_blocks = (Di + Cfg<N>::kCh - 1) / Cfg<N>::kCh;
+                   float* hT, float* hs, int batch, int S, int Di,
+                   cudaStream_t stream) {
+  const int d_blocks = d_blocks_of<N>(Di);
   if (static_cast<long long>(batch) * d_blocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
-  selective_scan_kernel<T, N><<<batch * d_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), dt, Bc, Cc, A, h0, static_cast<T*>(y), hT, S,
-      Di, d_blocks);
+  if (hs != nullptr)
+    selective_scan_kernel<T, N, true>
+        <<<batch * d_blocks, kThreads, 0, stream>>>(
+            static_cast<const T*>(x), dt, Bc, Cc, A, h0, static_cast<T*>(y),
+            hT, hs, S, Di, d_blocks);
+  else
+    selective_scan_kernel<T, N, false>
+        <<<batch * d_blocks, kThreads, 0, stream>>>(
+            static_cast<const T*>(x), dt, Bc, Cc, A, h0, static_cast<T*>(y),
+            hT, hs, S, Di, d_blocks);
   return cudaGetLastError();
 }
 
 template <typename T, int N>
-cudaError_t occupancy(int* out) {
+cudaError_t launch_bwd(const void* x, const float* dt, const float* Bc,
+                       const float* Cc, const float* A, const float* hs,
+                       const void* dy, const float* dhT, void* dx, float* ddt,
+                       float* dB, float* dC, float* dA, float* dh0,
+                       float* part, float* dA_part, int part_blocks,
+                       int batch, int S, int Di, cudaStream_t stream) {
+  const int d_blocks = d_blocks_of<N>(Di);
+  if (d_blocks != part_blocks) return cudaErrorInvalidValue;
+  if (static_cast<long long>(batch) * d_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  constexpr size_t smem = sizeof(BwdShared<N>);
+  cudaError_t err = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel<T, N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  selective_scan_bwd_kernel<T, N>
+      <<<batch * d_blocks, kThreads, smem, stream>>>(
+          static_cast<const T*>(x), dt, Bc, Cc, A, hs,
+          static_cast<const T*>(dy), dhT, static_cast<T*>(dx), ddt, part,
+          dA_part, dh0, batch, S, Di, d_blocks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t work = std::max(static_cast<size_t>(batch) * S * N,
+                               static_cast<size_t>(Di) * N);
+  const size_t blocks = (work + kFinishThreads - 1) / kFinishThreads;
+  if (blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
+  selective_scan_bwd_finish_kernel<N>
+      <<<static_cast<unsigned>(blocks), kFinishThreads, 0, stream>>>(
+          part, dA_part, dB, dC, dA, batch, S, Di, d_blocks);
+  return cudaGetLastError();
+}
+
+// out: registers a thread, resident blocks an SM, threads a block, shared
+// memory bytes a block, channels a block
+template <typename K>
+cudaError_t occupancy_of(K kernel, size_t smem, int channels, int* out) {
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, selective_scan_kernel<T, N>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, selective_scan_kernel<T, N>, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = blocks;
   out[2] = kThreads;
-  out[3] = static_cast<int>(attr.sharedSizeBytes);
-  out[4] = Cfg<N>::kCh;
+  out[3] = static_cast<int>(attr.sharedSizeBytes + smem);
+  out[4] = channels;
   return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t dispatch_launch(int n, const void* x, const float* dt,
-                            const float* Bc, const float* Cc, const float* A,
-                            const float* h0, void* y, float* hT, int batch,
-                            int S, int Di, cudaStream_t stream) {
-  switch (n) {
-    case 4:
-      return launch<T, 4>(x, dt, Bc, Cc, A, h0, y, hT, batch, S, Di, stream);
-    case 8:
-      return launch<T, 8>(x, dt, Bc, Cc, A, h0, y, hT, batch, S, Di, stream);
-    case 16:
-      return launch<T, 16>(x, dt, Bc, Cc, A, h0, y, hT, batch, S, Di, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_occupancy(int n, int* out) {
-  switch (n) {
-    case 4: return occupancy<T, 4>(out);
-    case 8: return occupancy<T, 8>(out);
-    case 16: return occupancy<T, 16>(out);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -384,39 +666,93 @@ extern "C" {
 
 // Launch K3 on `stream`.  x, y: (B, S, Di) float32 (x_bf16 = 0) or
 // bfloat16 (x_bf16 = 1); dt (B, S, Di), Bc, Cc (B, S, N), A (Di, N), h0,
-// hT (B, Di, N) float32; all contiguous; N in {4, 8, 16}.  Returns the
-// cudaError_t of the launch (0 = success).
+// hT (B, Di, N) float32; all contiguous; N in {4, 8, 16}.  hs, if not
+// null, receives the state at every chunk's start: (B, ceil(S / 32), Di,
+// N) float32, its chunk 0 h0.  Returns the cudaError_t of the launch (0 =
+// success).
 int selective_scan_fwd(const void* x, const void* dt, const void* Bc,
                        const void* Cc, const void* A, const void* h0,
-                       void* y, void* hT, int x_bf16, int batch, int s_len,
-                       int d_inner, int state_dim, int device,
+                       void* y, void* hT, void* hs, int x_bf16, int batch,
+                       int s_len, int d_inner, int state_dim, int device,
                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   float* ht = static_cast<float*>(hT);
-  if (x_bf16)
-    err = dispatch_launch<__nv_bfloat16>(state_dim, x, f32(dt), f32(Bc),
-                                         f32(Cc), f32(A), f32(h0), y, ht,
-                                         batch, s_len, d_inner, s);
-  else
-    err = dispatch_launch<float>(state_dim, x, f32(dt), f32(Bc), f32(Cc),
-                                 f32(A), f32(h0), y, ht, batch, s_len,
-                                 d_inner, s);
+  float* hsp = static_cast<float*>(hs);
+  err = by_state_dim(state_dim, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    return x_bf16 ? launch<__nv_bfloat16, N>(x, f32(dt), f32(Bc), f32(Cc),
+                                             f32(A), f32(h0), y, ht, hsp,
+                                             batch, s_len, d_inner, s)
+                  : launch<float, N>(x, f32(dt), f32(Bc), f32(Cc), f32(A),
+                                     f32(h0), y, ht, hsp, batch, s_len,
+                                     d_inner, s);
+  });
   return static_cast<int>(err);
 }
 
-// The instance that selective_scan_fwd launches for (x_bf16, state_dim),
+// Launch K3's backward on `stream` (two kernels: the reverse walk, then
+// the sums over blocks and batch rows).  x, dt, Bc, Cc, A as the forward
+// took them; hs the states the forward saved; dy (B, S, Di) in x's dtype;
+// dhT (B, Di, N) float32 or null (zero).  Out: dx (B, S, Di) in x's
+// dtype; ddt (B, S, Di), dB, dC (B, S, N), dA (Di, N), dh0 (B, Di, N)
+// float32.  Scratch: part (part_blocks, B, S, 2N) and dA_part (B, Di, N)
+// float32, part_blocks = ceil(Di / (128 / N)).  All contiguous.  Returns
+// the cudaError_t of the launches (0 = success).
+int selective_scan_bwd(const void* x, const void* dt, const void* Bc,
+                       const void* Cc, const void* A, const void* hs,
+                       const void* dy, const void* dhT, void* dx, void* ddt,
+                       void* dB, void* dC, void* dA, void* dh0, void* part,
+                       void* dA_part, int part_blocks, int x_bf16, int batch,
+                       int s_len, int d_inner, int state_dim, int device,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  err = by_state_dim(state_dim, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    auto go = [&](auto tag) {
+      using T = decltype(tag);
+      return launch_bwd<T, N>(x, f32(dt), f32(Bc), f32(Cc), f32(A), f32(hs),
+                              dy, f32(dhT), dx, out(ddt), out(dB), out(dC),
+                              out(dA), out(dh0), out(part), out(dA_part),
+                              part_blocks, batch, s_len, d_inner, s);
+    };
+    return x_bf16 ? go(__nv_bfloat16{}) : go(float{});
+  });
+  return static_cast<int>(err);
+}
+
+// The instance that selective_scan_fwd (backward = 0; the one that saves
+// no state) or the reverse walk
+// of selective_scan_bwd (backward = 1) launches for (x_bf16, state_dim),
 // on `device`: out[0] registers a thread, out[1] resident blocks an SM,
 // out[2] threads a block, out[3] shared memory bytes a block, out[4]
 // channels a block.
-int selective_scan_occupancy(int x_bf16, int state_dim, int device,
-                             int* out) {
+int selective_scan_occupancy(int x_bf16, int state_dim, int backward,
+                             int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = x_bf16 ? dispatch_occupancy<__nv_bfloat16>(state_dim, out)
-               : dispatch_occupancy<float>(state_dim, out);
+  err = by_state_dim(state_dim, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    constexpr int ch = Cfg<N>::kCh;
+    constexpr size_t smem = sizeof(BwdShared<N>);
+    if (x_bf16)
+      return backward
+                 ? occupancy_of(selective_scan_bwd_kernel<__nv_bfloat16, N>,
+                                smem, ch, out)
+                 : occupancy_of(
+                       selective_scan_kernel<__nv_bfloat16, N, false>, 0, ch,
+                       out);
+    return backward ? occupancy_of(selective_scan_bwd_kernel<float, N>, smem,
+                                   ch, out)
+                    : occupancy_of(selective_scan_kernel<float, N, false>, 0,
+                                   ch, out);
+  });
   return static_cast<int>(err);
 }
 

@@ -1,27 +1,25 @@
 """Public op: the RWKV-6 WKV scan (K4) of rwkv6-1.6b's time mixing.
 
 The reference has no Pallas kernel here: its scan is a ``lax.scan`` over
-time inside ``rwkv_time_mix`` (``repro/models/ssm.py``).  In eager torch
-that loop would launch a few kernels per token and layer, so the port
-runs it as one hand-written kernel on the card (K4) and as the plain
-time loop (``ref.py``) on the CPU; neither falls back to the other.
+time inside ``rwkv_time_mix`` (``repro/models/ssm.py``), differentiated
+by JAX's autodiff.  In eager torch that loop would launch a few kernels
+per token and layer, so the port runs it as one hand-written kernel on
+the card (K4) and as the plain time loop (``ref.py``) on the CPU; neither
+falls back to the other.
 
-K4 has no backward yet: on a CUDA tensor that needs a gradient the op
-raises, so a train step of the RWKV block on the card fails loudly.  On
-the CPU the plain loop is ordinary differentiable torch.
+On a CUDA input that needs a gradient the op is ``_WKV6``: K4's forward
+also saves the state at every chunk's start, and the backward is K4-bwd,
+which recomputes each chunk from its saved state and walks it back.  On
+the CPU the plain loop is ordinary differentiable torch, the reference's
+way of differentiating its scan.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.wkv6.kernel import wkv6_cuda
+from repro_torch.kernels.wkv6.kernel import wkv6_cuda, wkv6_grad_cuda
 from repro_torch.kernels.wkv6.ref import wkv6_plain
-
-NO_BACKWARD = ("K4 (the RWKV-6 WKV scan) has no backward kernel yet: "
-               "training the hybrid SSM and RWKV blocks on the card is "
-               "ROADMAP item 8's next entry (their scans' backward "
-               "kernels, then make_train_step on the card)")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -34,6 +32,35 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
         else t.clone()
 
 
+class _WKV6(torch.autograd.Function):
+    """K4 with K4-bwd as its backward (CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        rkvw = [_aligned(t) for t in (r, k, v, w)]
+        uf = u.float().contiguous()
+        y, sT, hs = wkv6_cuda(*rkvw, uf, s0.contiguous(), save_states=True)
+        ctx.save_for_backward(*rkvw, uf, hs)
+        ctx.u_dtype = u.dtype
+        ctx.set_materialize_grads(False)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        r, k, v, w, uf, hs = ctx.saved_tensors
+        # training never reads sT: its gradient is None, and K4-bwd then
+        # starts the walk from zero
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device) \
+            if dy is None else _aligned(dy)
+        dr, dk, dv, dw, du, ds0 = wkv6_grad_cuda(
+            r, k, v, w, uf, hs, dy,
+            None if dsT is None else dsT.contiguous())
+        # u entered as u.float(): its gradient is cast back once
+        grads = (dr, dk, dv, dw, du.to(ctx.u_dtype), ds0)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
@@ -44,7 +71,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ts = (r, k, v, w, u, s0)
     if any(t.is_cuda for t in ts):
         if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-            raise NotImplementedError(NO_BACKWARD)
+            return _WKV6.apply(*ts)
         return wkv6_cuda(*(_aligned(t) for t in (r, k, v, w)),
                          u.float().contiguous(), s0.contiguous())
     return wkv6_plain(r, k, v, w, u, s0)

@@ -10,6 +10,10 @@ numpy draws from ``default_rng(0)``.
       --smoke --steps 10
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch h2o-danube-1.8b --smoke --steps 2 --device cpu
+
+Every config the port serves trains here, hymba-1.5b and rwkv6-1.6b too
+(their scans' backward is K3-bwd / K4-bwd on the card, e.g. ``--arch
+rwkv6-1.6b --steps 3 --seq 4096``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ return their recurrent state, so one function serves the full sequence
 
 Each scan over time is one op: the selective scan (K3) and the WKV scan
 (K4), hand-written kernels on the card, their plain time loops on the
-CPU (``kernels/selective_scan``, ``kernels/wkv6``).
+CPU (``kernels/selective_scan``, ``kernels/wkv6``).  Both train on the
+card: where an input needs a gradient the op's forward saves the state
+at every chunk's start and its backward is a hand-written kernel too
+(K3-bwd, K4-bwd) that recomputes each chunk from it and walks it back.
 """
 
 from __future__ import annotations

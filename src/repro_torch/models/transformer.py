@@ -24,7 +24,9 @@ Entry points:
 Train and prefill attention run through the flash attention op with KV
 heads unexpanded (K2 on the card; its backward recomputes the blockwise
 scan in ``q_chunk``/``kv_chunk`` blocks); the SSM's and RWKV's scans
-over time run through K3 and K4 on the card.  The cache (KV, and the
+over time run through K3 and K4 on the card, and their backward through
+K3-bwd and K4-bwd (under ``remat`` each layer's scan runs again in the
+backward, with the same bits).  The cache (KV, and the
 SSM's state and conv carry, or RWKV's WKV state and token-shift rows) is
 updated in place: ``prefill`` allocates it and ``decode_step`` writes its
 token into the tensors it is given, returning them with ``pos`` advanced.

@@ -16,9 +16,10 @@ serving regime replayed through ``PlacementService`` on the card against
 the CPU, with a JSONL trace of a served replay, and the RNN baseline on
 the card against the CPU (its reprs under the default cuDNN flags, one
 update's gradient and its greedy placements), K3 and K4 (the SSM's and
-RWKV's scans) against their plain versions and a float64 run, their
-refusal of a gradient, hymba and rwkv at SMOKE on the card against the
-CPU, and the placement decode's batch invariance (a task decoded alone
+RWKV's scans) and their backward kernels (K3-bwd, K4-bwd) against
+their plain versions and a float64 run, the scans' ops training through
+the kernels, hymba and rwkv at SMOKE on the card against the CPU (serve
+and a train step's gradients), and the placement decode's batch invariance (a task decoded alone
 and in batches of 3, 16 and 20: every step's logits bit-equal).
 
 K1's forward adds in the plain version's order, so the two are held bit
@@ -1289,39 +1290,186 @@ def test_wkv6_takes_a_view_off_a_16_byte_boundary(cuda):
     assert all(_same_bits(a, b) for a, b in zip(got, want))
 
 
-def test_scans_refuse_a_gradient_on_cuda(cuda):
-    """K3 and K4 have no backward: a CUDA input that needs a gradient
-    raises and names the ROADMAP item; under no_grad they launch."""
+def _grad_f64_rule(got, plain, ref64):
+    """Every gradient by ``_f64_rule``; returns the errors."""
+    return [_f64_rule(g, p, r) for g, p, r in zip(got, plain, ref64)]
+
+
+# a scan cut by the chunks (K3's 32 steps, K4's 16) and one step long
+GRAD_SCAN_SHAPES = [(2, 96, 512, 8), (2, 70, 3200, 16), (2, 1, 3200, 16),
+                    (3, 33, 77, 16), (1, 17, 99, 4), (2, 31, 101, 8)]
+GRAD_WKV_SHAPES = [(2, 96, 4), (2, 40, 32), (2, 1, 32), (3, 17, 5),
+                   (1, 15, 1)]
+
+
+@pytest.mark.parametrize("shape", GRAD_SCAN_SHAPES, ids=str)
+def test_selective_scan_backward_matches_plain(cuda, shape):
+    """K3-bwd against the plain backward and a float64 run of it by the
+    float64 rule, every gradient, on float32 and bf16 x, from a nonzero
+    h0, with dhT given and None; the forward's saved chunk states equal
+    plain's bit for bit."""
+    from repro_torch.kernels.selective_scan.kernel import (
+        selective_scan_cuda, selective_scan_grad_cuda)
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_plain, selective_scan_states_plain)
+    ins = _scan_inputs(cuda, *shape)
+    g = torch.Generator().manual_seed(1)
+    dy32 = torch.randn(ins[0].shape, generator=g).to(cuda)
+    dhT = torch.randn(ins[5].shape, generator=g).to(cuda)
+    for xdt, dh in ((torch.float32, dhT), (torch.bfloat16, None)):
+        args = [ins[0].to(xdt)] + ins[1:]
+        dy = dy32.to(xdt)
+        _, _, hs = selective_scan_cuda(*args, save_states=True)
+        assert _same_bits(hs, selective_scan_states_plain(*args)[2])
+        n0 = selective_scan_grad_cuda.launches
+        got = selective_scan_grad_cuda(*args[:5], hs, dy, dh)
+        torch.cuda.synchronize()
+        assert selective_scan_grad_cuda.launches == n0 + 1
+        assert got[0].dtype == xdt
+        plain = selective_scan_bwd_plain(*args, dy, dh)
+        ref64 = selective_scan_bwd_plain(
+            *(t.double() for t in args), dy.double(),
+            None if dh is None else dh.double())
+        _grad_f64_rule(got, plain, ref64)
+
+
+@pytest.mark.parametrize("shape", GRAD_WKV_SHAPES, ids=str)
+def test_wkv6_backward_matches_plain(cuda, shape):
+    """K4-bwd against the plain backward and a float64 run of it by the
+    float64 rule, every gradient, on float32 and bf16 r, k, v, from a
+    nonzero s0, with dsT given and None; the forward's saved chunk
+    states equal plain's bit for bit."""
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda, wkv6_grad_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_states_plain
+    ins = _wkv_inputs(cuda, *shape)
+    g = torch.Generator().manual_seed(1)
+    dy = torch.randn(ins[0].shape, generator=g).to(cuda)
+    dsT = torch.randn(ins[5].shape, generator=g).to(cuda)
+    for dt, ds in ((torch.float32, dsT), (torch.bfloat16, None)):
+        args = [t.to(dt) for t in ins[:3]] + ins[3:]
+        _, _, hs = wkv6_cuda(*args, save_states=True)
+        assert _same_bits(hs, wkv6_states_plain(*args)[2])
+        n0 = wkv6_grad_cuda.launches
+        got = wkv6_grad_cuda(*args[:5], hs, dy, ds)
+        torch.cuda.synchronize()
+        assert wkv6_grad_cuda.launches == n0 + 1
+        assert all(t.dtype == dt for t in got[:3])
+        plain = wkv6_bwd_plain(*args, dy, ds)
+        ref64 = wkv6_bwd_plain(*(t.double() for t in args), dy.double(),
+                               None if ds is None else ds.double())
+        _grad_f64_rule(got, plain, ref64)
+
+
+def test_scan_backwards_give_the_same_bits_twice(cuda):
+    """Two launches of K3-bwd and of K4-bwd on one input write the same
+    bits: every sum runs in a fixed order, with no atomics."""
+    from repro_torch.kernels.selective_scan.kernel import (
+        selective_scan_cuda, selective_scan_grad_cuda)
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda, wkv6_grad_cuda
+    for fwd, bwd, ins in (
+            (selective_scan_cuda, selective_scan_grad_cuda,
+             _scan_inputs(cuda, 2, 257, 3200, 16)),
+            (wkv6_cuda, wkv6_grad_cuda, _wkv_inputs(cuda, 2, 257, 32))):
+        n = 1 if fwd is selective_scan_cuda else 3
+        for dt in (torch.float32, torch.bfloat16):
+            args = [t.to(dt) for t in ins[:n]] + ins[n:]
+            y, last, hs = fwd(*args, save_states=True)
+            dy = torch.randn_like(y.float()).to(y.dtype)
+            dlast = torch.randn_like(last)
+            a = bwd(*args[:5], hs, dy, dlast)
+            b = bwd(*args[:5], hs, dy, dlast)
+            assert all(_same_bits(p, q) for p, q in zip(a, b))
+
+
+def test_scan_ops_train_through_the_kernels(cuda):
+    """A CUDA input that needs a gradient runs K3 / K4 forward once and
+    their backward once, never the plain loops, and autograd gets the
+    plain backward's gradients by the float64 rule; K4's op takes a view
+    off a 16-byte boundary (copied) and gives the aligned input's bits."""
     from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan.kernel import (
+        selective_scan_cuda, selective_scan_grad_cuda)
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_plain
     from repro_torch.kernels.wkv6 import ops as wkv_ops
-    ins = _scan_inputs(cuda, 1, 8, 128, 8)
-    ins[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        scan_ops.selective_scan(*ins)
-    with torch.no_grad():
-        scan_ops.selective_scan(*ins)
-    ins = _wkv_inputs(cuda, 1, 8, 2)
-    ins[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        wkv_ops.wkv6(*ins)
+    from repro_torch.kernels.wkv6.kernel import wkv6_cuda, wkv6_grad_cuda
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain loop ran on the train path")
+
+    ins = _scan_inputs(cuda, 2, 45, 200, 16)
+    dy = torch.randn_like(ins[0])
+    counts = (selective_scan_cuda.launches, selective_scan_grad_cuda.launches)
+    live = [t.clone().requires_grad_(True) for t in ins]
+    orig = scan_ops.selective_scan_plain
+    scan_ops.selective_scan_plain = no_plain
+    try:
+        y, _ = scan_ops.selective_scan(*live)
+        got = torch.autograd.grad(y, live, dy)
+    finally:
+        scan_ops.selective_scan_plain = orig
+    assert (selective_scan_cuda.launches - counts[0],
+            selective_scan_grad_cuda.launches - counts[1]) == (1, 1)
+    _grad_f64_rule(got, selective_scan_bwd_plain(*ins, dy),
+                   selective_scan_bwd_plain(*(t.double() for t in ins),
+                                            dy.double()))
+
+    ins = _wkv_inputs(cuda, 2, 20, 3)
+    buf = torch.empty(ins[0].numel() + 1, device=cuda)
+    r_off = buf[1:].view(ins[0].shape)             # 4 bytes past a boundary
+    r_off.copy_(ins[0])
+    dy = torch.randn_like(ins[0])
+    runs = []
+    for r in (r_off, ins[0]):
+        # detach keeps the view's place in its storage
+        live = [t.detach().requires_grad_(True) for t in [r] + ins[1:]]
+        counts = (wkv6_cuda.launches, wkv6_grad_cuda.launches)
+        y, _ = wkv_ops.wkv6(*live)
+        runs.append(torch.autograd.grad(y, live, dy))
+        assert (wkv6_cuda.launches - counts[0],
+                wkv6_grad_cuda.launches - counts[1]) == (1, 1)
+    assert r_off.storage_offset() % 4
+    assert all(_same_bits(a, b) for a, b in zip(*runs))
+    _grad_f64_rule(runs[1], wkv6_bwd_plain(*ins, dy),
+                   wkv6_bwd_plain(*(t.double() for t in ins), dy.double()))
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
-def test_ssm_train_step_on_cuda_raises(cuda, arch):
-    """make_train_step of these blocks on the card fails loudly (no
-    quiet plain backward)."""
+@pytest.mark.parametrize("remat", [False, True])
+def test_ssm_train_step_on_cuda_matches_cpu(cuda, no_tf32, arch, remat):
+    """SMOKE, float32, seeded: ``make_grad_fn`` on the card (K2, K3 / K4
+    and their backward) against the CPU's plain autograd: the loss within
+    1e-5 and every gradient leaf within 1e-4 of its largest entry; K3-bwd
+    / K4-bwd launched once a layer, the forward scan once a layer (twice
+    under remat, which re-runs each layer in the backward)."""
     from repro_torch.configs import get_smoke
+    from repro_torch.kernels.selective_scan import kernel as SSK
+    from repro_torch.kernels.wkv6 import kernel as WKK
     from repro_torch.launch import steps as ST
-    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.models.transformer import map_params
     cfg = get_smoke(arch).resolve(1)
-    model = ST.build_model(cfg, remat=False, dtype=torch.float32,
-                           device=cuda)
-    params = model.init_params(0)
-    opt, step = ST.make_train_step(model)
-    state = opt.init(tree_leaves(params))
-    tokens = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        step(params, state, {"tokens": tokens, "labels": tokens})
+    fwd, bwd = ((SSK.selective_scan_cuda, SSK.selective_scan_grad_cuda)
+                if arch == "hymba-1.5b" else
+                (WKK.wkv6_cuda, WKK.wkv6_grad_cuda))
+    rng = np.random.default_rng(3)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 80)),
+                                dtype=torch.int32) for k in ("tokens",
+                                                             "labels")}
+    gpu = ST.build_model(cfg, remat=remat, dtype=torch.float32, device=cuda)
+    cpu = ST.build_model(cfg, remat=remat, dtype=torch.float32, device="cpu")
+    params = gpu.init_params(0)
+    cparams = map_params(lambda t: t.cpu().clone(), params)
+    n0 = (fwd.launches, bwd.launches)
+    grads, loss, _ = ST.make_grad_fn(gpu)(
+        params, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (fwd.launches - n0[0], bwd.launches - n0[1]) == (
+        cfg.n_layers * (2 if remat else 1), cfg.n_layers)
+    cgrads, closs, _ = ST.make_grad_fn(cpu)(cparams, batch)
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for g, c in zip(grads, cgrads):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * max(
+            float(c.abs().max()), 1e-30)
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])

@@ -15,7 +15,9 @@ parameter tree is held to the reference's layout, at SMOKE and at full
 width (by ``param_layout`` against ``jax.eval_shape``, allocating
 nothing), and carried both ways bit for bit.  On the CPU the scans are
 the plain time loops, so the blocks train; the train step's loss is held
-to the reference's ``forward_loss`` at the same weights.
+to the reference's ``forward_loss`` at the same weights, its gradients
+leaf by leaf to ``jax.grad`` of it (1e-4 of each leaf's largest entry),
+and remat's gradients to those without remat bit for bit.
 """
 
 import dataclasses
@@ -284,3 +286,62 @@ def test_train_step_on_the_cpu(arch):
     assert np.isfinite(float(metrics["loss"]))
     assert all(not torch.equal(a, b)
                for a, b in zip(before, tree_leaves(params)))
+
+
+def _train_batch(vocab):
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, vocab, (2, 64)).astype(np.int32)
+    labels = rng.integers(0, vocab, (2, 64)).astype(np.int32)
+    return tokens, labels
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gradients_are_the_reference(arch):
+    """``make_grad_fn`` at the JAX weights (float32, the plain loops'
+    autograd) against ``jax.grad`` of the reference's ``forward_loss``:
+    every leaf within 1e-4 of that leaf's largest entry."""
+    model, tree = _jax_params(arch, jnp.float32)
+    tokens, labels = _train_batch(model.cfg.vocab)
+    jgrads = jax.jit(jax.grad(
+        lambda p: model.forward_loss(p, tokens, labels)[0]))(
+            jax.tree.map(jnp.asarray, tree))
+    ours = ST.build_model(C.get_smoke(arch).resolve(1), remat=False,
+                          dtype=torch.float32, device="cpu")
+    grads, _, _ = ST.make_grad_fn(ours)(
+        params_from_jax(tree), {"tokens": torch.as_tensor(tokens),
+                                "labels": torch.as_tensor(labels)})
+    want = tree_leaves(params_from_jax(jax.tree.map(np.asarray, jgrads)))
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * max(top, 1e-30), top
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_the_same_gradient_bits(arch):
+    """Each layer under ``torch.utils.checkpoint`` re-runs its scans in
+    the backward: the gradients equal those without remat bit for bit.
+    Deterministic algorithms are on: with several CPU threads the
+    embedding gather's backward (``index_put_`` with accumulate) adds a
+    repeated token's rows in a varying order, so two runs without remat
+    differ there too."""
+    cfg = C.get_smoke(arch).resolve(1)
+    tokens, labels = _train_batch(cfg.vocab)
+    batch = {"tokens": torch.as_tensor(tokens),
+             "labels": torch.as_tensor(labels)}
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in (False, True):
+            model = ST.build_model(cfg, remat=remat, dtype=torch.float32,
+                                   device="cpu")
+            grads, loss, _ = ST.make_grad_fn(model)(model.init_params(0),
+                                                    batch)
+            runs.append((grads, loss))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (g0, l0), (g1, l1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))

@@ -3270,12 +3270,14 @@ def train_profile(torch, step, params, state, batch, spans=None,
             and not _under(e, pred)
             and not (outside and (outside(e) or _under(e, outside)))) / 1e3
     ms = {**by_class, "attention backward": recompute, **more}
+    from repro_torch.profiling.microbench import kernel_name
     out = {"wall_ms": wall_ms, "kernel_ms": busy,
            "idle_share": 1 - busy / wall_ms if busy else None,
            "ms": ms,
            "share": {k: v / busy for k, v in ms.items()} if busy else None,
            "top": [{"name": k[:80], "ms": ms, "calls": n}
-                   for k, ms, n in rows[:10]]}
+                   for k, ms, n in rows[:10]],
+           "ms_a_launch": {kernel_name(k): ms / n for k, ms, n in rows if n}}
     if busy:
         classes = sorted(by_class, key=lambda k: -by_class[k])
         log(f"[{tag}] wall {wall_ms:.1f} ms under the profiler, kernels "
@@ -4138,6 +4140,11 @@ SSM_SERIAL_DESIGN = {"hymba-1.5b": {"prefill_ms": (394.5, 400.9),
 # K3's and K4's times at the yardstick with the serial scans on that card;
 # a kernel that takes half of it or more has fallen back to that design
 SSM_SERIAL_MS = {"selective_scan": 3.274, "wkv6": 5.164}
+# K3-bwd's and K4-bwd's times (both launches) at the train shape in their
+# first design (2 blocks an SM with the walk's products in shared memory;
+# a head over 2 blocks, one an SM) on that card; a backward that takes
+# 3/4 of it or more has gone back to that design
+SSM_GRAD_FIRST_MS = {"selective_scan_bwd": 4.05, "wkv6_bwd": 3.96}
 
 
 def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
@@ -4791,16 +4798,27 @@ def _spills(library, needle: str) -> str:
 def scan_grad_yardstick(torch, kernel, args, occupancy, *, name: str,
                         source: str, replaces: str, spills: str,
                         nbytes: int, ops: int, exps: int, err: float,
-                        plain_ms: float, summary: dict) -> dict:
+                        plain_ms: float, train_launch_ms: dict,
+                        summary: dict) -> dict:
     """16 (e): a backward kernel's median of 10 after 2 warm-ups at the
-    train shape beside the bound (the largest of the bytes, the float32
-    operations and the exponentials at the SFU's rate), its registers,
-    resident warps and spills, and the plain backward's time from (c)."""
+    train shape (its two launches, as the caller sees them) beside the
+    bound (the largest of the bytes, the float32 operations and the
+    exponentials at the SFU's rate); the main and the finish kernel apart
+    (device ms a launch in the profiled train step, ``train_launch_ms``);
+    its cluster size, resident clusters and waves, registers, resident
+    warps, shared memory and spills; the plain backward's time from (c).
+    Fails if it takes 3/4 of its first design's time or more."""
     from repro_torch.profiling.microbench import median_time_ms
     n0 = kernel.launches
     with torch.no_grad():
         ms = median_time_ms(kernel, args, warmup=2, repeats=10)
     kernel.launches = n0
+    main_ms = train_launch_ms.get(f"{name}_kernel")
+    finish_ms = train_launch_ms.get(f"{name}_finish_kernel")
+    apart = ("main + finish kernel a launch in the profiled train step "
+             + (f"{main_ms:.3f} + {finish_ms:.3f} ms"
+                if main_ms is not None and finish_ms is not None
+                else "not measured"))
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "float32 operations": ops / F32_FLOP_PER_S * 1e3,
              "exp (SFU)": exps / SFU_EXP_PER_S * 1e3}
@@ -4810,8 +4828,14 @@ def scan_grad_yardstick(torch, kernel, args, occupancy, *, name: str,
            "plain_ms": plain_ms, "bound_ms": terms[term],
            "bound_by": "bytes" if term == "bytes" else "operations",
            "bound_term": term, "library_ms": None,
+           "main_ms": main_ms, "finish_ms": finish_ms,
+           "cluster_size": occupancy["cluster_size"],
+           "active_clusters": occupancy["active_clusters"],
+           "waves": occupancy["waves"],
            "registers": occupancy["registers"],
-           "warps_per_sm": occupancy["warps_per_sm"], "spills": spills}
+           "warps_per_sm": occupancy["warps_per_sm"],
+           "smem_bytes": occupancy["smem_bytes"], "spills": spills,
+           "first_design_ms": SSM_GRAD_FIRST_MS[name]}
     summary.setdefault("ssm_grad_yardstick", {})[name] = {
         "bytes": nbytes, "ops": ops, "exps": exps, "bound_terms_ms": terms,
         "bound_share": row["bound_ms"] / ms, "occupancy": occupancy, **row}
@@ -4819,10 +4843,18 @@ def scan_grad_yardstick(torch, kernel, args, occupancy, *, name: str,
         f" of the bound {row['bound_ms']:.3f} ms, {term}: {nbytes / 1e9:.3f} "
         f"GB {terms['bytes']:.3f} ms, {ops / 1e9:.2f} G float32 ops "
         f"{terms['float32 operations']:.3f} ms, {exps / 1e9:.3f} G exp "
-        f"{terms['exp (SFU)']:.3f} ms); plain backward {plain_ms:.1f} ms "
-        f"(one run); {occupancy['registers']} registers, "
-        f"{occupancy['warps_per_sm']} warps an SM, {spills}; no single "
-        "PyTorch call computes it (library: none)")
+        f"{terms['exp (SFU)']:.3f} ms); {apart}; first design "
+        f"{SSM_GRAD_FIRST_MS[name]} ms; plain backward {plain_ms:.1f} ms "
+        f"(one run); clusters of {occupancy['cluster_size']}, "
+        f"{occupancy['active_clusters']} resident, "
+        f"{occupancy['clusters']} in the grid ({occupancy['waves']:.2f} "
+        f"waves); {occupancy['registers']} registers, "
+        f"{occupancy['warps_per_sm']} warps an SM, "
+        f"{occupancy['smem_bytes']} bytes of shared memory a block, {spills};"
+        " no single PyTorch call computes it (library: none)")
+    check(ms < 0.75 * SSM_GRAD_FIRST_MS[name],
+          f"{name}: {ms:.3f} ms is not below 3/4 of the first design's "
+          f"{SSM_GRAD_FIRST_MS[name]} ms")
     return row
 
 
@@ -4861,7 +4893,7 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
     n_el = B * S * Di
     rows["k3_bwd"] = scan_grad_yardstick(
         torch, SS.selective_scan_grad_cuda, (x, dt, Bc, Cc, A, hs, dy),
-        SS.selective_scan_grad_cuda.occupancy(x.dtype, N),
+        SS.selective_scan_grad_cuda.occupancy(x.dtype, N, shape=x.shape),
         name="selective_scan_bwd",
         source="src/repro_torch/csrc/selective_scan.cu",
         replaces="src/repro/models/ssm.py:55 (JAX's autodiff transpose of "
@@ -4877,7 +4909,9 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
         # sums over n (du, z A) and over channels (g u, dy h)
         ops=18 * n_el * N, exps=n_el * N,
         err=checks["k3_bwd"]["float32"]["max_abs_vs_plain"],
-        plain_ms=checks["k3_bwd"]["plain_ms"], summary=summary)
+        plain_ms=checks["k3_bwd"]["plain_ms"],
+        train_launch_ms=summary["ssm_train"]["hymba-1.5b"]["profile"][
+            "ms_a_launch"], summary=summary)
     del args, x, dt, Bc, Cc, A, h0, hs, dy
     torch.cuda.empty_cache()
     legs["e yardsticks"] += time.perf_counter() - t0
@@ -4902,7 +4936,8 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
     n_el = B * S * H * hd
     rows["k4_bwd"] = scan_grad_yardstick(
         torch, WK.wkv6_grad_cuda, (r, k, v, w, u, hs, dy),
-        WK.wkv6_grad_cuda.occupancy(r.dtype), name="wkv6_bwd",
+        WK.wkv6_grad_cuda.occupancy(r.dtype, shape=r.shape),
+        name="wkv6_bwd",
         source="src/repro_torch/csrc/wkv6.cu",
         replaces="src/repro/models/ssm.py:151 (JAX's autodiff transpose of "
                  "rwkv_time_mix's lax.scan; no Pallas kernel)",
@@ -4916,7 +4951,9 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
         # G v, G k each a product and a sum, and G's update (3)
         ops=14 * n_el * hd, exps=0,
         err=checks["k4_bwd"]["float32"]["max_abs_vs_plain"],
-        plain_ms=checks["k4_bwd"]["plain_ms"], summary=summary)
+        plain_ms=checks["k4_bwd"]["plain_ms"],
+        train_launch_ms=summary["ssm_train"]["rwkv6-1.6b"]["profile"][
+            "ms_a_launch"], summary=summary)
     del args, r, k, v, w, u, s0, hs, dy
     torch.cuda.empty_cache()
     legs["e yardsticks"] += time.perf_counter() - t0

@@ -34,6 +34,8 @@ from repro_torch.embedding.plan import build_plan
 # tasks in every decode call: one fixed count makes the decode
 # batch-invariant (the service's default max_batch)
 DECODE_BATCH = 16
+# the default bucket granularity: table counts padded up to a multiple
+BUCKET_TABLES = 8
 
 
 def pad_feature_batch(entries, m_pad: int, b_pad: int | None = None):
@@ -54,6 +56,35 @@ def pad_feature_batch(entries, m_pad: int, b_pad: int | None = None):
         sizes[j, :m] = s
         tmask[j, :m] = 1.0
     return feats, sizes, tmask
+
+
+def pad_tables(m: int, bucket: int = BUCKET_TABLES) -> int:
+    """``m`` tables padded up to a multiple of ``bucket``: the table count
+    a task is decoded at."""
+    return -(-m // bucket) * bucket
+
+
+def decode_padded(agent, entries, m_pad: int, n_devices: int,
+                  n_candidates: int) -> tuple[np.ndarray, np.ndarray]:
+    """Decode at most ``DECODE_BATCH`` tasks' sorted ``(feats, sizes)``
+    ``entries`` in one ``decode_candidates`` call on the agent's device,
+    padded to ``m_pad`` tables and ``DECODE_BATCH`` tasks -> (actions
+    (DECODE_BATCH, K, m_pad), est (DECODE_BATCH, K)) as numpy.  Every call
+    has that one shape per bucket, so a task's rows get the same bits
+    whatever tasks share the call."""
+    cfg = agent.cfg
+    feats, sizes, tmask = pad_feature_batch(entries, m_pad, DECODE_BATCH)
+    dev = agent.device
+    actions, est = R.decode_candidates(
+        agent.policy_net, agent.cost_net,
+        torch.as_tensor(feats, device=dev),
+        torch.as_tensor(sizes, device=dev),
+        agent.oracle.mem_capacity_gb, n_devices=n_devices,
+        n_candidates=n_candidates,
+        tmask=torch.as_tensor(tmask, device=dev),
+        use_cost=cfg.use_cost_features, reward_mode=cfg.reward_mode,
+        log_targets=agent._log_targets)
+    return actions.cpu().numpy(), est.cpu().numpy()
 
 
 def pad_device_mask(device_counts, d_pad: int) -> np.ndarray:
@@ -83,7 +114,7 @@ class PlacementSession:
     """
 
     def __init__(self, agent, n_candidates: int | None = None,
-                 bucket_tables: int = 8, refiner=None):
+                 bucket_tables: int = BUCKET_TABLES, refiner=None):
         self.agent = agent
         self._n_candidates_override = n_candidates
         self.bucket_tables = max(1, bucket_tables)
@@ -103,12 +134,9 @@ class PlacementSession:
             return self._n_candidates_override
         return self.agent.cfg.inference_candidates
 
-    def _pad_tables(self, m: int) -> int:
-        b = self.bucket_tables
-        return int(np.ceil(m / b) * b)
-
     def bucket_key(self, task: Task) -> tuple[int, int]:
-        return (self._pad_tables(task.n_tables), task.n_devices)
+        return (pad_tables(task.n_tables, self.bucket_tables),
+                task.n_devices)
 
     def place_many(self, tasks: list[Task]) -> list[Placement]:
         """Place a suite, decoding each ``(M_pad, D)`` bucket in calls of
@@ -133,35 +161,23 @@ class PlacementSession:
         ``DECODE_BATCH`` of one bucket) in one call padded to
         ``DECODE_BATCH`` tasks; the placements go to ``out[i]``."""
         agent = self.agent
-        cfg = agent.cfg
         B, b_pad = len(idxs), DECODE_BATCH
         entries, orders = [], []
         for i in idxs:
             f, s, order = agent._inference_inputs(tasks[i].raw_features)
             entries.append((f[order], s[order]))
             orders.append(order)
-        feats, sizes, tmask = pad_feature_batch(entries, m_pad, b_pad)
         shape = (m_pad, n_devices, self.n_candidates, b_pad)
         fresh = shape not in self._shapes
         if fresh:
             self._shapes.add(shape)
             self.num_compiles += 1
             tele.count("session.bucket_compiles")
-        dev = agent.device
         with tele.span("session.decode", m_pad=m_pad,
                        n_devices=n_devices, tasks=B, b_pad=b_pad,
                        fresh_compile=fresh):
-            actions, est = R.decode_candidates(
-                agent.policy_net, agent.cost_net,
-                torch.as_tensor(feats, device=dev),
-                torch.as_tensor(sizes, device=dev),
-                agent.oracle.mem_capacity_gb, n_devices=n_devices,
-                n_candidates=self.n_candidates,
-                tmask=torch.as_tensor(tmask, device=dev),
-                use_cost=cfg.use_cost_features,
-                reward_mode=cfg.reward_mode,
-                log_targets=agent._log_targets)
-            actions, est = actions.cpu().numpy(), est.cpu().numpy()
+            actions, est = decode_padded(agent, entries, m_pad, n_devices,
+                                         self.n_candidates)
         self.num_decode_calls += 1
         tele.count("session.decode_calls")
         for j, i in enumerate(idxs):

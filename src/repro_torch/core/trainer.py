@@ -31,7 +31,8 @@ import torch
 from repro_torch import telemetry as tele
 from repro_torch.api.oracle import (CostOracle, ensure_oracle, evaluate_many,
                                     legal_batch)
-from repro_torch.api.session import pad_device_mask, pad_feature_batch
+from repro_torch.api.session import (decode_padded, pad_device_mask,
+                                     pad_feature_batch, pad_tables)
 from repro_torch.checkpoint import restore_pytree, save_pytree
 from repro_torch.core import features as F
 from repro_torch.core import networks as N
@@ -530,22 +531,25 @@ class DreamShard:
                        ) -> tuple[np.ndarray, float]:
         """Algorithm 2 (hardware-free inference): greedy argmax decode, plus
         optional sampled candidates ranked by the estimated cost.  Returns
-        ``(assignment, estimated_cost_ms_of_the_chosen_candidate)``."""
+        ``(assignment, estimated_cost_ms_of_the_chosen_candidate)``.
+
+        The task is decoded as a ``PlacementSession`` of the default
+        ``bucket_tables`` decodes it, padded by ``pad_tables`` in a call of
+        ``DECODE_BATCH`` tasks, so both give it the same bits on any
+        device (a lone task at its own table count runs other GEMM
+        shapes, whose sums round differently on the card; so does a
+        session of another bucket)."""
         feats, sizes, order = self._inference_inputs(raw_features)
         k = self.cfg.inference_candidates if n_candidates is None \
             else n_candidates
-        actions, est = R.decode_candidates(
-            self.policy_net, self.cost_net,
-            torch.as_tensor(feats[order], device=self.device),
-            torch.as_tensor(sizes[order], device=self.device),
-            self.oracle.mem_capacity_gb, n_devices=n_devices,
-            n_candidates=k, use_cost=self.cfg.use_cost_features,
-            reward_mode=self.cfg.reward_mode, log_targets=self._log_targets)
-        actions, est = actions.cpu().numpy(), est.cpu().numpy()
-        best = int(np.argmin(est))
-        assignment = np.empty(raw_features.shape[0], dtype=np.int64)
-        assignment[order] = actions[best]
-        return assignment, float(est[best])
+        m = raw_features.shape[0]
+        actions, est = decode_padded(
+            self, [(feats[order], sizes[order])], pad_tables(m), n_devices,
+            k)
+        best = int(np.argmin(est[0]))
+        assignment = np.empty(m, dtype=np.int64)
+        assignment[order] = actions[0, best, :m]
+        return assignment, float(est[0, best])
 
     def place(self, raw_features: np.ndarray, n_devices: int,
               n_candidates: int | None = None) -> np.ndarray:

@@ -55,16 +55,21 @@
 //   dw_t[i] = sum_j G_t[i][j] s_{t-1}[i][j],
 //   dk_t = (G_t + (r_t u) dy_t^T) v_t,  dv_t = (G_t + (r_t u) dy_t^T)^T k_t,
 //   du[i] = sum_{b,t} r_t[i] k_t[i] (dy_t . v_t),  ds0 = G_0.
-// A chunk's 16 states of a head (256 KB) do not fit in shared memory, so
-// a head's rows are split over 2 blocks and a block keeps its half (128
-// KB) of the chunk's states; w is never inverted to step a state back
-// (it can be tiny).  Only dv sums across the head's blocks: each leaves
-// its share and a second kernel adds them in order (no float atomics).
-// K4-bwd's bound at (2, 4096, 32, 64): 14 float32 operations a state
-// element and step (3 to recompute the state; dy s, G s, G v, G k each a
-// product and a sum; G's update 3), 1.5e10, 0.224 ms; bytes 0.67 GB with
-// the saved states, 0.200 ms.  One block of 4 warps an SM: a first
-// design, right before fast.
+// A head's rows are split over 8 blocks of 4 warps launched as one
+// thread block cluster, and a thread keeps half a chunk of its states in
+// registers (96 a thread, 5 blocks resident an SM: rwkv's 64 heads, 512
+// blocks, run in one wave); w is never inverted to step a state back (it
+// can be tiny).  Only dv sums across the head's blocks: a chunk's dv is
+// added through distributed shared memory while the blocks walk the next
+// chunk, so nothing but du (over batch rows) is left to a second kernel
+// (no float atomics).  K4-bwd's bound at (2, 4096, 32, 64): 14 float32
+// operations a state element and step (3 to recompute the state; dy s, G
+// s, G v, G k each a product and a sum; G's update 3), 1.5e10, 0.224 ms;
+// bytes 0.67 GB with the saved states, 0.200 ms.  This design issues
+// about 25 instructions a state element and step (the state recomputed
+// 22 steps a chunk of 16; a row's three sums and a column's sum folded
+// across lanes by shuffles, a third of them): it is bound by instruction
+// issue.
 //
 // Bound: operations.  7 float32 operations a state element and step in
 // the reference's grouping: at (2, 8192, 32, 64) 1.5e10, 0.224 ms at 67
@@ -75,12 +80,16 @@
 // bound by instruction latency and the shared-memory pipe, not by the
 // float32 rate.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -367,243 +376,390 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- K4's backward ---------------------------------------------------------
 
-constexpr int kBRows = 32;                    // state rows a block
-constexpr int kBSlices = kHead / kBRows;      // blocks a head
-constexpr int kBLanes = 8;                    // lanes a row group
-constexpr int kBCols = kHead / kBLanes;       // columns a thread: l + 8 m
-constexpr int kBRowsT = 2;                    // rows a thread
-constexpr int kBGroupsW = 32 / kBLanes;       // row groups a warp
+constexpr int kBSlices = 8;                   // blocks a head: one cluster
+constexpr int kBRows = kHead / kBSlices;      // state rows a block
 constexpr int kBWarps = kThreads / 32;
-constexpr int kBElems = kBRowsT * kBCols;     // state elements a thread
-static_assert(kBWarps * kBGroupsW * kBRowsT == kBRows &&
-                  kBSlices * kBRows == kHead,
-              "backward layout");
+constexpr int kBColsW = kHead / kBWarps;      // columns a warp
+constexpr int kBColsT = 4;                    // columns a thread
+constexpr int kBQuads = kBColsW / kBColsT;    // lanes a row in a warp
+constexpr int kBwdBlocksPerSm = 5;            // the launch bound: 96
+                                              // registers a thread
+constexpr int kHalf = kChunk / 2;             // states a thread keeps
+static_assert(kBRows * kBQuads == 32 && kBQuads == 4 && kBRows == 8 &&
+                  kChunk * kBRows == kThreads,
+              "backward layout: a warp's lanes are 8 rows x 4 column quads; "
+              "the finishing pass a (step, row) a thread");
 
-struct BwdShared {
-  // s_{t-1} of a thread's elements at step t of the chunk, in its own
-  // slots [t][e][thread] (so its stores and loads never meet another's)
-  float st[kChunk][kBElems][kThreads];
-  float r[kChunk][kHead];                     // the chunk's rows, float32
-  float k[kChunk][kHead];
-  float w[kChunk][kHead];
-  float v[kChunk][kHead];
-  float dy[kChunk][kHead];
-  float u[kHead];
-  float dyv[kChunk];                          // dy . v a step
-  float ruk[kChunk];                          // sum_i r u k a step
-  float col[kChunk][kBWarps][kHead];          // a warp's sum of g k
+// The thread block cluster: its barrier, whole or as its two halves (so
+// that a block goes on with its own work while its peers still read its
+// shared memory), and its peers' shared memory.
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ const float* peer(const float* p, int rank) {
+  return cg::this_cluster().map_shared_rank(const_cast<float*>(p), rank);
+}
+
+// Lanes L and L ^ bit each hold a pair (a, b): the lane whose bit is
+// clear returns its a plus its partner's a, the other lane its b plus its
+// partner's b (one shuffle for two sums).
+__device__ __forceinline__ float fold(float a, float b, int lane, int bit) {
+  const bool hi = lane & bit;
+  const float keep = hi ? b : a, send = hi ? a : b;
+  return __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, bit));
+}
+
+// v[0..M) summed over the lanes that differ in the bits kBit, kBit / 2,
+// ..., kLo, in that fixed order.  While more than one value is left, each
+// round folds the upper half of v onto the lower (`fold`), so v[i] ends
+// as the sum of the values first at index base + i, base from the lane's
+// bits; a round with one value left adds it across the bit (both lanes
+// then hold the sum).
+template <int kLo, int kBit, int M, int kN>
+__device__ __forceinline__ void fold_sum(float (&v)[kN], int lane,
+                                         int& base) {
+  if constexpr (kBit >= kLo) {
+    if constexpr (M > 1) {
+      constexpr int h = M / 2;
+#pragma unroll
+      for (int i = 0; i < h; ++i) v[i] = fold(v[i], v[i + h], lane, kBit);
+      if (lane & kBit) base += h;
+      fold_sum<kLo, kBit / 2, h>(v, lane, base);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], kBit));
+      fold_sum<kLo, kBit / 2, 1>(v, lane, base);
+    }
+  }
+}
+
+// One ring buffer of K4-bwd: a chunk's inputs as cp.async left them, the
+// block's rows of r, k, w and of the state at the chunk's start, and all
+// the columns of v and dy.
+template <typename T>
+struct BwdStage {
+  alignas(16) T r[kChunk][kBRows];
+  alignas(16) T k[kChunk][kBRows];
+  alignas(16) float w[kChunk][kBRows];
+  alignas(16) T v[kChunk][kHead];
+  alignas(16) float dy[kChunk][kHead];
+  alignas(16) float s[kBRows][kHead];
 };
 
-// K4's backward.  A head's 64 rows (key channels) over kBSlices blocks of
-// kBRows; a thread holds kBRowsT rows x kBCols columns (the columns l +
-// 8 m of its row group's 8 lanes), so the sums over a row (dr, dw, dk)
-// are a thread's own then 3 shuffles, and only the sum over a column
-// (dv) crosses row groups (2 shuffles), warps (shared memory, in order)
-// and the head's blocks (dv_part, summed by wkv6_bwd_finish_kernel).  The
-// chunks are walked from the last to the first: the chunk's states
-// recomputed from the one the forward saved at its start (hs), with the
-// forward's rounded operations, so with its bits, into shared memory;
-// then G = dL/ds walked back through them in registers:
-//   G_{t-1} = w_t G_t (by rows) + r_t dy_t^T,
-// rounded one operation at a time as the plain loop rounds it.  du is a
-// thread's sum over its steps (a chunk's first), left per batch row in
-// du_part.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct BwdShared {
+  BwdStage<T> ring[2];
+  // a warp's shares of each row's dr, dw, dk sums (its 16 columns) a step
+  alignas(16) float rows[kChunk][kBWarps][kBRows][4];
+  // the block's share of dv (its 8 rows) a step and its sum of r u k a
+  // step, read by the cluster a chunk later: double-buffered by chunk
+  alignas(16) float cols[2][kChunk][kHead];
+  float ruk[2][kChunk];
+  float dyv[kChunk];                          // dy . v a step
+  uint64_t bar[2];
+};
+
+// K4's backward.  A head is one cluster of kBSlices blocks, a block 8 of
+// its rows (key channels); a warp's lanes hold the block's 8 rows x 16
+// columns, a thread 4 neighbouring columns of one row.  The chunks are
+// walked from the last to the first, chunk c - 1's inputs staged by
+// 16-byte cp.async into a ring of 2 while chunk c is walked.  A chunk's
+// states are recomputed from the one the forward saved at its start (hs)
+// with the forward's rounded operations, so with its bits, into a
+// thread's registers, half a chunk at a time (8 steps x 4 elements, fully
+// unrolled; the second half first, its start recomputed through the
+// first: 22 steps recomputed a chunk of 16); then G = dL/ds is walked back
+// in registers with plain's rounded update,
+//   G_{t-1} = w_t G_t (by rows) + r_t dy_t^T.
+// The sums, in fixed orders:
+// - dr, dw, dk (over a row's 64 columns): a thread's 4 in FMA partial
+//   sums, folded over the row's 4 lanes (`fold_sum`: 3 sums, 3 shuffles),
+//   then the 4 warps in order after the chunk, one (step, row) a thread;
+// - dv (over the head's 64 rows): a thread's column products folded over
+//   the warp's 8 rows, then the cluster's blocks in rank order through
+//   distributed shared memory, one (step, column) a thread of the
+//   cluster, plus dy sum_i r u k (the blocks' sums of r u k added in rank
+//   order), while the blocks walk the next chunk (the shares are
+//   double-buffered, one split cluster barrier a chunk); nothing crosses
+//   a cluster, so dv needs no second pass;
+// - du: a row's sum over its steps (a chunk's first, descending), left
+//   per batch row in du_part and added over batch rows by
+//   wkv6_bwd_finish_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
     wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ w,
                     const float* __restrict__ u,
                     const float* __restrict__ hs,
                     const float* __restrict__ dy,
                     const float* __restrict__ dsT, T* __restrict__ dr,
-                    T* __restrict__ dk, float* __restrict__ dw,
-                    float* __restrict__ ds0, float* __restrict__ dv_part,
-                    float* __restrict__ du_part, int batch, int S, int H) {
+                    T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ dw, float* __restrict__ ds0,
+                    float* __restrict__ du_part, int S, int H) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdShared& sm = *reinterpret_cast<BwdShared*>(smem_raw);
-  const int tid = threadIdx.x;
+  BwdShared<T>& sm = *reinterpret_cast<BwdShared<T>*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int bh = blockIdx.x / kBSlices, slice = blockIdx.x % kBSlices;
   const int b = bh / H, hh = bh % H;
-  const int lane = tid % 32, warp = tid / 32;
-  const int l = lane % kBLanes, rg = lane / kBLanes;
-  // the thread's first row; element e = q kBCols + m is (i0 + q, l + 8 m)
-  const int i0 = slice * kBRows + (warp * kBGroupsW + rg) * kBRowsT;
+  const int ir = lane / kBQuads, cq = lane % kBQuads;
+  const int i0 = slice * kBRows, i = i0 + ir;          // the thread's row
+  const int j0 = warp * kBColsW + cq * kBColsT;        // its first column
+  // the finishing pass's step and row
+  const int ft = tid / kBRows, fr = tid % kBRows;
   const int n_chunks = (S + kChunk - 1) / kChunk;
   const size_t sbase = static_cast<size_t>(bh) * kHead * kHead;
   const size_t step_stride = static_cast<size_t>(H) * kHead;
+  const float uf = u[hh * kHead + i0 + fr];
 
-  float G[kBElems];                           // dL/ds after the step
+  float G[kBColsT];                           // dL/ds after the step
 #pragma unroll
-  for (int e = 0; e < kBElems; ++e) {
-    const size_t at =
-        sbase + (i0 + e / kBCols) * kHead + l + kBLanes * (e % kBCols);
-    G[e] = dsT != nullptr ? dsT[at] : 0.f;
-  }
-  if (tid < kHead) sm.u[tid] = u[hh * kHead + tid];
-  float du_acc = 0.f;            // row i0 + l's du, for lanes l < kBRowsT
+  for (int e = 0; e < kBColsT; ++e)
+    G[e] = dsT != nullptr ? dsT[sbase + i * kHead + j0 + e] : 0.f;
+  float du_acc = 0.f;              // row i's du (warp 0's lanes cq == 0)
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
+  if (tid < 2) mbar_init(&sm.bar[tid], kThreads);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  // Start chunk c's copies into ring buffer `buf`: 16-byte pieces, a
+  // fixed share a thread; steps past S are not copied (and never read).
+  constexpr int kPer = 16 / sizeof(T);                  // elements a piece
+  constexpr int kRowP = kBRows / kPer, kWP = kBRows / 4;
+  constexpr int kVP = kHead / kPer, kDP = kHead / 4, kSP = kBRows * kHead / 4;
+  auto issue = [&](int c, int buf) {
+    BwdStage<T>& st = sm.ring[buf];
     const int t0 = c * kChunk, len = min(kChunk, S - t0);
     const size_t base =
         ((static_cast<size_t>(b) * S + t0) * H + hh) * kHead;   // (b, t0, h)
-    for (int p = tid; p < len * kHead; p += kThreads) {
-      const int t = p / kHead, e = p % kHead;
-      const size_t off = base + t * step_stride + e;
-      sm.r[t][e] = to_f32(r[off]);
-      sm.k[t][e] = to_f32(k[off]);
-      sm.v[t][e] = to_f32(v[off]);
-      sm.w[t][e] = w[off];
-      sm.dy[t][e] = dy[off];
-    }
-    __syncthreads();
-
-    // a step's dy . v and sum_i r u k: a warp a step, 2 channels a lane
-    for (int t = warp; t < kChunk; t += kBWarps) {
-      float dv_ = 0.f, ruk = 0.f;
-      if (t < len) {
-        dv_ = fmaf(sm.dy[t][lane + 32], sm.v[t][lane + 32],
-                   sm.dy[t][lane] * sm.v[t][lane]);
-        ruk = fmaf(sm.r[t][lane + 32] * sm.u[lane + 32], sm.k[t][lane + 32],
-                   sm.r[t][lane] * sm.u[lane] * sm.k[t][lane]);
-      }
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        dv_ += __shfl_xor_sync(0xffffffffu, dv_, o);
-        ruk += __shfl_xor_sync(0xffffffffu, ruk, o);
-      }
-      if (lane == 0) {
-        sm.dyv[t] = dv_;
-        sm.ruk[t] = ruk;
+    for (int x = 0; x < (kChunk * kRowP + kThreads - 1) / kThreads; ++x) {
+      const int p = tid + x * kThreads, t = p / kRowP, q = p % kRowP;
+      if (p < kChunk * kRowP && t < len) {
+        const size_t off = base + t * step_stride + i0 + q * kPer;
+        cp_async16(&st.r[t][q * kPer], r + off);
+        cp_async16(&st.k[t][q * kPer], k + off);
       }
     }
-
-    // the chunk's states again, from the saved one at its start
-    {
-      float s[kBElems];
-      const float* hc =
-          hs + (static_cast<size_t>(bh) * n_chunks + c) * kHead * kHead;
 #pragma unroll
-      for (int e = 0; e < kBElems; ++e)
-        s[e] = hc[(i0 + e / kBCols) * kHead + l + kBLanes * (e % kBCols)];
-      for (int t = 0; t < len; ++t) {
-#pragma unroll
-        for (int e = 0; e < kBElems; ++e) {
-          const int i = i0 + e / kBCols, j = l + kBLanes * (e % kBCols);
-          sm.st[t][e][tid] = s[e];
-          s[e] = __fadd_rn(__fmul_rn(sm.w[t][i], s[e]),
-                           __fmul_rn(sm.k[t][i], sm.v[t][j]));
-        }
-      }
+    for (int x = 0; x < (kChunk * kWP + kThreads - 1) / kThreads; ++x) {
+      const int p = tid + x * kThreads, t = p / kWP, q = p % kWP;
+      if (p < kChunk * kWP && t < len)
+        cp_async16(&st.w[t][q * 4], w + base + t * step_stride + i0 + q * 4);
     }
-    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < (kChunk * kVP + kThreads - 1) / kThreads; ++x) {
+      const int p = tid + x * kThreads, t = p / kVP, q = p % kVP;
+      if (p < kChunk * kVP && t < len)
+        cp_async16(&st.v[t][q * kPer], v + base + t * step_stride + q * kPer);
+    }
+#pragma unroll
+    for (int x = 0; x < (kChunk * kDP + kThreads - 1) / kThreads; ++x) {
+      const int p = tid + x * kThreads, t = p / kDP, q = p % kDP;
+      if (p < kChunk * kDP && t < len)
+        cp_async16(&st.dy[t][q * 4], dy + base + t * step_stride + q * 4);
+    }
+    const float* hc =
+        hs + ((static_cast<size_t>(bh) * n_chunks + c) * kHead + i0) * kHead;
+#pragma unroll
+    for (int x = 0; x < kSP / kThreads; ++x) {
+      const int p = tid + x * kThreads;
+      cp_async16(&st.s[0][0] + 4 * p, hc + 4 * p);
+    }
+    cp_async_arrive(&sm.bar[buf]);
+  };
 
-    // walked back
+  // dv of chunk `it` (its start t0, its steps len): one (step, column) a
+  // thread of the cluster, its blocks' shares in rank order, then dy times
+  // sum_i r u k (the blocks' sums in rank order); dyk is the thread's dy,
+  // kept from the chunk's stage
+  const int te = (slice * kThreads + tid) / kHead;
+  const int je = (slice * kThreads + tid) % kHead;
+  auto reduce_dv = [&](int it, int t0, int len, float dyk) {
+    if (te < len) {
+      float sum = -0.f, ruk = -0.f;
+#pragma unroll
+      for (int rk = 0; rk < kBSlices; ++rk) {
+        sum = __fadd_rn(sum, peer(&sm.cols[it & 1][te][je], rk)[0]);
+        ruk = __fadd_rn(ruk, peer(&sm.ruk[it & 1][te], rk)[0]);
+      }
+      store_out(dv + ((static_cast<size_t>(b) * S + t0 + te) * H + hh) *
+                         kHead + je,
+                __fadd_rn(sum, __fmul_rn(dyk, ruk)));
+    }
+  };
+  int t0_prev = 0, len_prev = 0;
+  float dy_prev = 0.f;
+
+  issue(n_chunks - 1, 0);
+  for (int it = 0; it < n_chunks; ++it) {
+    const int c = n_chunks - 1 - it;
+    const int t0 = c * kChunk, len = min(kChunk, S - t0);
+    const BwdStage<T>& st = sm.ring[it & 1];
+    mbar_wait(&sm.bar[it & 1], (it >> 1) & 1);
+
+    // The chunk's states again, from the saved one at its start, half a
+    // chunk at a time: sp[t] is the state before step kHalf hf + t.  The
+    // second half goes first (its start recomputed through the first).
+    float sp[kHalf][kBColsT];
+    auto step_state = [&](int t, float (&s_)[kBColsT], float (&o)[kBColsT]) {
+      const float wt = st.w[t][ir], kt = to_f32(st.k[t][ir]);
+      const float4 v4 = load4(&st.v[t][j0]);
+      const float vq[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int e = 0; e < kBColsT; ++e)
+        o[e] = __fadd_rn(__fmul_rn(wt, s_[e]), __fmul_rn(kt, vq[e]));
+    };
+    // Steps past S (only in the last chunk) are skipped; a whole chunk
+    // compiles without the tests (kWhole).
+    auto recompute = [&](int hf, auto kWhole) {
+      const float4 s4 = *reinterpret_cast<const float4*>(&st.s[ir][j0]);
+      sp[0][0] = s4.x, sp[0][1] = s4.y, sp[0][2] = s4.z, sp[0][3] = s4.w;
+      if (hf == 1) {
+#pragma unroll
+        for (int t = 0; t < kHalf; ++t) step_state(t, sp[0], sp[0]);
+      }
+#pragma unroll
+      for (int t = 0; t + 1 < kHalf; ++t)
+        if (decltype(kWhole)::value || kHalf * hf + t + 1 < len)
+          step_state(kHalf * hf + t, sp[t], sp[t + 1]);
+    };
     float du_chunk = 0.f;
-    for (int t = len - 1; t >= 0; --t) {
-      float vv[kBCols], dd[kBCols], colp[kBCols];
+    // walked back over half hf
+    auto walk = [&](int hf, auto kWhole) {
 #pragma unroll
-      for (int m = 0; m < kBCols; ++m) {
-        vv[m] = sm.v[t][l + kBLanes * m];
-        dd[m] = sm.dy[t][l + kBLanes * m];
-        colp[m] = 0.f;
-      }
-      float rs[kBRowsT][3];                   // a row's dr, dw, dk terms
+      for (int tl = kHalf - 1; tl >= 0; --tl) {
+        const int t = kHalf * hf + tl;
+        if (decltype(kWhole)::value || t < len) {
+          const float rq = to_f32(st.r[t][ir]), kq = to_f32(st.k[t][ir]);
+          const float wq = st.w[t][ir];
+          const float4 v4 = load4(&st.v[t][j0]);
+          const float4 d4 = *reinterpret_cast<const float4*>(&st.dy[t][j0]);
+          const float vq[4] = {v4.x, v4.y, v4.z, v4.w};
+          const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+          float rs[4] = {0.f, 0.f, 0.f, 0.f};   // dr, dw, dk terms of the row
+          float colp[kBColsT];
 #pragma unroll
-      for (int q = 0; q < kBRowsT; ++q) {
-        const int i = i0 + q;
-        const float rq = sm.r[t][i], kq = sm.k[t][i], wq = sm.w[t][i];
-        float adr = 0.f, adw = 0.f, adk = 0.f;
-#pragma unroll
-        for (int m = 0; m < kBCols; ++m) {
-          const int e = q * kBCols + m;
-          const float sp = sm.st[t][e][tid], g = G[e];
-          adr = fmaf(dd[m], sp, adr);
-          adw = fmaf(g, sp, adw);
-          adk = fmaf(g, vv[m], adk);
-          colp[m] = fmaf(g, kq, colp[m]);
-          G[e] = __fadd_rn(__fmul_rn(wq, g), __fmul_rn(rq, dd[m]));
-        }
-        rs[q][0] = adr;
-        rs[q][1] = adw;
-        rs[q][2] = adk;
-      }
-#pragma unroll
-      for (int o = 1; o < kBLanes; o <<= 1)
-#pragma unroll
-        for (int q = 0; q < kBRowsT; ++q)
-#pragma unroll
-          for (int x = 0; x < 3; ++x)
-            rs[q][x] += __shfl_xor_sync(0xffffffffu, rs[q][x], o);
-      const float dyv = sm.dyv[t];
-#pragma unroll
-      for (int q = 0; q < kBRowsT; ++q) {
-        if (l == q) {
-          const int i = i0 + q;
-          const float rq = sm.r[t][i], kq = sm.k[t][i], uq = sm.u[i];
-          const size_t off = base + t * step_stride + i;
-          store_out(dr + off,
-                    __fadd_rn(rs[q][0], __fmul_rn(__fmul_rn(uq, kq), dyv)));
-          dw[off] = rs[q][1];
-          store_out(dk + off,
-                    __fadd_rn(rs[q][2], __fmul_rn(__fmul_rn(rq, uq), dyv)));
-          du_chunk = __fadd_rn(du_chunk, __fmul_rn(__fmul_rn(rq, kq), dyv));
+          for (int e = 0; e < kBColsT; ++e) {
+            const float s_ = sp[tl][e], g = G[e];
+            rs[0] = fmaf(dq[e], s_, rs[0]);
+            rs[1] = fmaf(g, s_, rs[1]);
+            rs[2] = fmaf(g, vq[e], rs[2]);
+            colp[e] = __fmul_rn(g, kq);
+            G[e] = __fadd_rn(__fmul_rn(wq, g), __fmul_rn(rq, dq[e]));
+          }
+          // the row's terms over its 4 lanes: lane cq keeps term cq
+          int rb = 0;
+          fold_sum<1, kBQuads / 2, 4>(rs, lane, rb);
+          if (rb < 3) sm.rows[t][warp][ir][rb] = rs[0];
+          // the columns over the warp's 8 rows: one column a lane pair
+          int cb = 0;
+          fold_sum<kBQuads, 16, kBColsT>(colp, lane, cb);
+          if ((lane & kBQuads) == 0) sm.cols[it & 1][t][j0 + cb] = colp[0];
+          if (warp == 0 && cq == 0)
+            du_chunk = __fadd_rn(du_chunk,
+                                 __fmul_rn(__fmul_rn(rq, kq), sm.dyv[t]));
         }
       }
+    };
+    const int top = len > kHalf ? 1 : 0;
+    const bool whole = len == kChunk;
+    if (whole)
+      recompute(1, std::true_type{});
+    else
+      recompute(top, std::false_type{});
+    // the peers are done with the chunk before (their shares of it are in
+    // place, they have read this block's shares of the one before that),
+    // and so is every thread of this block (the other ring buffer is free)
+    if (it > 0) cluster_wait();
+    if (c > 0) issue(c - 1, (it + 1) & 1);
+
+    // a step's dy . v (a warp a step, 2 columns a lane) and the block's
+    // sum of r u k (a step's 8 rows on 8 neighbouring lanes)
 #pragma unroll
-      for (int m = 0; m < kBCols; ++m) {
-        colp[m] += __shfl_xor_sync(0xffffffffu, colp[m], kBLanes);
-        colp[m] += __shfl_xor_sync(0xffffffffu, colp[m], 2 * kBLanes);
+    for (int m = 0; m < kChunk / kBWarps; ++m) {
+      const int t = warp + kBWarps * m;
+      if (t >= len) break;
+      float dv_ = fmaf(st.dy[t][lane + 32], to_f32(st.v[t][lane + 32]),
+                       __fmul_rn(st.dy[t][lane], to_f32(st.v[t][lane])));
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1)
+        dv_ = __fadd_rn(dv_, __shfl_xor_sync(0xffffffffu, dv_, o));
+      if (lane == 0) sm.dyv[t] = dv_;
+    }
+    {
+      float p = ft < len ? __fmul_rn(__fmul_rn(to_f32(st.r[ft][fr]), uf),
+                                     to_f32(st.k[ft][fr]))
+                         : 0.f;
+#pragma unroll
+      for (int o = 1; o < kBRows; o <<= 1)
+        p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, o));
+      if (fr == 0 && ft < len) sm.ruk[it & 1][ft] = p;
+    }
+    __syncthreads();
+
+    // the halves from the top down (one copy of each walk in the code)
+    if (whole) {
+#pragma unroll 1
+      for (int hf = 1; hf >= 0; --hf) {
+        if (hf == 0) recompute(0, std::true_type{});
+        walk(hf, std::true_type{});
       }
-      if (rg == 0) {
-#pragma unroll
-        for (int m = 0; m < kBCols; ++m)
-          sm.col[t][warp][l + kBLanes * m] = colp[m];
+    } else {
+#pragma unroll 1
+      for (int hf = top; hf >= 0; --hf) {
+        if (hf != top) recompute(0, std::false_type{});
+        walk(hf, std::false_type{});
       }
     }
     du_acc = __fadd_rn(du_acc, du_chunk);
+    const float dy_keep = te < len ? st.dy[te][je] : 0.f;
     __syncthreads();
 
-    // this block's share of dv: the warps' sums in order; block 0 of the
-    // head adds the bonus term dy ruk
-    for (int p = tid; p < len * kHead; p += kThreads) {
-      const int t = p / kHead, j = p % kHead;
-      float x = sm.col[t][0][j];
+    // dr, dw, dk of (step ft, row i0 + fr): the warps' shares in order,
+    // with the bonus terms
+    if (ft < len) {
+      float a[3];
 #pragma unroll
-      for (int wp = 1; wp < kBWarps; ++wp) x = __fadd_rn(x, sm.col[t][wp][j]);
-      if (slice == 0) x = __fadd_rn(x, __fmul_rn(sm.dy[t][j], sm.ruk[t]));
-      dv_part[((static_cast<size_t>(slice) * batch + b) * S + t0 + t) *
-                  step_stride +
-              hh * kHead + j] = x;
+      for (int q = 0; q < 3; ++q) {
+        a[q] = sm.rows[ft][0][fr][q];
+#pragma unroll
+        for (int wp = 1; wp < kBWarps; ++wp)
+          a[q] = __fadd_rn(a[q], sm.rows[ft][wp][fr][q]);
+      }
+      const float rq = to_f32(st.r[ft][fr]), kq = to_f32(st.k[ft][fr]);
+      const float dyv = sm.dyv[ft];
+      const size_t off = ((static_cast<size_t>(b) * S + t0 + ft) * H + hh) *
+                             kHead + i0 + fr;
+      store_out(dr + off, __fadd_rn(a[0], __fmul_rn(__fmul_rn(uf, kq), dyv)));
+      dw[off] = a[1];
+      store_out(dk + off, __fadd_rn(a[2], __fmul_rn(__fmul_rn(rq, uf), dyv)));
     }
-    __syncthreads();
+    // the chunk before's dv, while the peers may still be walking this one
+    if (it > 0) reduce_dv(it - 1, t0_prev, len_prev, dy_prev);
+    t0_prev = t0, len_prev = len, dy_prev = dy_keep;
+    cluster_arrive();
   }
+  cluster_wait();
+  reduce_dv(n_chunks - 1, t0_prev, len_prev, dy_prev);
+  // no block leaves while a peer may still read its shared memory
+  cluster_sync();
 #pragma unroll
-  for (int e = 0; e < kBElems; ++e)
-    ds0[sbase + (i0 + e / kBCols) * kHead + l + kBLanes * (e % kBCols)] =
-        G[e];
-  if (l < kBRowsT)
-    du_part[(static_cast<size_t>(b) * H + hh) * kHead + i0 + l] = du_acc;
+  for (int e = 0; e < kBColsT; ++e) ds0[sbase + i * kHead + j0 + e] = G[e];
+  if (warp == 0 && cq == 0)
+    du_part[(static_cast<size_t>(b) * H + hh) * kHead + i] = du_acc;
 }
 
 constexpr int kFinishThreads = 256;
 
-// dv: each element's block partials added in block order; du: each (h, i)'s
-// batch rows added in order.
-template <typename T>
+// du: each (h, i)'s batch rows added in order.
 __global__ void __launch_bounds__(kFinishThreads)
-    wkv6_bwd_finish_kernel(const float* __restrict__ dv_part,
-                           const float* __restrict__ du_part,
-                           T* __restrict__ dv, float* __restrict__ du,
-                           int batch, int S, int H) {
+    wkv6_bwd_finish_kernel(const float* __restrict__ du_part,
+                           float* __restrict__ du, int batch, int H) {
   const size_t i =
       static_cast<size_t>(blockIdx.x) * kFinishThreads + threadIdx.x;
-  const size_t n = static_cast<size_t>(batch) * S * H * kHead;
-  if (i < n) {
-    float x = dv_part[i];
-#pragma unroll
-    for (int sl = 1; sl < kBSlices; ++sl) x = __fadd_rn(x, dv_part[sl * n + i]);
-    store_out(dv + i, x);
-  }
   const size_t plane = static_cast<size_t>(H) * kHead;
   if (i < plane) {
     float s = du_part[i];
@@ -644,35 +800,54 @@ cudaError_t launch(const void* r, const void* k, const void* v,
 }
 
 template <typename T>
+cudaLaunchConfig_t bwd_config(int batch, int H, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * H * kBSlices);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(BwdShared<T>);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kBSlices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
 cudaError_t launch_bwd(const void* r, const void* k, const void* v,
                        const float* w, const float* u, const float* hs,
                        const float* dy, const float* dsT, void* dr, void* dk,
                        void* dv, float* dw, float* du, float* ds0,
-                       float* dv_part, float* du_part, int batch, int S,
-                       int H, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(BwdShared);
+                       float* du_part, int batch, int S, int H,
+                       cudaStream_t stream) {
+  auto kernel = wkv6_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(BwdShared<T>)));
   if (err != cudaSuccess) return err;
-  wkv6_bwd_kernel<T><<<batch * H * kBSlices, kThreads, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, u, hs, dy, dsT, static_cast<T*>(dr),
-      static_cast<T*>(dk), dw, ds0, dv_part, du_part, batch, S, H);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = bwd_config<T>(batch, H, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(r),
+                           static_cast<const T*>(k), static_cast<const T*>(v),
+                           w, u, hs, dy, dsT, static_cast<T*>(dr),
+                           static_cast<T*>(dk), static_cast<T*>(dv), dw, ds0,
+                           du_part, S, H);
+  if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t work = std::max(static_cast<size_t>(batch) * S * H * kHead,
-                               static_cast<size_t>(H) * kHead);
-  const size_t blocks = (work + kFinishThreads - 1) / kFinishThreads;
-  if (blocks > 0x7fffffffULL) return cudaErrorInvalidConfiguration;
-  wkv6_bwd_finish_kernel<T>
-      <<<static_cast<unsigned>(blocks), kFinishThreads, 0, stream>>>(
-          dv_part, du_part, static_cast<T*>(dv), du, batch, S, H);
+  const int blocks = (H * kHead + kFinishThreads - 1) / kFinishThreads;
+  wkv6_bwd_finish_kernel<<<blocks, kFinishThreads, 0, stream>>>(
+      du_part, du, batch, H);
   return cudaGetLastError();
 }
 
 // out: registers a thread, resident blocks an SM, threads a block, shared
-// memory bytes a block, lanes a column group (forward) or row group
+// memory bytes a block, lanes a column group (forward) or lanes a row in
+// a warp (backward), local memory bytes a thread (spills); the
+// backward's cluster size and clusters resident at once on the device
 template <typename K>
 cudaError_t occupancy_of(K kernel, size_t smem, int lanes, int* out) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -691,6 +866,24 @@ cudaError_t occupancy_of(K kernel, size_t smem, int lanes, int* out) {
   out[2] = kThreads;
   out[3] = static_cast<int>(smem);
   out[4] = lanes;
+  out[5] = 0;
+  out[6] = 0;
+  out[7] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t bwd_occupancy(int* out) {
+  auto kernel = wkv6_bwd_kernel<T>;
+  cudaError_t err = occupancy_of(kernel, sizeof(BwdShared<T>), kBQuads, out);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = bwd_config<T>(1, 1, nullptr, attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  out[5] = kBSlices;
+  out[6] = clusters;
   return cudaSuccess;
 }
 
@@ -731,20 +924,26 @@ int wkv6_fwd(const void* r, const void* k, const void* v, const void* w,
   return static_cast<int>(err);
 }
 
-// Launch K4's backward on `stream` (two kernels: the reverse walk, then
-// the sums over a head's blocks and over batch rows).  r, k, v, w, u as
-// the forward took them; hs the states the forward saved; dy (B, S, H,
-// 64) float32; dsT (B, H, 64, 64) float32 or null (zero).  Out: dr, dk,
-// dv (B, S, H, 64) in r's dtype; dw (B, S, H, 64), du (H, 64), ds0 (B, H,
-// 64, 64) float32.  Scratch: dv_part (part_slices, B, S, H, 64) and
-// du_part (B, H, 64) float32, part_slices = 2.  All contiguous.  Returns
-// the cudaError_t of the launches (0 = success).
+// Launch K4's backward on `stream` (two kernels: the reverse walk, a head
+// a cluster of 8 blocks, then the sum of du over batch rows).  r, k, v,
+// w, u as the forward took them; hs the states the forward saved; dy (B,
+// S, H, 64) float32; dsT (B, H, 64, 64) float32 or null (zero).  Out: dr,
+// dk, dv (B, S, H, 64) in r's dtype; dw (B, S, H, 64), du (H, 64), ds0
+// (B, H, 64, 64) float32.  Scratch: du_part (B, H, 64) float32.  All
+// contiguous; r, k, v, w, dy and hs 16-byte aligned (else
+// cudaErrorMisalignedAddress, with nothing launched).  Returns the
+// cudaError_t of the launches (0 = success; a cluster launch the device
+// cannot schedule returns its error, nothing falls back).
 int wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* hs, const void* dy, const void* dsT,
              void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
-             void* dv_part, void* du_part, int part_slices, int is_bf16,
-             int batch, int s_len, int n_heads, int device, void* stream) {
-  if (part_slices != kBSlices) return static_cast<int>(cudaErrorInvalidValue);
+             void* du_part, int is_bf16, int batch, int s_len, int n_heads,
+             int device, void* stream) {
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p);
+  };
+  if ((addr(r) | addr(k) | addr(v) | addr(w) | addr(dy) | addr(hs)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -753,30 +952,27 @@ int wkv6_bwd(const void* r, const void* k, const void* v, const void* w,
   if (is_bf16)
     err = launch_bwd<__nv_bfloat16>(
         r, k, v, f32(w), f32(u), f32(hs), f32(dy), f32(dsT), dr, dk, dv,
-        out(dw), out(du), out(ds0), out(dv_part), out(du_part), batch, s_len,
-        n_heads, st);
+        out(dw), out(du), out(ds0), out(du_part), batch, s_len, n_heads, st);
   else
     err = launch_bwd<float>(r, k, v, f32(w), f32(u), f32(hs), f32(dy),
                             f32(dsT), dr, dk, dv, out(dw), out(du), out(ds0),
-                            out(dv_part), out(du_part), batch, s_len, n_heads,
-                            st);
+                            out(du_part), batch, s_len, n_heads, st);
   return static_cast<int>(err);
 }
 
 // The instance that wkv6_fwd (backward = 0; the one that saves no state)
-// or the reverse walk of
-// wkv6_bwd (backward = 1) launches for `is_bf16`, on `device`: out[0]
-// registers a thread, out[1] resident blocks an SM, out[2] threads a
-// block, out[3] shared memory bytes a block, out[4] lanes a column group
-// (forward) or a row group (backward).
+// or the reverse walk of wkv6_bwd (backward = 1) launches for `is_bf16`,
+// on `device`: out[0] registers a thread, out[1] resident blocks an SM,
+// out[2] threads a block, out[3] shared memory bytes a block, out[4]
+// lanes a column group (forward) or lanes a row in a warp (backward),
+// out[7] local memory bytes a thread (spills); the backward's out[5]
+// cluster size and out[6] clusters resident at once on the device.
 int wkv6_occupancy(int is_bf16, int backward, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (backward)
-    err = is_bf16 ? occupancy_of(wkv6_bwd_kernel<__nv_bfloat16>,
-                                 sizeof(BwdShared), kBLanes, out)
-                  : occupancy_of(wkv6_bwd_kernel<float>, sizeof(BwdShared),
-                                 kBLanes, out);
+    err = is_bf16 ? bwd_occupancy<__nv_bfloat16>(out)
+                  : bwd_occupancy<float>(out);
   else
     err = is_bf16 ? occupancy_of(wkv6_kernel<__nv_bfloat16, false>,
                                  sizeof(Shared<__nv_bfloat16>), kLanes, out)

@@ -8,9 +8,10 @@ compiled or loaded when this module is imported.
 allocates ``y`` and ``hT`` (and, to train, the state at every chunk's
 start) with ``torch.empty``, launches on the current stream and adds one
 to ``selective_scan_cuda.launches`` per launch.  ``selective_scan_grad_cuda``
-is the backward's (K3-bwd: the reverse walk and the sums over blocks, one
-count a call), with its scratch allocated the same way.  Both take CUDA
-tensors only; the plain versions for CPU tensors are in ``ref.py``.
+is the backward's (K3-bwd: the reverse walk in thread block clusters and
+the sums over clusters, one count a call), with its scratch allocated the
+same way.  Both take CUDA tensors only; the plain versions for CPU
+tensors are in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("selective_scan", {
     "selective_scan_fwd": ([_P] * 9 + [_I] * 6 + [_P], _I),
     "selective_scan_bwd": ([_P] * 16 + [_I] * 7 + [_P], _I),
-    "selective_scan_occupancy": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+    "selective_scan_bwd_parts": ([_I, _I], _I),
+    "selective_scan_occupancy": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
     "selective_scan_error_string": ([_I], ctypes.c_char_p),
 })
 
@@ -49,16 +51,26 @@ def _raise(lib, rc: int, what: str) -> None:
 
 
 def _occupancy(dtype: torch.dtype, state_dim: int, backward: bool,
-               device: int | None) -> dict:
+               device: int | None, shape=None) -> dict:
     lib = LIBRARY.load()
     dev = torch.cuda.current_device() if device is None else device
-    out = (_I * 5)()
+    out = (_I * 8)()
+    d_inner = shape[2] if shape is not None else THREADS // state_dim
     rc = lib.selective_scan_occupancy(int(dtype == torch.bfloat16),
-                                      state_dim, int(backward), dev, out)
+                                      state_dim, int(backward), d_inner, dev,
+                                      out)
     _raise(lib, rc, "selective_scan occupancy query")
-    return {"registers": out[0], "blocks_per_sm": out[1],
-            "threads": out[2], "warps_per_sm": out[1] * out[2] // 32,
-            "smem_bytes": out[3], "channels_per_block": out[4]}
+    occ = {"registers": out[0], "blocks_per_sm": out[1],
+           "threads": out[2], "warps_per_sm": out[1] * out[2] // 32,
+           "smem_bytes": out[3], "channels_per_block": out[4],
+           "local_bytes": out[7]}
+    if backward:
+        occ.update(cluster_size=out[5], active_clusters=out[6])
+        if shape is not None:
+            clusters = shape[0] * lib.selective_scan_bwd_parts(shape[2],
+                                                               state_dim)
+            occ.update(clusters=clusters, waves=clusters / out[6])
+    return occ
 
 
 class SelectiveScanKernel:
@@ -122,13 +134,14 @@ class SelectiveScanGradKernel:
         lib = LIBRARY.load()
         B, S, Di = x.shape
         N = A.shape[1]
-        blocks = -(-Di // (THREADS // N))
+        # the clusters of a batch row, as the source lays them out
+        parts = lib.selective_scan_bwd_parts(Di, N)
         f32 = dict(dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
         ddt, dB, dC = (torch.empty_like(t) for t in (dt, Bc, Cc))
         dA = torch.empty_like(A)
         dh0 = torch.empty((B, Di, N), **f32)
-        part = torch.empty((blocks, B, S, 2 * N), **f32)
+        part = torch.empty((parts, B, S, 2 * N), **f32)
         dA_part = torch.empty((B, Di, N), **f32)
         dev, stream = _device_stream(x)
         rc = lib.selective_scan_bwd(
@@ -136,17 +149,21 @@ class SelectiveScanGradKernel:
             A.data_ptr(), hs.data_ptr(), dy.data_ptr(),
             None if dhT is None else dhT.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-            dh0.data_ptr(), part.data_ptr(), dA_part.data_ptr(), blocks,
+            dh0.data_ptr(), part.data_ptr(), dA_part.data_ptr(), parts,
             int(x.dtype == torch.bfloat16), B, S, Di, N, dev, stream)
         _raise(lib, rc, "selective_scan backward launch")
         self.launches += 1
         return dx, ddt, dB, dC, dA, dh0
 
     def occupancy(self, dtype: torch.dtype, state_dim: int,
-                  device: int | None = None) -> dict:
+                  device: int | None = None, shape=None) -> dict:
         """The reverse walk's instance for x of ``dtype`` and N
-        ``state_dim``, as ``SelectiveScanKernel.occupancy``."""
-        return _occupancy(dtype, state_dim, True, device)
+        ``state_dim``, as ``SelectiveScanKernel.occupancy``, with its
+        cluster size at x's ``shape`` (B, S, Di) (at one block a row
+        without it), the clusters resident at once
+        (``cudaOccupancyMaxActiveClusters``) and, given ``shape``, the
+        grid's clusters and waves (clusters over resident clusters)."""
+        return _occupancy(dtype, state_dim, True, device, shape)
 
 
 def _check(x, dt, Bc, Cc, A, h0=None) -> None:

@@ -8,9 +8,10 @@ compiled or loaded when this module is imported.
 ``y`` and ``sT`` (and, to train, the state at every chunk's start) with
 ``torch.empty``, launches on the current stream and adds one to
 ``wkv6_cuda.launches`` per launch.  ``wkv6_grad_cuda`` is the backward's
-(K4-bwd: the reverse walk and the sums over a head's blocks, one count a
-call), with its scratch allocated the same way.  Both take CUDA tensors
-only; the plain versions for CPU tensors are in ``ref.py``.
+(K4-bwd: the reverse walk, a head a thread block cluster, and du's sum
+over batch rows, one count a call), with its scratch allocated the same
+way.  Both take CUDA tensors only; the plain versions for CPU tensors are
+in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -23,13 +24,12 @@ from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.wkv6.ref import CHUNK
 
 HEAD_DIM = 64                      # RWKV_HEAD_DIM: the source's block
-BWD_SLICES = 2                     # the source's kBSlices: blocks a head
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MISALIGNED = 716                  # cudaErrorMisalignedAddress
 LIBRARY = CudaLibrary("wkv6", {
     "wkv6_fwd": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "wkv6_bwd": ([_P] * 16 + [_I] * 6 + [_P], _I),
+    "wkv6_bwd": ([_P] * 15 + [_I] * 5 + [_P], _I),
     "wkv6_occupancy": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
     "wkv6_error_string": ([_I], ctypes.c_char_p),
 })
@@ -43,25 +43,32 @@ def _device_stream(t: torch.Tensor) -> tuple[int, int]:
 
 def _raise(lib, rc: int, what: str) -> None:
     if rc == _MISALIGNED:
-        raise ValueError("r, k, v and w must be 16-byte aligned (the "
-                         "kernel stages them with 16-byte cp.async)")
+        raise ValueError("r, k, v and w (and the backward's dy and hs) must "
+                         "be 16-byte aligned (the kernels stage them with "
+                         "16-byte cp.async)")
     if rc != 0:
         raise RuntimeError(f"{what} failed: "
                            f"{lib.wkv6_error_string(rc).decode()} ({rc})")
 
 
-def _occupancy(dtype: torch.dtype, backward: bool,
-               device: int | None) -> dict:
+def _occupancy(dtype: torch.dtype, backward: bool, device: int | None,
+               shape=None) -> dict:
     lib = LIBRARY.load()
     dev = torch.cuda.current_device() if device is None else device
-    out = (_I * 5)()
+    out = (_I * 8)()
     rc = lib.wkv6_occupancy(int(dtype == torch.bfloat16), int(backward), dev,
                             out)
     _raise(lib, rc, "wkv6 occupancy query")
-    return {"registers": out[0], "blocks_per_sm": out[1],
-            "threads": out[2], "warps_per_sm": out[1] * out[2] // 32,
-            "smem_bytes": out[3],
-            ("lanes_per_row" if backward else "lanes_per_column"): out[4]}
+    occ = {"registers": out[0], "blocks_per_sm": out[1],
+           "threads": out[2], "warps_per_sm": out[1] * out[2] // 32,
+           "smem_bytes": out[3], "local_bytes": out[7],
+           ("lanes_per_row" if backward else "lanes_per_column"): out[4]}
+    if backward:
+        occ.update(cluster_size=out[5], active_clusters=out[6])
+        if shape is not None:
+            clusters = shape[0] * shape[2]
+            occ.update(clusters=clusters, waves=clusters / out[6])
+    return occ
 
 
 class WKV6Kernel:
@@ -118,32 +125,14 @@ class WKV6GradKernel:
         (B, S, H, 64) float32; dsT (B, H, 64, 64) float32 or None (zero)
         -> (dr, dk, dv (B, S, H, 64) in r's dtype; dw (B, S, H, 64), du (H,
         64), ds0 (B, H, 64, 64) float32)."""
-        _check(r, k, v, w, u)
-        B, S, H, hd = r.shape
-        more = (hs, dy) + (() if dsT is None else (dsT,))
-        if not all(t.is_cuda and t.device == r.device for t in more):
-            raise ValueError("wkv6_grad_cuda takes CUDA tensors on r's "
-                             "device only")
-        if hs.dtype != torch.float32 or hs.shape != (B, H, -(-S // CHUNK),
-                                                     hd, hd):
-            raise ValueError(f"hs must be float32 (B, H, ceil(S / {CHUNK}), "
-                             f"64, 64), got {hs.dtype} {tuple(hs.shape)}")
-        if dy.dtype != torch.float32 or dy.shape != r.shape:
-            raise ValueError(f"dy must be float32 of r's shape, got "
-                             f"{dy.dtype} {tuple(dy.shape)}")
-        if dsT is not None and (dsT.dtype != torch.float32
-                                or dsT.shape != (B, H, hd, hd)):
-            raise ValueError(f"dsT must be float32 (B, H, 64, 64), got "
-                             f"{dsT.dtype} {tuple(dsT.shape)}")
-        if not all(t.is_contiguous() for t in more):
-            raise ValueError("hs, dy and dsT must be contiguous")
+        _check_grad(r, k, v, w, u, hs, dy, dsT)
         lib = LIBRARY.load()
+        B, S, H, hd = r.shape
         f32 = dict(dtype=torch.float32, device=r.device)
         dr, dk, dv = (torch.empty_like(r) for _ in range(3))
         dw = torch.empty(r.shape, **f32)
         du = torch.empty((H, hd), **f32)
         ds0 = torch.empty((B, H, hd, hd), **f32)
-        dv_part = torch.empty((BWD_SLICES, *r.shape), **f32)
         du_part = torch.empty((B, H, hd), **f32)
         dev, stream = _device_stream(r)
         rc = lib.wkv6_bwd(
@@ -151,16 +140,21 @@ class WKV6GradKernel:
             u.data_ptr(), hs.data_ptr(), dy.data_ptr(),
             None if dsT is None else dsT.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-            ds0.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
-            BWD_SLICES, int(r.dtype == torch.bfloat16), B, S, H, dev, stream)
+            ds0.data_ptr(), du_part.data_ptr(),
+            int(r.dtype == torch.bfloat16), B, S, H, dev, stream)
         _raise(lib, rc, "wkv6 backward launch")
         self.launches += 1
         return dr, dk, dv, dw, du, ds0
 
-    def occupancy(self, dtype: torch.dtype, device: int | None = None) -> dict:
+    def occupancy(self, dtype: torch.dtype, device: int | None = None,
+                  shape=None) -> dict:
         """The reverse walk's instance for r, k, v of ``dtype``, as
-        ``WKV6Kernel.occupancy``."""
-        return _occupancy(dtype, True, device)
+        ``WKV6Kernel.occupancy``, with its cluster size (a head's 8
+        blocks), the clusters resident at once
+        (``cudaOccupancyMaxActiveClusters``) and, given r's ``shape`` (B,
+        S, H, 64), the grid's clusters and waves (clusters over resident
+        clusters)."""
+        return _occupancy(dtype, True, device, shape)
 
 
 def _check(r, k, v, w, u, s0=None) -> None:
@@ -194,6 +188,28 @@ def _check(r, k, v, w, u, s0=None) -> None:
         raise ValueError(f"shape {tuple(r.shape)} exceeds the launch grid")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("inputs must be contiguous")
+
+
+def _check_grad(r, k, v, w, u, hs, dy, dsT) -> None:
+    _check(r, k, v, w, u)
+    B, S, H, hd = r.shape
+    more = (hs, dy) + (() if dsT is None else (dsT,))
+    if not all(t.is_cuda and t.device == r.device for t in more):
+        raise ValueError("wkv6_grad_cuda takes CUDA tensors on r's "
+                         "device only")
+    if hs.dtype != torch.float32 or hs.shape != (B, H, -(-S // CHUNK),
+                                                 hd, hd):
+        raise ValueError(f"hs must be float32 (B, H, ceil(S / {CHUNK}), "
+                         f"64, 64), got {hs.dtype} {tuple(hs.shape)}")
+    if dy.dtype != torch.float32 or dy.shape != r.shape:
+        raise ValueError(f"dy must be float32 of r's shape, got "
+                         f"{dy.dtype} {tuple(dy.shape)}")
+    if dsT is not None and (dsT.dtype != torch.float32
+                            or dsT.shape != (B, H, hd, hd)):
+        raise ValueError(f"dsT must be float32 (B, H, 64, 64), got "
+                         f"{dsT.dtype} {tuple(dsT.shape)}")
+    if not all(t.is_contiguous() for t in more):
+        raise ValueError("hs, dy and dsT must be contiguous")
 
 
 wkv6_cuda = WKV6Kernel()

@@ -78,6 +78,35 @@ class BenchPoint:
     bwd_ms: float
 
 
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without ``void``, the anonymous namespace,
+    template arguments and parameters."""
+    return key.replace("void ", "").replace(
+        "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+
+
+def kernel_ms(fn, args, calls: int) -> dict:
+    """Each CUDA kernel's device ms a launch over ``calls`` calls of
+    ``fn(*args)``, by ``torch.profiler``, keyed by the kernel's name
+    without its template arguments; empty when the profiler recorded no
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            name = kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / e.count
+    return out
+
+
 def make_inputs(dim: int, rows: int, batch: int, pooling: int,
                 seed: int = 0, *, device=None):
     """(arena, indices, grad_out) for one benchmark shape.

@@ -1295,11 +1295,15 @@ def _grad_f64_rule(got, plain, ref64):
     return [_f64_rule(g, p, r) for g, p, r in zip(got, plain, ref64)]
 
 
-# a scan cut by the chunks (K3's 32 steps, K4's 16) and one step long
+# a scan cut by the chunks (K3's 32 steps, K4's 16) and one step long;
+# then the clusters' edges: K3-bwd's blocks of a batch row not a whole
+# number of 8-block clusters (B 3), fewer blocks than one cluster, N 4
+# over two chunks; K4-bwd at an odd H with B 2 over several chunks
 GRAD_SCAN_SHAPES = [(2, 96, 512, 8), (2, 70, 3200, 16), (2, 1, 3200, 16),
-                    (3, 33, 77, 16), (1, 17, 99, 4), (2, 31, 101, 8)]
+                    (3, 33, 77, 16), (1, 17, 99, 4), (2, 31, 101, 8),
+                    (3, 65, 200, 8), (1, 40, 24, 16), (2, 40, 50, 4)]
 GRAD_WKV_SHAPES = [(2, 96, 4), (2, 40, 32), (2, 1, 32), (3, 17, 5),
-                   (1, 15, 1)]
+                   (1, 15, 1), (2, 35, 7)]
 
 
 @pytest.mark.parametrize("shape", GRAD_SCAN_SHAPES, ids=str)
@@ -1541,3 +1545,26 @@ def test_placement_decode_is_batch_invariant_on_cuda(cuda, no_tf32):
                        for x, y in zip(r, rows))
     finally:
         hook.remove()
+
+
+def test_place_equals_place_many_on_cuda(cuda, no_tf32):
+    """``DreamShard.place`` (Algorithm 2, one task) and
+    ``PlacementSession.place_many`` of the 20 DLRM-50 (4) test tasks on
+    the card give each task the same assignment and the same estimated
+    cost, bit for bit (the reference's promise, ``tests/test_api.py``),
+    greedy and with 16 sampled candidates."""
+    from repro_torch.api import PlacementSession, SimOracle
+    from repro_torch.core.trainer import DreamShard, DreamShardConfig
+    from repro_torch.data.synthetic import make_dlrm_pool
+    from repro_torch.data.tasks import make_benchmark_suite
+    _, test = make_benchmark_suite(make_dlrm_pool(seed=0), n_tables=50,
+                                   n_devices=4, n_tasks=20)
+    agent = DreamShard(test[:4], SimOracle(seed=0), DreamShardConfig(seed=0),
+                       device=cuda)
+    for k in (1, 16):
+        served = PlacementSession(agent, n_candidates=k).place_many(test)
+        for t, p in zip(test, served):
+            a, est = agent.place_detailed(t.raw_features, t.n_devices, k)
+            assert np.array_equal(p.assignment, a)
+            assert np.float32(p.est_cost_ms).view(np.int32) == \
+                np.float32(est).view(np.int32)

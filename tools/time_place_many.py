@@ -2,12 +2,13 @@
 """Time warm placement decode: an untrained DreamShard agent (seed 0, 16
 candidates) places the 20 DLRM-50 (4) test tasks with ``place_many``, as
 ``chip_smoke.py``'s phase 4 does, many times over; with ``--tasks 1``
-only test task 0, as a serving miss decodes one task.  With
+only test task 0, as a serving miss decodes one task; with ``--place``,
+test task 0 by ``DreamShard.place``, the per-task entry point.  With
 ``--profile``, one more warm call runs under torch.profiler: its device
 kernels are counted and summed, the 8 largest by name.
 
     python tools/time_place_many.py [--src DIR] [--repeats 20]
-        [--tasks N] [--profile] [--device cpu]
+        [--tasks N] [--place] [--profile] [--device cpu]
 
 ``--src`` is the ``src`` directory to import ``repro_torch`` from (default:
 this checkout's), so that two trees can be timed in one process order
@@ -34,6 +35,8 @@ def main() -> None:
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--tasks", type=int, default=20,
                     help="place the first N test tasks a call")
+    ap.add_argument("--place", action="store_true",
+                    help="time DreamShard.place of test task 0 instead")
     ap.add_argument("--profile", action="store_true",
                     help="also count one warm call's device kernels")
     ap.add_argument("--device", default=None,
@@ -53,13 +56,20 @@ def main() -> None:
     agent = DreamShard(train, SimOracle(seed=0), DreamShardConfig(seed=0),
                        device=args.device)
     placer = agent.as_placer(n_candidates=16)
+    task = test[0]
+
+    def call():
+        if args.place:
+            agent.place(task.raw_features, task.n_devices, 16)
+        else:
+            placer.place_many(test[:args.tasks])
     cuda = agent.device.type == "cuda"
     times = []
     for _ in range(args.repeats + 1):
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        placer.place_many(test[:args.tasks])
+        call()
         if cuda:
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
@@ -69,7 +79,7 @@ def main() -> None:
         from torch.profiler import ProfilerActivity, profile as prof
         with prof(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
-            placer.place_many(test[:args.tasks])
+            call()
             if cuda:
                 torch.cuda.synchronize()
         rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -84,7 +94,9 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip() if cuda else None
     print(json.dumps({"src": os.path.relpath(os.path.abspath(args.src), ROOT),
-                      "card": card, "tasks": args.tasks, "cold_ms": times[0],
+                      "card": card, "call": "place" if args.place
+                      else "place_many", "tasks": 1 if args.place
+                      else args.tasks, "cold_ms": times[0],
                       "warm_ms": times[1:],
                       "warm_median_ms": float(np.median(times[1:])),
                       "warm_min_ms": float(np.min(times[1:])),

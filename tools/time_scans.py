@@ -2,10 +2,12 @@
 """Time K3 (the selective scan) and K4 (the WKV-6 scan) of several trees in
 turns in one process, at the yardstick shapes of ``chip_smoke.py``'s phase
 15 (e): K3 at (2, 8192, 3200, N 16) with bf16 x, K4 at (2, 8192, 32, 64)
-with bf16 r, k, v, and each at the decode shape (S 1).
+with bf16 r, k, v, and each at the decode shape (S 1); then their
+backward kernels (K3-bwd, K4-bwd) at phase 16 (e)'s train shapes, (2,
+4096, 3200, N 16) and (2, 4096, 32, 64), bf16.
 
     python tools/time_scans.py --src build/parent/src --src src
-        [--rounds 5] [--repeats 10] [--calls 100]
+        [--rounds 5] [--repeats 10] [--calls 100] [--only fwd|bwd]
 
 Each ``--src`` is a ``src`` directory to import ``repro_torch`` from (e.g.
 a parent unpacked with ``git archive`` beside this checkout's); each tree
@@ -28,9 +30,20 @@ times the trees in order and then in reverse:
 
 Each tree's outputs are compared bit for bit with the plain versions (K3's
 float32 y and hT on float32 x, K4's sT) at the yardstick and at ragged
-shapes.  Prints one JSON line: the card's ``nvidia-smi`` name and power
-limit, each tree's readings of every round, their medians, and the bit
-comparisons.
+shapes.
+
+The backwards (cases ``k3_bwd`` and ``k4_bwd``): each call's median ms as
+above (the main kernel and its finish kernel together, as a caller sees
+them), each kernel's own device ms a launch by ``torch.profiler`` over
+``--repeats`` calls (``split``), and per tree (``checks``) the float64
+rule on every gradient at the train shape (``f64_share``: the kernel's
+largest error against a float64 run of the plain backward over twice
+plain float32's plus 1e-6; at most 1 passes) and whether two calls give
+the same bits.  The inputs are the forward's seeded ones at the train
+shape, the states saved by each tree's own forward, and a seeded dy.
+
+Prints one JSON line: the card's ``nvidia-smi`` name and power limit,
+each tree's readings of every round, their medians, and the checks.
 """
 
 from __future__ import annotations
@@ -45,15 +58,16 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 YARDSTICK = {"k3": (2, 8192, 3200, 16), "k4": (2, 8192, 32)}
+TRAIN = {"k3": (2, 4096, 3200, 16), "k4": (2, 4096, 32)}
 # ragged shapes for the bit checks: S past a chunk, Di and H odd
 RAGGED = {"k3": [(3, 33, 77, 16), (1, 17, 99, 8), (2, 1, 3200, 16)],
           "k4": [(3, 33, 5), (1, 17, 1), (2, 1, 32)]}
 
 
 def load_tree(src: str) -> dict:
-    """The K3 and K4 wrappers, libraries, ops and plain versions of the
-    ``repro_torch`` under ``src`` (other trees' modules are dropped from
-    ``sys.modules`` first)."""
+    """The K3 and K4 wrappers (forward and backward), libraries, ops and
+    plain versions of the ``repro_torch`` under ``src`` (other trees'
+    modules are dropped from ``sys.modules`` first)."""
     for name in [n for n in sys.modules
                  if n == "repro_torch" or n.startswith("repro_torch.")]:
         del sys.modules[name]
@@ -71,11 +85,18 @@ def load_tree(src: str) -> dict:
                 "repro_torch.kernels.selective_scan.ops").selective_scan,
             "k4": importlib.import_module(
                 "repro_torch.kernels.wkv6.ops").wkv6}
+        plain_bwd = {
+            "k3": importlib.import_module("repro_torch.kernels.selective_scan"
+                                          ".ref").selective_scan_bwd_plain,
+            "k4": importlib.import_module(
+                "repro_torch.kernels.wkv6.ref").wkv6_bwd_plain}
     finally:
         sys.path.remove(os.path.abspath(src))
     return {"k3": mods["k3"].selective_scan_cuda, "k4": mods["k4"].wkv6_cuda,
+            "bwd": {"k3": mods["k3"].selective_scan_grad_cuda,
+                    "k4": mods["k4"].wkv6_grad_cuda},
             "lib": {"k3": mods["k3"].LIBRARY, "k4": mods["k4"].LIBRARY},
-            "op": ops, "plain": plain}
+            "op": ops, "plain": plain, "plain_bwd": plain_bwd}
 
 
 def inputs(torch, dev, kernel: str, shape, x_dtype):
@@ -145,6 +166,67 @@ def median(v: list) -> float:
     return sorted(v)[len(v) // 2]
 
 
+def f64_share(torch, got, plain, ref64) -> float:
+    """The float64 rule's largest share over the gradients: the kernel's
+    max |err| against float64 over twice plain float32's plus 1e-6."""
+    share = 0.0
+    for g, p, r in zip(got, plain, ref64):
+        e_k = float((g.double() - r).abs().max())
+        e_p = float((p.double() - r).abs().max())
+        share = max(share, e_k / (2 * e_p + 1e-6))
+    return share
+
+
+def backward_cases(torch, dev, trees: dict, kernel: str, args, out: dict,
+                   median_time_ms, kernel_ms):
+    """Time each tree's backward of ``kernel`` at the train shape in turns
+    (``ms``), split its device time by kernel (``split``), and check the
+    float64 rule and two calls' bits (``checks``)."""
+    shape = TRAIN[kernel]
+    a = inputs(torch, dev, kernel, shape, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    dy = torch.randn(a[0].shape, generator=g).to(dev)
+    if kernel == "k3":
+        dy = dy.to(torch.bfloat16)
+    calls = {}
+    for name, t in trees.items():
+        with torch.no_grad():
+            hs = t[kernel](*a, save_states=True)[2]
+        calls[name] = (t["bwd"][kernel], (*a[:5], hs, dy))
+    times = {name: [] for name in calls}
+    for fn, cargs in calls.values():                     # warm-up
+        median_time_ms(fn, cargs, warmup=2, repeats=args.repeats)
+    for _ in range(args.rounds):
+        for name in list(calls) + list(calls)[::-1]:
+            fn, cargs = calls[name]
+            times[name].append(median_time_ms(fn, cargs, warmup=1,
+                                              repeats=args.repeats))
+    case = f"{kernel}_bwd"
+    out["ms"][case] = times
+    out["median"].setdefault("ms", {})[case] = {
+        n: median(v) for n, v in times.items()}
+    out["split"][case] = {name: kernel_ms(fn, cargs, args.repeats)
+                          for name, (fn, cargs) in calls.items()}
+    # the float64 rule against the last tree's plain backward, as the
+    # kernel's caller sees it: bf16 inputs widened, dy in its dtype
+    plain_fn = trees[args.src[-1]]["plain_bwd"][kernel]
+    wide = [t.float() for t in a]
+    with torch.no_grad():
+        plain = plain_fn(*wide, dy.float())
+        ref64 = plain_fn(*(t.double() for t in a), dy.double())
+        del wide
+        for name, (fn, cargs) in calls.items():
+            one, two = fn(*cargs), fn(*cargs)
+            p = [q.to(o.dtype) for q, o in zip(plain, one)]
+            out["checks"][f"{case} {name}"] = {
+                "f64_share": f64_share(torch, one, p, ref64),
+                "same_bits_twice": all(bits(torch, x, y)
+                                       for x, y in zip(one, two))}
+            del one, two, p
+    del plain, ref64, calls
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", required=True,
@@ -154,12 +236,15 @@ def main() -> None:
     ap.add_argument("--calls", type=int, default=100,
                     help="calls a reading of host_us, op_host_us and "
                          "device_us (S 1)")
+    ap.add_argument("--only", choices=("fwd", "bwd"),
+                    help="time only the forwards or only the backwards")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("time_scans: no CUDA device is available")
-    sys.path.insert(0, os.path.abspath(args.src[0]))
-    from repro_torch.profiling.microbench import median_time_ms
+    # the timing helpers of the last tree (a parent's may predate them)
+    sys.path.insert(0, os.path.abspath(args.src[-1]))
+    from repro_torch.profiling.microbench import kernel_ms, median_time_ms
     sys.path.pop(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -172,9 +257,13 @@ def main() -> None:
     out = {"device": smi, "torch": torch.__version__, "trees": args.src,
            "rounds": args.rounds, "repeats": args.repeats,
            "calls": args.calls, "ms": {}, "host_us": {}, "op_host_us": {},
-           "device_us": {}, "median": {}, "bits": {}}
+           "device_us": {}, "median": {}, "bits": {}, "split": {},
+           "checks": {}}
+    for kernel in ("k3", "k4") if args.only != "fwd" else ():
+        backward_cases(torch, dev, trees, kernel, args, out, median_time_ms,
+                       kernel_ms)
     with torch.no_grad():
-        for kernel in ("k3", "k4"):
+        for kernel in ("k3", "k4") if args.only != "bwd" else ():
             fns = {src: t[kernel] for src, t in trees.items()}
             full = inputs(torch, dev, kernel, YARDSTICK[kernel],
                           torch.bfloat16)

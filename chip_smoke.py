@@ -82,7 +82,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    baseline and ``beats_all`` (printed, not checked); (c) the RNN's and
    ``expert_best``'s placements of test tasks 0 and 1 timed live with K1
    (``measure_placement``) beside phase 8's trained ones, and K1 and its
-   backward held to plain at each of their devices' shapes and indices;
+   backward held to plain at each of their devices' shapes and indices
+   (a placement equal to one already timed on that task is timed once);
    (d) one RNN update from the same converted weights, task and noise
    on the card and on the CPU: the same episodes, gradients within 1e-4,
    and the same greedy placements of the 20 test tasks;
@@ -93,7 +94,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    task 0's 50 tables (rows capped at 2^20), batch 65536, float32, the
    four shards' arenas on this one card through ``lookup_unsharded`` (K1
    forward and backward per shard and step), row-wise Adagrad on the
-   arenas and Adam on the dense nets: 2 warm-up and 8 timed steps for
+   arenas and Adam on the dense nets: 2 warm-up and 4 timed steps for
    phase 8's trained placement and its random one, on the same batches
    (``DLRMBatchStream`` through ``Prefetcher``, made once); first, on the
    trained placement's first batch, K1 forward and backward per shard at
@@ -136,7 +137,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    paper regime (12 jobs x 50 tables, 4 devices, 1500 requests + 8 tail
    jobs, drift 0.8) through ``PlacementService`` under the ``drift``,
    ``never`` and ``always`` policies, beside the cold leg
-   (``session.place`` on the first 300 requests): every request served
+   (``session.place`` on the first 100 requests): every request served
    with a legal placement from the cache or a decode, no decode raised, hit
    rate >= 0.5 in each leg, warm-hit p50 >= 20x under cold p50, and a
    zero-drift replay bit-equal to ``place_many``; (b) b12's paper regime
@@ -245,6 +246,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    operations, K3-bwd's exponentials at the SFU's rate), their registers,
    resident warps and spills, and the plain backward's time of (c).
    Each leg prints its seconds.
+17. (after phase 16) the VLM and audio frontends (stub patch or frame
+   embeddings, seeded on the host, in front of the token embeddings):
+   (a) musicgen-large at full width and depth (48 layers, 2424506368
+   seeded bf16 params, gelu, 32 heads of 64) served through
+   ``launch.serve.serve``: 2 prompts of 256 frame embeddings + 7936
+   tokens and 32 greedy tokens, the cache position counting the frames,
+   then torch.profiler over one more prefill; the same weights trained
+   by ``make_train_step`` (AdamW, lr 3e-4, weight decay 0.1, no remat) on
+   ``LMBatchStream``'s batches of 2 x 4096 positions (256 frames, their
+   labels masked, + 3840 tokens): 1 warm-up and 3 steps timed by CUDA
+   events, finite losses, the peak, then torch.profiler over one step;
+   (b) llava-next-34b at full width and depth (60 layers, 34388917248
+   seeded bf16 params) served the same way, 2 prompts of 2304 patch
+   embeddings + 1792 tokens and 8 tokens, and at full width cut to 2
+   layers trained the same way (2304 + 1792 positions, 1 warm-up and 2
+   timed steps); (c) K2 against plain by phase 13's
+   ``attention_ulp_err`` on layer 0's real q/k/v of each served prompt
+   (musicgen: hd 64, group 1; llava: hd 128, group 7); (d) both archs at
+   SMOKE, seeded, float32, on the card (K2) and on the CPU (plain), the
+   same embeds: prefill and decode logits within 1e-4, 8 greedy tokens
+   equal, a ``make_grad_fn`` step's loss (1e-5) and gradients (1e-4).
+   Every serve and train time prints ``mfu``.  Each leg prints its
+   seconds.
+
+Every LM line (phases 7, 13-17) prints ``mfu``, the model FLOP
+utilisation: ``launch/roofline.model_flops`` at the smoke's own batch and
+sequence over the measured time at the card's bf16 peak
+(``roofline.PEAK_FLOPS``, where this script takes its peaks from).
 
 It prints each phase's seconds, the kernel line (one JSON object with a
 ``kernels`` list; each kernel's launches summed over the paths it serves,
@@ -267,11 +296,15 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+# the card's peaks have one home, the port's roofline module
+from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS  # noqa: E402
+
+HBM_BYTES_PER_S = HBM_BW         # H100 SXM device memory
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM MUFU.EX2: 16 a clock an SM
-BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+BF16_FLOP_PER_S = PEAK_FLOPS     # H100 SXM bf16 tensor cores, dense
 BATCH = 65536                    # the paper's DLRM batch
 MAX_ROWS = 2 ** 20
 N_MEASURED_TASKS = 2
@@ -283,7 +316,7 @@ TRAIN_TASKS = 16                 # the table1_main quick regime
 CROSS_STEPS = 50
 PROFILE_COST_STEPS = 30          # phase 8's profile of the training stages
 PROFILE_RL_STEPS = 2
-DLRM_STEPS = 10                  # phase 10: 2 warm-up + 8 timed steps
+DLRM_STEPS = 6                   # phase 10: 2 warm-up + 4 timed steps
 DLRM_WARMUP = 2
 K1_BWD_KERNELS = ("compact_kernel", "radix_hist_kernel", "radix_scan_kernel",
                   "radix_scatter_kernel", "runs_kernel", "chunks_kernel",
@@ -1070,6 +1103,27 @@ def phase_k2_layer0(torch, FA, plain, res, summary: dict) -> float:
     return errs["bfloat16"]["max_abs_err"]
 
 
+def lm_mfu(cfg, kind: str, batch: int, seq: int, ms: float) -> float:
+    """Model FLOP utilisation of one measured LM call, by the port's
+    roofline (``launch/roofline.mfu``): ``model_flops`` at the smoke's own
+    ``batch`` and ``seq`` (the positions a row; a decode step is one a
+    row) over ``ms`` at the card's bf16 peak."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.roofline import mfu
+    return mfu(cfg, InputShape(f"smoke_{kind}", seq, batch, kind),
+               ms / 1e3)
+
+
+def serve_mfu(res) -> dict:
+    """``lm_mfu`` of a ``ServeResult``'s timed prefill and decode step."""
+    B = res.prompts.shape[0]
+    S = res.prompts.shape[1] + (0 if res.embeds is None
+                                else res.embeds.shape[1])
+    return {"prefill": lm_mfu(res.cfg, "prefill", B, S, res.prefill_ms),
+            "decode": lm_mfu(res.cfg, "decode", B, S,
+                             res.decode_ms_per_token)}
+
+
 def phase_serve(torch, counters, FA, summary: dict):
     """The LM path: danube at full width, served through the entry point."""
     from repro_torch.launch.serve import serve
@@ -1093,6 +1147,7 @@ def phase_serve(torch, counters, FA, summary: dict):
           "token ids in range")
     check(res.pos == SERVE_PROMPT + SERVE_TOKENS - 1, "cache position")
     n_params = sum(t.numel() for t in tree_leaves(res.params))
+    mfu = serve_mfu(res)
     summary["serve"] = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
         "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
@@ -1100,11 +1155,12 @@ def phase_serve(torch, counters, FA, summary: dict):
         "decode_ms_per_token": res.decode_ms_per_token,
         "decode_tokens_per_s": res.decode_tokens_per_s,
         "peak_memory_bytes": res.peak_memory_bytes, "wall_s": wall,
-        "k2_launches": launches}
+        "k2_launches": launches, "mfu": mfu}
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, {n_params} params, "
         f"bf16; batch {SERVE_BATCH} x {SERVE_PROMPT} tokens")
-    log(f"[serve] prefill {res.prefill_ms:.1f} ms; decode "
-        f"{res.decode_ms_per_token:.2f} ms/token, "
+    log(f"[serve] prefill {res.prefill_ms:.1f} ms (mfu "
+        f"{mfu['prefill']:.3f}); decode {res.decode_ms_per_token:.2f} "
+        f"ms/token (mfu {mfu['decode']:.5f}), "
         f"{res.decode_tokens_per_s:.1f} tokens/s; peak memory "
         f"{res.peak_memory_bytes / 2**30:.2f} GiB; wall {wall:.1f} s")
     log(f"[serve] request 0: {res.tokens[0, :12].tolist()} ...")
@@ -1113,25 +1169,29 @@ def phase_serve(torch, counters, FA, summary: dict):
     return res, launches
 
 
-def phase_profile(torch, res, summary: dict, key: str = "profile") -> dict:
+def phase_profile(torch, res, summary: dict, key: str = "profile",
+                  decode_window: bool = True) -> dict:
     """Where the LM path's time goes: torch.profiler over one prefill and
-    over 4 decode steps of the served model (weights from phase 7, or
-    15's), with each kernel class's share of the kernels' time.  The busy
-    share is the kernels' summed device time over the window's wall time
-    (one stream); the profiler slows the host, so the idle share it gives
-    is an upper bound."""
+    (with ``decode_window``) over 4 decode steps of the served model
+    (weights from phase 7, or 15's, or 17's with their frontend embeds),
+    with each kernel class's share of the kernels' time.  The busy share
+    is the kernels' summed device time over the window's wall time (one
+    stream); the profiler slows the host, so the idle share it gives is
+    an upper bound.  It records the device's activity only: no host event
+    is read, and the host's take seconds to gather at this depth."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps as ST
     model = ST.build_model(res.cfg, device="cuda")
-    prefill = ST.make_prefill_step(model,
-                                   capacity=res.prompts.shape[1] + 4)
+    frames = 0 if res.embeds is None else res.embeds.shape[1]
+    prefill = ST.make_prefill_step(
+        model, capacity=frames + res.prompts.shape[1] + 4)
     decode = ST.make_decode_step(model)
     state = {}
 
     def run_prefill():
         state["logits"], state["cache"] = prefill(
-            res.params, {"tokens": res.prompts})
+            res.params, {"tokens": res.prompts, "embeds": res.embeds})
 
     def run_decode():
         tok = state["logits"][:, -1].argmax(-1, keepdim=True)
@@ -1141,10 +1201,12 @@ def phase_profile(torch, res, summary: dict, key: str = "profile") -> dict:
             tok = logits[:, -1].argmax(-1, keepdim=True)
 
     out = {}
-    for name, fn in (("prefill", run_prefill), ("decode x4", run_decode)):
+    windows = [("prefill", run_prefill)]
+    if decode_window:
+        windows.append(("decode x4", run_decode))
+    for name, fn in windows:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1752,17 +1814,28 @@ def phase_table1(torch, np, K, counters, ctx, summary: dict) -> dict:
             "(printed, not checked); the RNN's placement is "
             + ", ".join(f"{k}'s on {v}" for k, v in row["rnn_as"].items())
             + f" of {len(tasks)} tasks")
-    # (c) the leading placements live with K1
-    live, checks = [], {}
+    # (c) the leading placements live with K1: each distinct placement of
+    # a task once (the RNN's greedy decode often is expert_best's)
+    live, checks, timed = [], {}, {}
     for ti, task in enumerate(test[:TABLE1_LIVE_TASKS]):
         for name in ("rnn", "expert_best"):
             a = rows["test"]["placements"][name][ti].assignment
+            label = f"task {ti} {name}"
+            key = (ti, np.asarray(a, np.int64).tobytes())
+            same = timed.get(key)
+            if same is not None:
+                live.append({**same, "placement": label,
+                             "same_as": same["placement"]})
+                checks[label] = checks[same["placement"]]
+                log(f"[table1 live] {label}: the same placement as "
+                    f"{same['placement']}, whose live timing and K1 checks "
+                    "stand for it")
+                continue
             est = measured.evaluate(task.raw_features, a, task.n_devices)
             res = measure_placement(task.raw_features, a, task.n_devices,
                                     batch_size=BATCH, pooling=None,
                                     max_rows=MAX_ROWS, device="cuda")
             check(math.isfinite(res.overall), "finite live cost")
-            label = f"task {ti} {name}"
             checks[label] = placement_kernel_checks(
                 torch, K, task, a, label=f"the table 1 placement '{label}'")
             live.append({"placement": label, "live_ms": res.overall,
@@ -1771,6 +1844,7 @@ def phase_table1(torch, np, K, counters, ctx, summary: dict) -> dict:
                          "live_fwd_ms": res.fwd_comp.tolist(),
                          "live_bwd_ms": res.bwd_comp.tolist(),
                          "kernel_checks": checks[label]})
+            timed[key] = live[-1]
             log(f"[table1 live] {label}: live {res.overall:.4f} ms (fwd "
                 f"{np.round(res.fwd_comp, 3).tolist()}, bwd "
                 f"{np.round(res.bwd_comp, 3).tolist()}), MeasuredOracle "
@@ -1794,7 +1868,7 @@ def phase_table1(torch, np, K, counters, ctx, summary: dict) -> dict:
                "the table 1 path")
     log(f"[table1] K1 launches on the table 1 path: {launches['fwd']} "
         f"forward, {launches['bwd']} backward (live timing of "
-        f"{len(live)} placements)")
+        f"{len(timed)} distinct placements of {len(live)})")
     # (d) the RNN on the card against the CPU
     cross = rnn_cross_device(torch, np, rnn, test)
     summary["table1"] = {
@@ -1986,7 +2060,7 @@ def dlrm_full_width(torch, np, K, counters, task0, summary) -> dict:
     """(b) DLRM at FULL's widths over test task 0's 50 tables (rows capped
     at 2^20), batch 65536, float32, every shard's arena on this card
     through ``lookup_unsharded``: K1 against plain at the step's shapes
-    (``dlrm_kernel_checks``), then 2 warm-up and 8 timed steps for the
+    (``dlrm_kernel_checks``), then 2 warm-up and 4 timed steps for the
     trained placement and for the random one, on the same batches.
     Returns the K1 launches of these steps (and of the profiled one)."""
     from repro_torch.configs import dlrm as CD
@@ -2603,7 +2677,7 @@ SERVE_ADMISSION = dict(max_wait_ms=2.0, max_batch=8, ewma_alpha=0.3,
                        replace_max_evals=96, replace_budget_ms=None, seed=0)
 SERVE_THRESHOLD = 0.05           # max per-table TV distance (b11 "drift")
 SERVE_MS_PER_GB = 25.0           # migration term and b11's accounting charge
-SERVE_COLD_REQUESTS = 300        # b11's cold leg, cut to the trace's first 300
+SERVE_COLD_REQUESTS = 100        # b11's cold leg, cut to the trace's first 100
 MIN_HIT_RATE = 0.5               # b11's limits
 HIT_SPEEDUP_P50 = 20.0
 MAX_RECOVERY_RATIO = 0.25        # b12's limit
@@ -3171,17 +3245,21 @@ def _lm_batch(torch, np, vocab: int, B: int, S: int, device, seed: int = 0):
                                     device=device)}
 
 
-def _layer0_qkv(torch, cfg, params, tokens):
-    """Layer 0's q (rope'd), k (rope'd) and v of ``tokens``, as the train
-    step's forward computes them (QKV biases added before RoPE)."""
+def _layer0_qkv(torch, cfg, params, tokens, embeds=None):
+    """Layer 0's q (rope'd), k (rope'd) and v of ``tokens`` (after a
+    frontend arch's ``embeds``), as the train step's forward computes them
+    (QKV biases added before RoPE)."""
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import map_params
     lp = map_params(lambda t: t[0], params["layers"])
-    B, S = tokens.shape
     hd = cfg.head_dim
     with torch.no_grad():
-        h = L.rms_norm(params["embed"][tokens.long()], lp["ln1"],
-                       cfg.norm_eps)
+        x = params["embed"][tokens.long()]
+        if embeds is not None:
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        B, S = x.shape[:2]
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        del x
         pos = torch.arange(S, device=tokens.device)[None, :]
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.qkv_bias:
@@ -3222,8 +3300,8 @@ def _under(e, pred) -> bool:
 
 
 def train_profile(torch, step, params, state, batch, spans=None,
-                  classify=_kernel_class, tag: str = "lm train profile"
-                  ) -> dict:
+                  classify=_kernel_class, tag: str = "lm train profile",
+                  host: bool = True) -> dict:
     """torch.profiler over one train step: kernel ms, idle share, and the
     shares of each kernel class (``classify``: K2, cuBLAS's GEMMs, ...)
     and of the attention backward's blockwise recompute (every kernel
@@ -3231,13 +3309,18 @@ def train_profile(torch, step, params, state, batch, spans=None,
     overlaps cuBLAS: the recompute's matmuls are cuBLAS's).  ``spans``
     maps more names to ``(pred, outside)``: the device time of the
     outermost host events that ``pred`` holds for and that no event
-    ``outside`` holds for encloses.  The profiler slows the host, so the
-    idle share is an upper bound.  Log lines start with ``[tag]``."""
+    ``outside`` holds for encloses.  With ``host=False`` only the device's
+    activity is recorded (a deep step's host events take tens of seconds
+    to gather), so the recompute and ``spans`` are not read.  The profiler
+    slows the host, so the idle share is an upper bound.  Log lines start
+    with ``[tag]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    check(host or not spans, "spans need the host's events")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
+                  else [ProfilerActivity.CUDA])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step(params, state, batch)
         torch.cuda.synchronize()
@@ -3261,7 +3344,8 @@ def train_profile(torch, step, params, state, batch, spans=None,
     # the engine's evaluate_function event holds the node's own: count
     # the outermost only
     recompute = sum(e.device_time_total for e in prof.events()
-                    if attn_bwd(e) and not attn_bwd(e.cpu_parent)) / 1e3
+                    if attn_bwd(e) and not attn_bwd(e.cpu_parent)
+                    ) / 1e3 if host else None
     more = {}
     for name, (pred, outside) in (spans or {}).items():
         more[name] = sum(
@@ -3269,7 +3353,9 @@ def train_profile(torch, step, params, state, batch, spans=None,
             if e.device_type == DeviceType.CPU and pred(e)
             and not _under(e, pred)
             and not (outside and (outside(e) or _under(e, outside)))) / 1e3
-    ms = {**by_class, "attention backward": recompute, **more}
+    ms = {**by_class, **more}
+    if host:
+        ms["attention backward"] = recompute
     from repro_torch.profiling.microbench import kernel_name
     out = {"wall_ms": wall_ms, "kernel_ms": busy,
            "idle_share": 1 - busy / wall_ms if busy else None,
@@ -3284,8 +3370,9 @@ def train_profile(torch, step, params, state, batch, spans=None,
             f"{busy:.1f} ms (idle share <= {out['idle_share']:.3f}); "
             + ", ".join(f"{k} {by_class[k]:.1f} ms ({out['share'][k]:.3f})"
                         for k in classes)
-            + f"; attention backward (blockwise recompute) {recompute:.1f} "
-            f"ms ({out['share']['attention backward']:.3f})" + "".join(
+            + (f"; attention backward (blockwise recompute) {recompute:.1f} "
+               f"ms ({out['share']['attention backward']:.3f})" if host
+               else "; the device's activity only") + "".join(
                 f"; {k} {v:.1f} ms ({out['share'][k]:.3f})"
                 for k, v in more.items()))
     else:
@@ -3362,12 +3449,14 @@ def lm_train_full(torch, np, FA, counters, summary: dict) -> tuple:
            "step_ms": times, "median_step_ms": step_ms,
            "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
            "peak_memory_bytes": peak,
-           "k2_launches_per_step": launches // n_steps}
+           "k2_launches_per_step": launches // n_steps,
+           "mfu": lm_mfu(cfg, "train", TRAIN_BATCH, TRAIN_SEQ, step_ms)}
     log(f"[lm train] {cfg.name}: {cfg.n_layers} layers, {n_params} params, "
         f"bf16, AdamW, no remat; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens; "
         f"chunks {model.q_chunk}/{model.kv_chunk}")
     log(f"[lm train] step ms {[round(t, 2) for t in times]} (median "
-        f"{step_ms:.2f}, 1 warm-up step before), {out['tokens_per_s']:.0f} "
+        f"{step_ms:.2f}, mfu {out['mfu']:.3f}, 1 warm-up step before), "
+        f"{out['tokens_per_s']:.0f} "
         f"tokens/s; losses {[round(x, 4) for x in losses]}; peak memory "
         f"{peak / 1e9:.2f} GB; K2 launches {launches // n_steps} a step")
     for c in counters:
@@ -3567,6 +3656,34 @@ def lm_train_kernel_checks(torch, FA, plain, qkv, window, chunk,
     return errs
 
 
+def timed_serve(torch, model, params, step_in: dict, n_tokens: int,
+                capacity: int) -> dict:
+    """One prefill and ``n_tokens - 1`` greedy decode steps through the
+    launch steps, each part timed by CUDA events (with whatever first
+    launches it makes).  Returns the greedy tokens (B, n_tokens) on the
+    host, the last logits and the ms."""
+    from repro_torch.launch import steps as ST
+    prefill = ST.make_prefill_step(model, capacity=capacity)
+    decode = ST.make_decode_step(model)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, cache = prefill(params, step_in)
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    ev[1].record()
+    toks = [tok]
+    for _ in range(n_tokens - 1):
+        logits, cache = decode(params, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    ev[2].record()
+    ev[2].synchronize()
+    del cache
+    return {"tokens": torch.cat(toks, 1).cpu(), "logits": logits,
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": (ev[1].elapsed_time(ev[2])
+                                    / max(n_tokens - 1, 1))}
+
+
 def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
     """13 (d): qwen2.5-14b, phi4-mini-3.8b and granite-34b at full width
     cut to 2 layers, bf16, seeded: one train step (2 x 1024 tokens) and
@@ -3601,17 +3718,15 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
         train_s = time.perf_counter() - t0
         check(math.isfinite(loss), f"{arch} loss {loss}")
         del state
-        prefill = ST.make_prefill_step(model,
-                                       capacity=DENSE_SEQ + DENSE_DECODE)
-        decode = ST.make_decode_step(model)
-        logits, cache = prefill(params, {"tokens": batch["tokens"]})
-        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        toks = [tok]
-        for _ in range(DENSE_DECODE - 1):
-            logits, cache = decode(params, cache, {"tokens": tok})
-            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-            toks.append(tok)
-        toks = torch.cat(toks, 1).cpu()
+        served = timed_serve(torch, model, params,
+                             {"tokens": batch["tokens"]}, DENSE_DECODE,
+                             DENSE_SEQ + DENSE_DECODE)
+        toks, logits = served["tokens"], served["logits"]
+        mfu = {"train": lm_mfu(cfg, "train", 2, DENSE_SEQ, train_s * 1e3),
+               "prefill": lm_mfu(cfg, "prefill", 2, DENSE_SEQ,
+                                 served["prefill_ms"]),
+               "decode": lm_mfu(cfg, "decode", 2, DENSE_SEQ,
+                                served["decode_ms_per_token"])}
         check(bool(torch.isfinite(logits.float()).all()),
               f"{arch} finite logits")
         check(bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
@@ -3619,7 +3734,9 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
         k2 = FA.flash_attention_cuda.launches - n0
         check(k2 == 2 * cfg.n_layers, f"{arch}: K2 launched {k2} times")
         out[arch] = {"params": n_params, "loss": loss, "train_s": train_s,
-                     "tokens": toks.tolist(), "k2_launches": k2,
+                     "prefill_ms": served["prefill_ms"],
+                     "decode_ms_per_token": served["decode_ms_per_token"],
+                     "mfu": mfu, "tokens": toks.tolist(), "k2_launches": k2,
                      "k2_vs_plain": k2_err,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                      "kv_heads": cfg.n_kv_heads,
@@ -3629,10 +3746,14 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
             f"(qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}, "
             f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, hd "
             f"{cfg.head_dim}): train step loss {loss:.4f} ({train_s:.2f} s "
-            f"with its first launches), greedy tokens "
+            f"with its first launches, host clock: mfu {mfu['train']:.3f}); "
+            f"prefill {served['prefill_ms']:.1f} ms (mfu "
+            f"{mfu['prefill']:.3f}), decode "
+            f"{served['decode_ms_per_token']:.2f} ms/token (mfu "
+            f"{mfu['decode']:.5f}), greedy tokens "
             f"{toks[0].tolist()}; K2 {k2} launches; peak "
             f"{out[arch]['peak_memory_bytes'] / 1e9:.2f} GB")
-        del params, cache, logits, batch
+        del params, logits, batch, served
         torch.cuda.empty_cache()
     launches = FA.flash_attention_cuda.launches
     check_idle(counters, (FA.flash_attention_cuda,), "the dense configs")
@@ -3761,19 +3882,22 @@ def moe_serve(torch, FA, counters, summary: dict):
         ST.build_model(cfg, device="cuda").prefill(res.params, res.prompts)
     FA.flash_attention_cuda.launches = launches
     check(len(rec.shares) == cfg.n_layers, f"{len(rec.shares)} routes")
+    mfu = serve_mfu(res)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
            "batch": 2, "prompt": MOE_SERVE_PROMPT, "tokens": SERVE_TOKENS,
            "prefill_ms": res.prefill_ms,
            "decode_ms_per_token": res.decode_ms_per_token,
            "decode_tokens_per_s": res.decode_tokens_per_s,
            "peak_memory_bytes": res.peak_memory_bytes, "wall_s": wall,
-           "k2_launches": launches, "dropped_share_by_layer": rec.shares}
+           "k2_launches": launches, "dropped_share_by_layer": rec.shares,
+           "mfu": mfu}
     log(f"[moe serve] {cfg.name}: {cfg.n_layers} layers, {n_params} params "
         f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, capacity "
         f"factor {cfg.moe.capacity_factor}), bf16; batch 2 x "
         f"{MOE_SERVE_PROMPT} tokens")
-    log(f"[moe serve] prefill {res.prefill_ms:.1f} ms; decode "
-        f"{res.decode_ms_per_token:.2f} ms/token, "
+    log(f"[moe serve] prefill {res.prefill_ms:.1f} ms (mfu "
+        f"{mfu['prefill']:.3f}, active params); decode "
+        f"{res.decode_ms_per_token:.2f} ms/token (mfu {mfu['decode']:.5f}), "
         f"{res.decode_tokens_per_s:.1f} tokens/s; peak "
         f"{res.peak_memory_bytes / 1e9:.2f} GB; K2 {launches} launches; "
         f"wall {wall:.1f} s; request 0: {res.tokens[0, :12].tolist()} ...")
@@ -3836,12 +3960,15 @@ def moe_train(torch, np, FA, counters, params, summary: dict) -> tuple:
            "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
            "moe_aux": auxs, "peak_memory_bytes": peak,
            "free_at_peak_bytes": total - peak,
-           "k2_launches_per_step": launches // n_steps}
+           "k2_launches_per_step": launches // n_steps,
+           "mfu": lm_mfu(cfg, "train", MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                         step_ms)}
     log(f"[moe train] {cfg.name}: {cfg.n_layers} layers, bf16, remat, "
         f"AdamW (lr 3e-4, wd 0.1, moe_aux_weight 0.01); batch "
         f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens")
     log(f"[moe train] step ms {[round(t, 2) for t in times]} (median "
-        f"{step_ms:.2f}, 1 warm-up step before), {out['tokens_per_s']:.0f} "
+        f"{step_ms:.2f}, mfu {out['mfu']:.3f} on active params, 1 warm-up "
+        f"step before), {out['tokens_per_s']:.0f} "
         f"tokens/s; losses {[round(x, 4) for x in losses]}; moe_aux "
         f"{[round(x, 4) for x in auxs]}; peak {peak / 1e9:.2f} GB of "
         f"{total / 1e9:.2f} GB; K2 {launches // n_steps} launches a step (the "
@@ -3896,21 +4023,14 @@ def moe_dbrx(torch, np, FA, plain, counters, summary: dict) -> int:
     n_params = sum(t.numel() for t in tree_leaves(params))
     batch = _lm_batch(torch, np, cfg.vocab, 2, DENSE_SEQ, "cuda")
     t0 = time.perf_counter()
-    prefill = ST.make_prefill_step(model, capacity=DENSE_SEQ + DENSE_DECODE)
-    decode = ST.make_decode_step(model)
-    logits, cache = prefill(params, {"tokens": batch["tokens"]})
-    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-    toks = [tok]
-    for _ in range(DENSE_DECODE - 1):
-        logits, cache = decode(params, cache, {"tokens": tok})
-        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        toks.append(tok)
-    toks = torch.cat(toks, 1).cpu()
+    served = timed_serve(torch, model, params, {"tokens": batch["tokens"]},
+                         DENSE_DECODE, DENSE_SEQ + DENSE_DECODE)
+    toks, logits = served["tokens"], served["logits"]
     serve_s = time.perf_counter() - t0
     check(bool(torch.isfinite(logits.float()).all()), "dbrx finite logits")
     check(bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
           "dbrx token ids in range")
-    del cache, logits
+    del logits
     k2_err = k2_train_forward_check(
         torch, FA, plain, *_layer0_qkv(torch, cfg, params, batch["tokens"]),
         None, "dbrx-132b layer 0 of the train batch")
@@ -3927,16 +4047,27 @@ def moe_dbrx(torch, np, FA, plain, counters, summary: dict) -> int:
     check(launches == 2 * cfg.n_layers, f"dbrx: K2 launched {launches}")
     check_idle(counters, (FA.flash_attention_cuda,), "the MoE path")
     peak = torch.cuda.max_memory_allocated()
+    mfu = {"train": lm_mfu(cfg, "train", 2, DENSE_SEQ, train_s * 1e3),
+           "prefill": lm_mfu(cfg, "prefill", 2, DENSE_SEQ,
+                             served["prefill_ms"]),
+           "decode": lm_mfu(cfg, "decode", 2, DENSE_SEQ,
+                            served["decode_ms_per_token"])}
     out = {"params": n_params, "layers": cfg.n_layers, "loss": loss,
            "moe_aux": aux, "train_s": train_s, "serve_s": serve_s,
+           "prefill_ms": served["prefill_ms"],
+           "decode_ms_per_token": served["decode_ms_per_token"], "mfu": mfu,
            "tokens": toks.tolist(), "k2_launches": launches,
            "k2_vs_plain": k2_err, "peak_memory_bytes": peak}
     log(f"[moe dbrx] dbrx-132b at {cfg.n_layers} layers, {n_params} params "
         f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}; "
         f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, hd {cfg.head_dim}): "
-        f"serve {serve_s:.2f} s, greedy tokens {toks[0].tolist()}; train "
-        f"step loss {loss:.4f}, moe_aux {aux:.4f} ({train_s:.2f} s with "
-        f"its first launches); K2 {launches} launches; peak "
+        f"serve {serve_s:.2f} s (prefill {served['prefill_ms']:.1f} ms, "
+        f"mfu {mfu['prefill']:.3f}; decode "
+        f"{served['decode_ms_per_token']:.2f} ms/token, mfu "
+        f"{mfu['decode']:.5f}; active params), greedy tokens "
+        f"{toks[0].tolist()}; train step loss {loss:.4f}, moe_aux "
+        f"{aux:.4f} ({train_s:.2f} s with its first launches, host clock: "
+        f"mfu {mfu['train']:.3f}); K2 {launches} launches; peak "
         f"{peak / 1e9:.2f} GB")
     del params, state, batch
     torch.cuda.empty_cache()
@@ -4198,6 +4329,7 @@ def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
     phase_profile(torch, res, summary, key=f"ssm_profile {cfg.name}")
     for c in counters:
         c.launches = launches[type(c).__name__]
+    mfu = serve_mfu(res)
     out = {"arch": cfg.name, "layers": n, "params": n_params,
            "param_count_approx": cfg.param_count(), "batch": 2,
            "prompt": SSM_SERVE_PROMPT, "tokens": SERVE_TOKENS,
@@ -4205,13 +4337,14 @@ def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
            "decode_ms_per_token": res.decode_ms_per_token,
            "decode_tokens_per_s": res.decode_tokens_per_s,
            "peak_memory_bytes": res.peak_memory_bytes, "wall_s": wall,
-           "launches": launches}
+           "launches": launches, "mfu": mfu}
     log(f"[ssm serve] {cfg.name}: {n} layers, {n_params} params "
         f"(param_count() {cfg.param_count()}, approximate), bf16; batch 2 x "
         f"{SSM_SERVE_PROMPT} tokens")
     serial = SSM_SERIAL_DESIGN[cfg.name]
-    log(f"[ssm serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms; decode "
-        f"{res.decode_ms_per_token:.2f} ms/token, "
+    log(f"[ssm serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms (mfu "
+        f"{mfu['prefill']:.3f}); decode {res.decode_ms_per_token:.2f} "
+        f"ms/token (mfu {mfu['decode']:.5f}), "
         f"{res.decode_tokens_per_s:.1f} tokens/s; peak "
         f"{res.peak_memory_bytes / 1e9:.2f} GB; wall {wall:.1f} s; launches "
         f"{launches}; request 0: {res.tokens[0, :12].tolist()} ...")
@@ -4618,12 +4751,15 @@ def ssm_train(torch, np, FA, SS, WK, counters, arch: str,
            "tokens_per_s": tokens / (step_ms / 1e3), "losses": losses,
            "peak_memory_bytes": peak, "free_at_peak_bytes": total - peak,
            "leaves_moved": moved, "leaves_held_by_bf16": still,
-           "launches": launches}
+           "launches": launches,
+           "mfu": lm_mfu(cfg, "train", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
+                         step_ms)}
     log(f"[ssm train] {arch}: {n} layers, {n_params} params, bf16, AdamW "
         f"(lr 3e-4, wd 0.1), {'remat' if remat else 'no remat'}; batch "
         f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens")
     log(f"[ssm train] {arch}: step ms {[round(t, 2) for t in times]} "
-        f"(median {step_ms:.2f}, 1 warm-up step before), "
+        f"(median {step_ms:.2f}, mfu {out['mfu']:.3f}, 1 warm-up step "
+        "before), "
         f"{out['tokens_per_s']:.0f} tokens/s; losses "
         f"{[round(x, 4) for x in losses]}; peak {peak / 1e9:.2f} GB of "
         f"{total / 1e9:.2f} GB; {moved} of {len(leaves)} leaves moved, the "
@@ -4970,6 +5106,360 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
     return {"paths": paths, "rows": rows}
 
 
+# phase 17: the VLM and audio frontends (stub embeddings before the tokens)
+
+AUDIO_ARCH = "musicgen-large"
+VLM_ARCH = "llava-next-34b"
+AUDIO_SERVE_PROMPT = 8192        # 17 (a): danube's shape, 256 frames + 7936
+VLM_SERVE_BATCH = 2              # 17 (b): 2304 patch embeddings + 1792
+VLM_SERVE_PROMPT = 4096          # tokens a prompt, 8 tokens decoded
+VLM_SERVE_TOKENS = 8
+FRONTEND_TRAIN_BATCH = 2         # train_4k's sequence, its batch cut from
+FRONTEND_TRAIN_SEQ = 4096        # 256 to 2 (frames included)
+AUDIO_TRAIN_TIMED = 3            # after 1 warm-up step
+VLM_TRAIN_LAYERS = 2             # 17 (b): 60 layers cut to 2, as dbrx-132b
+VLM_TRAIN_TIMED = 2              # after 1 warm-up step
+FRONTEND_CROSS_TOKENS = 48       # 17 (d): SMOKE, float32, 16 frames + 48
+FRONTEND_CROSS_DECODE = 8
+
+
+def _n_params_check(cfg, params) -> int:
+    """The tree's size: ``param_count()`` (exact for these archs) plus the
+    norms (ln1, ln2 a layer and the final one)."""
+    from repro_torch.models.transformer import tree_leaves
+    n = sum(t.numel() for t in tree_leaves(params))
+    want = cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
+    check(n == want, f"{cfg.name} has {n} params, not {want}")
+    return n
+
+
+def frontend_serve(torch, FA, counters, arch: str, batch: int,
+                   prompt_len: int, n_tokens: int, summary: dict):
+    """17 (a), (b): ``arch`` at full width and depth (seeded bf16) served
+    through ``launch.serve.serve``: ``batch`` prompts of ``prompt_len``
+    positions (``n_frontend_tokens`` seeded stub embeddings, then tokens)
+    and ``n_tokens`` greedy tokens; then torch.profiler over one more
+    prefill (kernel ms by class, idle share).  Returns the result and K2's
+    launches (the warm-up, timed and profiled prefills)."""
+    from repro_torch.launch.serve import serve
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = serve(arch, batch=batch, prompt_len=prompt_len, tokens=n_tokens,
+                size="full", device="cuda")
+    wall = time.perf_counter() - t0
+    cfg = res.cfg
+    nf = cfg.n_frontend_tokens
+    launches = FA.flash_attention_cuda.launches
+    check(launches == 2 * cfg.n_layers,
+          f"{cfg.name}: K2 launched {launches} times in 2 prefills of "
+          f"{cfg.n_layers} layers")
+    check_idle(counters, (FA.flash_attention_cuda,),
+               f"the {cfg.name} serve path")
+    check(res.embeds is not None and tuple(res.embeds.shape) == (
+        batch, nf, cfg.d_model) and res.embeds.dtype == torch.bfloat16,
+          f"{cfg.name}: stub embeds {getattr(res.embeds, 'shape', None)}")
+    check(tuple(res.prompts.shape) == (batch, prompt_len - nf),
+          f"{cfg.name}: prompt tokens {tuple(res.prompts.shape)}")
+    check(bool(torch.isfinite(res.last_logits.float()).all()),
+          f"{cfg.name}: finite logits")
+    check(res.tokens.shape == (batch, n_tokens), "token shape")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_padded)).all()),
+          "token ids in range")
+    check(res.pos == prompt_len + n_tokens - 1,
+          f"{cfg.name}: cache position {res.pos} does not count the frames")
+    n_params = _n_params_check(cfg, res.params)
+    mfu = serve_mfu(res)
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": batch, "prompt": prompt_len, "frames": nf,
+           "tokens": n_tokens, "prefill_ms": res.prefill_ms,
+           "decode_ms_per_token": res.decode_ms_per_token,
+           "decode_tokens_per_s": res.decode_tokens_per_s,
+           "peak_memory_bytes": res.peak_memory_bytes,
+           "free_at_peak_bytes": total - res.peak_memory_bytes,
+           "wall_s": wall, "mfu": mfu}
+    log(f"[frontend serve] {cfg.name} ({cfg.frontend}): {cfg.n_layers} "
+        f"layers, {n_params} params, bf16; batch {batch} x {prompt_len} "
+        f"positions ({nf} stub embeddings + {prompt_len - nf} tokens), "
+        f"{n_tokens} tokens")
+    log(f"[frontend serve] {cfg.name}: prefill {res.prefill_ms:.1f} ms (mfu "
+        f"{mfu['prefill']:.3f}); decode {res.decode_ms_per_token:.2f} "
+        f"ms/token (mfu {mfu['decode']:.5f}), "
+        f"{res.decode_tokens_per_s:.1f} tokens/s; peak "
+        f"{res.peak_memory_bytes / 1e9:.2f} GB of {total / 1e9:.2f} GB; K2 "
+        f"{launches} launches; wall {wall:.1f} s; request 0: "
+        f"{res.tokens[0, :8].tolist()} ...")
+    n0 = FA.flash_attention_cuda.launches
+    out["profile"] = phase_profile(torch, res, summary,
+                                   key=f"frontend_profile {cfg.name}",
+                                   decode_window=False)
+    profiled = FA.flash_attention_cuda.launches - n0
+    check(profiled == cfg.n_layers, f"{cfg.name}: K2 launched {profiled} "
+          "times in the profiled prefill")
+    check_idle(counters, (FA.flash_attention_cuda,),
+               f"the {cfg.name} serve path")
+    summary.setdefault("frontend_serve", {})[cfg.name] = out
+    torch.cuda.empty_cache()
+    return res, launches + profiled
+
+
+def _frontend_batch(torch, stream, step: int, dtype) -> dict:
+    """``LMBatchStream``'s batch ``step`` on the card, the embeds in the
+    model's dtype."""
+    b = stream.batch_at(step)
+    out = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    if "embeds" in out:
+        out["embeds"] = out["embeds"].to(dtype)
+    return out
+
+
+def frontend_train(torch, FA, counters, cfg, params, n_timed: int,
+                   summary: dict) -> int:
+    """17 (a), (b): ``cfg`` (bf16, ``params`` or seeded ones) trained by
+    ``make_train_step`` (AdamW, lr 3e-4, weight decay 0.1, no remat) on
+    ``LMBatchStream``'s batches of 2 x 4096 positions (the frames' labels
+    masked): 1 warm-up and ``n_timed`` steps timed by CUDA events, then
+    torch.profiler over one more.  Returns K2's launches."""
+    from repro_torch.data.pipeline import LMBatchStream
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = ST.build_model(cfg, remat=False, device="cuda")
+    if params is None:
+        params = model.init_params(0)
+    n_params = _n_params_check(cfg, params)
+    opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1)
+    state = opt.init(tree_leaves(params))
+    nf = cfg.n_frontend_tokens
+    stream = LMBatchStream(cfg.vocab, FRONTEND_TRAIN_BATCH,
+                           FRONTEND_TRAIN_SEQ, n_frontend_tokens=nf,
+                           d_model=cfg.d_model, seed=0)
+    batches = [_frontend_batch(torch, stream, i, model.dtype)
+               for i in range(1 + n_timed)]
+    check(tuple(batches[0]["embeds"].shape) == (
+        FRONTEND_TRAIN_BATCH, nf, cfg.d_model)
+          and tuple(batches[0]["tokens"].shape) == (
+        FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ - nf), "the batch's shape")
+    qkv = _layer0_qkv(torch, cfg, params, batches[0]["tokens"],
+                      batches[0]["embeds"])
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        params, state, metrics = step(params, state, batch)
+        t1.record()
+        t1.synchronize()
+        losses.append(float(metrics["loss"]))
+        if i:
+            times.append(t0.elapsed_time(t1))
+    launches = FA.flash_attention_cuda.launches
+    n_steps = len(batches)
+    check(launches == cfg.n_layers * n_steps,
+          f"{cfg.name}: K2 launched {launches} times in {n_steps} steps of "
+          f"{cfg.n_layers} layers")
+    check_idle(counters, (FA.flash_attention_cuda,),
+               f"the {cfg.name} train path")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    step_ms = sorted(times)[len(times) // 2]
+    mfu = lm_mfu(cfg, "train", FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ,
+                 step_ms)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": FRONTEND_TRAIN_BATCH, "seq": FRONTEND_TRAIN_SEQ,
+           "frames": nf, "remat": False, "step_ms": times,
+           "median_step_ms": step_ms,
+           "tokens_per_s": FRONTEND_TRAIN_BATCH * FRONTEND_TRAIN_SEQ
+           / (step_ms / 1e3), "mfu": mfu, "losses": losses,
+           "peak_memory_bytes": peak, "free_at_peak_bytes": total - peak,
+           "k2_launches_per_step": launches // n_steps}
+    log(f"[frontend train] {cfg.name}: {cfg.n_layers} layers, {n_params} "
+        f"params, bf16, AdamW (lr 3e-4, wd 0.1), no remat; batch "
+        f"{FRONTEND_TRAIN_BATCH} x {FRONTEND_TRAIN_SEQ} positions ({nf} "
+        "stub embeddings, labels masked there, then tokens: LMBatchStream)")
+    log(f"[frontend train] {cfg.name}: step ms "
+        f"{[round(t, 2) for t in times]} (median {step_ms:.2f}, mfu "
+        f"{mfu:.3f}, 1 warm-up step before), {out['tokens_per_s']:.0f} "
+        f"positions/s; losses {[round(x, 4) for x in losses]}; peak "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} GB; K2 "
+        f"{launches // n_steps} launches a step")
+    for c in counters:
+        c.launches = 0
+    out["profile"] = train_profile(torch, step, params, state, batches[0],
+                                   tag=f"frontend train profile {cfg.name}",
+                                   host=False)
+    check(FA.flash_attention_cuda.launches == cfg.n_layers,
+          f"{cfg.name}: K2 launches in the profiled step")
+    launches += FA.flash_attention_cuda.launches
+    del state, batches, params
+    torch.cuda.empty_cache()
+    # the attention backward (the op's blockwise recompute) alone, by CUDA
+    # events on layer 0's q/k/v; its forward's K2 launch is not counted
+    n0 = FA.flash_attention_cuda.launches
+    bwd_ms = attention_backward_ms(torch, FA, *qkv, cfg.sliding_window,
+                                   model.q_chunk)
+    FA.flash_attention_cuda.launches = n0
+    out["attention_backward_ms_per_layer"] = bwd_ms
+    out["attention_backward_share"] = bwd_ms * cfg.n_layers / step_ms
+    log(f"[frontend train] {cfg.name}: the attention backward alone (layer "
+        f"0's q/k/v, CUDA events): {bwd_ms:.2f} ms a layer, "
+        f"{bwd_ms * cfg.n_layers:.1f} ms a step, "
+        f"{out['attention_backward_share']:.3f} of the median step")
+    del qkv, model
+    torch.cuda.empty_cache()
+    summary.setdefault("frontend_train", {})[cfg.name] = out
+    return launches
+
+
+def frontend_cross_device(torch, np, FA, counters, summary: dict) -> int:
+    """17 (d): llava-next-34b and musicgen-large at SMOKE, seeded, float32,
+    on the card (K2) and on the CPU (plain), given the same seeded embeds
+    (16 frames) and 48 tokens: the prefill logits and those of 7 greedy
+    decode steps within 1e-4, the tokens equal, and one ``make_grad_fn``
+    step's loss (1e-5 relative) and gradients (1e-4 of each leaf's
+    largest), the labels over the whole stream and the frames masked."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    out = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = get_smoke(arch).resolve(1)
+        nf, S = cfg.n_frontend_tokens, FRONTEND_CROSS_TOKENS
+        rng = np.random.default_rng(0)
+        host = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, S)),
+                                          dtype=torch.int32),
+                "embeds": torch.as_tensor(
+                    rng.normal(0, 0.02, (2, nf, cfg.d_model)),
+                    dtype=torch.float32),
+                "labels": torch.as_tensor(
+                    rng.integers(0, cfg.vocab, (2, nf + S)),
+                    dtype=torch.int32),
+                "loss_mask": torch.cat([torch.zeros((2, nf)),
+                                        torch.ones((2, S))], dim=1)}
+        runs, params = [], None
+        for dev in ("cuda", "cpu"):
+            model = ST.build_model(cfg, remat=False, dtype=torch.float32,
+                                   device=dev)
+            params = model.init_params(0) if params is None else map_params(
+                lambda t: t.cpu().clone(), params)
+            b = {k: v.to(dev) for k, v in host.items()}
+            logits, cache = model.prefill(
+                params, b["tokens"], b["embeds"],
+                capacity=nf + S + FRONTEND_CROSS_DECODE)
+            check(cache["pos"] == nf + S, f"{arch}: cache position")
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            lgs, toks = [logits.cpu()], [tok.cpu()]
+            for _ in range(FRONTEND_CROSS_DECODE - 1):
+                logits, cache = model.decode_step(params, cache, tok)
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                lgs.append(logits.cpu())
+                toks.append(tok.cpu())
+            g, loss, _ = ST.make_grad_fn(model)(params, b)
+            runs.append({"logits": lgs, "tokens": torch.cat(toks, 1),
+                         "loss": float(loss), "g": [t.cpu() for t in g]})
+        gpu, cpu = runs
+        err = max(float((a - c).abs().max())
+                  for a, c in zip(gpu["logits"], cpu["logits"]))
+        loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        grad_err = max(_max_rel(torch, a, c)
+                       for a, c in zip(gpu["g"], cpu["g"]))
+        check(err <= 1e-4, f"{arch}: logits cuda vs cpu {err}")
+        check(torch.equal(gpu["tokens"], cpu["tokens"]),
+              f"{arch}: greedy tokens {gpu['tokens'].tolist()} vs "
+              f"{cpu['tokens'].tolist()}")
+        check(loss_err <= 1e-5 and grad_err <= 1e-4,
+              f"{arch}: loss cuda vs cpu {loss_err}, gradients {grad_err}")
+        out[arch] = {"logits_max_abs_err": err, "loss_rel_err": loss_err,
+                     "grad_max_rel_err": grad_err,
+                     "tokens": gpu["tokens"].tolist()}
+        log(f"[frontend cross] {arch} SMOKE, float32, 2 x ({nf} stub "
+            f"embeddings + {S} tokens) + {FRONTEND_CROSS_DECODE} tokens: "
+            f"cuda (K2) == cpu (plain): prefill and decode logits max |err| "
+            f"{err:.3g} (limit 1e-4), greedy tokens equal "
+            f"{gpu['tokens'][0].tolist()}; a make_grad_fn step's loss rel "
+            f"err {loss_err:.3g} (limit 1e-5), gradients max |err| / max |g| "
+            f"{grad_err:.3g} (limit 1e-4)")
+    launches = FA.flash_attention_cuda.launches
+    check(launches == 2 * 2 * 2, f"K2 launched {launches} times (a prefill "
+          "and a forward of 2 layers an arch)")
+    check_idle(counters, (FA.flash_attention_cuda,),
+               "the frontends' cuda vs cpu")
+    summary["frontend_cross_device"] = out
+    return launches
+
+
+def phase_frontends(torch, np, FA, plain, counters, summary: dict) -> dict:
+    """The VLM and audio frontends.  Returns K2's launches by path.  Each
+    leg prints its seconds."""
+    from repro_torch.configs import get_full
+    legs = dict.fromkeys(("a musicgen serve", "a musicgen train",
+                          "b llava serve", "b llava train",
+                          "c K2 checks", "d cuda vs cpu"), 0.0)
+    paths, checks = {}, {}
+
+    t0 = time.perf_counter()
+    res, paths["frontend serve musicgen"] = frontend_serve(
+        torch, FA, counters, AUDIO_ARCH, 2, AUDIO_SERVE_PROMPT,
+        SERVE_TOKENS, summary)
+    legs["a musicgen serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks[AUDIO_ARCH] = k2_train_forward_check(
+        torch, FA, plain, *_layer0_qkv(torch, res.cfg, res.params,
+                                       res.prompts, res.embeds),
+        res.cfg.sliding_window, "musicgen-large layer 0 of the served "
+        "prompts (hd 64, group 1)")
+    torch.cuda.empty_cache()
+    legs["c K2 checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, params = res.cfg, res.params
+    del res
+    paths["frontend train musicgen"] = frontend_train(
+        torch, FA, counters, cfg, params, AUDIO_TRAIN_TIMED, summary)
+    del params
+    legs["a musicgen train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res, paths["frontend serve llava"] = frontend_serve(
+        torch, FA, counters, VLM_ARCH, VLM_SERVE_BATCH, VLM_SERVE_PROMPT,
+        VLM_SERVE_TOKENS, summary)
+    legs["b llava serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qkv = _layer0_qkv(torch, res.cfg, res.params, res.prompts, res.embeds)
+    window = res.cfg.sliding_window
+    del res                       # the plain check needs the weights' room
+    torch.cuda.empty_cache()
+    checks[VLM_ARCH] = k2_train_forward_check(
+        torch, FA, plain, *qkv, window, "llava-next-34b layer 0 of the "
+        "served prompts (hd 128, group 7)")
+    del qkv
+    torch.cuda.empty_cache()
+    legs["c K2 checks"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_full(VLM_ARCH),
+                              n_layers=VLM_TRAIN_LAYERS).resolve(1)
+    paths["frontend train llava"] = frontend_train(
+        torch, FA, counters, cfg, None, VLM_TRAIN_TIMED, summary)
+    legs["b llava train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    paths["frontend cuda vs cpu"] = frontend_cross_device(
+        torch, np, FA, counters, summary)
+    legs["d cuda vs cpu"] = time.perf_counter() - t0
+    summary["frontend_k2_checks"] = checks
+    for name, secs in legs.items():
+        log(f"[frontend] leg {name}: {secs:.1f} s")
+    summary["frontend_legs_s"] = legs
+    return paths
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4989,7 +5479,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
     from repro_torch.kernels.embedding_bag import kernel as K
@@ -5084,6 +5573,10 @@ def main() -> int:
         ssm["paths"][key].update(train["paths"][key])
     ssm["rows"].update(train["rows"])
     ssm["paths"].update({k: train["paths"][k] for k in ("k3_bwd", "k4_bwd")})
+    torch.cuda.empty_cache()
+    lm_launches.update(run("17 VLM and audio frontends", phase_frontends,
+                           torch, np, FA, attention_plain, counters, summary,
+                           phases=phases))
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],

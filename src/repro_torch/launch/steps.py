@@ -48,8 +48,9 @@ def make_grad_fn(model: LM, moe_aux_weight: float = 0.01,
         # caller's tensors gain no requires_grad
         live = [p.detach().requires_grad_(True) for p in leaves]
         loss, aux = model.forward_loss(
-            tree_unflatten(params, live), batch["tokens"], batch["labels"],
-            loss_mask=batch.get("loss_mask"))
+            tree_unflatten(params, live), batch.get("tokens"),
+            batch["labels"], loss_mask=batch.get("loss_mask"),
+            embeds=batch.get("embeds"))
         if cfg.moe:
             loss = loss + moe_aux_weight * aux
             aux = aux.detach()
@@ -82,8 +83,9 @@ def make_train_step(model: LM, lr: float = 3e-4, weight_decay: float = 0.1,
     """Returns ``(opt, train_step)``; ``train_step(params, opt_state,
     batch) -> (params, opt_state, {"loss", "moe_aux"})``, the params
     updated in place by AdamW.  ``opt.init(tree_leaves(params))`` makes
-    the state.  ``batch`` holds ``tokens`` and ``labels`` (B, S) and
-    optionally ``loss_mask``, on the model's device.
+    the state.  ``batch`` holds ``tokens`` (B, S - F) and ``labels`` (B,
+    S), optionally ``loss_mask`` (B, S) and, for a frontend arch,
+    ``embeds`` (B, F, D), on the model's device.
 
     The step holds the params, their gradients and one copy of AdamW's
     moments: ``opt.apply`` updates the moments in place and adds each
@@ -103,7 +105,8 @@ def make_train_step(model: LM, lr: float = 3e-4, weight_decay: float = 0.1,
 
 def make_prefill_step(model: LM, capacity: int | None = None):
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], capacity=capacity)
+        return model.prefill(params, batch.get("tokens"),
+                             embeds=batch.get("embeds"), capacity=capacity)
     return prefill_step
 
 

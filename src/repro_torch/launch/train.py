@@ -11,9 +11,13 @@ numpy draws from ``default_rng(0)``.
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch h2o-danube-1.8b --smoke --steps 2 --device cpu
 
-Every config the port serves trains here, hymba-1.5b and rwkv6-1.6b too
+Every config in the registry trains here, hymba-1.5b and rwkv6-1.6b too
 (their scans' backward is K3-bwd / K4-bwd on the card, e.g. ``--arch
-rwkv6-1.6b --steps 3 --seq 4096``).
+rwkv6-1.6b --steps 3 --seq 4096``).  For a frontend arch (llava-next-34b,
+musicgen-large) a step's ``--seq`` positions are ``n_frontend_tokens``
+stub embeddings, drawn after the tokens and labels from the same
+generator, then tokens (``--arch musicgen-large --smoke --steps 2
+--device cpu``).
 """
 
 from __future__ import annotations
@@ -57,10 +61,14 @@ def main(argv: list[str] | None = None) -> list[float]:
     opt_state = opt.init(tree_leaves(params))
 
     rng = np.random.default_rng(0)
+    nf = cfg.n_frontend_tokens if cfg.frontend else 0
     B, S = args.batch, args.seq
+    if S <= nf:
+        raise ValueError(f"--seq {S} leaves no tokens after {cfg.name}'s "
+                         f"{nf} frontend embeddings")
     losses = []
     for i in range(args.steps):
-        tokens = rng.integers(0, cfg.vocab, (B, S))
+        tokens = rng.integers(0, cfg.vocab, (B, S - nf))
         labels = rng.integers(0, cfg.vocab, (B, S))
         batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
                                            device=dev),
@@ -68,6 +76,10 @@ def main(argv: list[str] | None = None) -> list[float]:
                                            device=dev),
                  "loss_mask": torch.ones((B, S), dtype=torch.float32,
                                          device=dev)}
+        if nf:
+            batch["embeds"] = torch.as_tensor(
+                rng.normal(0, 0.02, (B, nf, cfg.d_model)),
+                device=dev).to(model.dtype)
         t0 = time.perf_counter()
         params, opt_state, metrics = train_step(params, opt_state, batch)
         loss = float(metrics["loss"])

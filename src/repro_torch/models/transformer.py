@@ -1,9 +1,10 @@
 """Decoder-only LM: the dense decoders (h2o-danube-1.8b, qwen2.5-14b,
 phi4-mini-3.8b, granite-34b), the MoE ones (olmoe-1b-7b, dbrx-132b),
-hymba's hybrid block (hymba-1.5b) and RWKV-6 (rwkv6-1.6b).
+hymba's hybrid block (hymba-1.5b), RWKV-6 (rwkv6-1.6b) and the frontend
+archs (llava-next-34b, musicgen-large).
 
-The counterpart of ``repro/models/transformer.py`` without frontends, at
-``tp = 1``: GQA and MQA, QKV biases, tied embeddings, top-k routed
+The counterpart of ``repro/models/transformer.py`` at ``tp = 1``: GQA
+and MQA, QKV biases, tied embeddings, top-k routed
 experts (``layers.moe_apply``) in place of the MLP, whose load-balance
 losses ``forward`` and ``forward_loss`` return averaged over the layers;
 ``block="hybrid"`` adds a selective SSM (``ssm.ssm_apply``) to attention
@@ -13,6 +14,11 @@ tensors in the reference's pytree layout, with each layer's weights
 stacked along a leading ``L`` axis; the layer loop is a Python loop over
 that axis (the reference's ``layer_loop="unrolled"``), each layer under
 ``torch.utils.checkpoint`` when ``remat`` is on and autograd records.
+A frontend arch's encoder is a stub, as in the reference: ``forward``,
+``forward_loss`` and ``prefill`` take precomputed ``embeds`` (B, F, D),
+cast to the model's dtype and put in front of the token embeddings
+(``_embed``); the positions, the labels, the loss mask and the cache
+count the frames too.  ``decode_step`` embeds tokens only.
 
 Entry points:
   * ``forward``      -- train/eval logits over a full sequence
@@ -56,12 +62,6 @@ class ParamSpec(NamedTuple):
     value: float = 0.0
 
 
-_LATER = {
-    "frontend": "the VLM/audio frontends (ROADMAP queue, LM substrate: "
-                "frontends)",
-}
-
-
 class LM:
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
@@ -70,10 +70,6 @@ class LM:
         if cfg.tp != 1 or not cfg.head_dim:
             raise ValueError("config must be resolve(1)d: the port runs "
                              "unsharded (sharding is on the ROADMAP queue)")
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port does not run {_LATER['frontend']} "
-                "yet")
         if cfg.block not in ("attn", "hybrid", "rwkv"):
             raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
         if cfg.block != "rwkv" and (cfg.n_heads_padded != cfg.n_heads
@@ -288,8 +284,15 @@ class LM:
 
     # ---- embeddings / logits ----------------------------------------------------
 
-    def _embed(self, params, tokens):
-        return params["embed"][tokens.long()]
+    def _embed(self, params, tokens, embeds):
+        """``[embeds (cast to the model's dtype), token embeddings]``
+        along the sequence; either may be None."""
+        xs = []
+        if embeds is not None:
+            xs.append(embeds.to(self.dtype))
+        if tokens is not None:
+            xs.append(params["embed"][tokens.long()])
+        return torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
 
     def _head(self, params):
         """(D, Vp): ``embed.T`` with tied embeddings, else ``lm_head``."""
@@ -302,30 +305,33 @@ class LM:
 
     # ---- entry points -------------------------------------------------------------
 
-    def _backbone(self, params, tokens):
+    def _backbone(self, params, tokens=None, embeds=None):
         """Embed + layer stack + final norm. Returns (x (B, S, D), aux)."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, aux = self._layers(params, x, positions)
         return L.rms_norm(x, params["final_norm"], self.cfg.norm_eps), aux
 
-    def forward(self, params: dict, tokens: torch.Tensor):
+    def forward(self, params: dict, tokens: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None):
         """Train/eval forward (differentiable). Returns (logits (B, S,
-        Vp), moe aux loss: the layers' mean, a float32 scalar; 0.0
-        without experts)."""
-        x, aux = self._backbone(params, tokens)
+        Vp) over the frames and the tokens, moe aux loss: the layers'
+        mean, a float32 scalar; 0.0 without experts)."""
+        x, aux = self._backbone(params, tokens, embeds)
         return x @ self._head(params), aux
 
-    def forward_loss(self, params: dict, tokens: torch.Tensor,
+    def forward_loss(self, params: dict, tokens: torch.Tensor | None,
                      labels: torch.Tensor,
                      loss_mask: torch.Tensor | None = None,
+                     embeds: torch.Tensor | None = None,
                      loss_chunk: int = 512):
         """Fused chunked cross-entropy: never materializes (B, S, Vp)
         logits.  The head matmul and the CE run one sequence chunk at a
         time under ``torch.utils.checkpoint``, so the backward recomputes
-        each chunk's logits instead of saving them.  Returns (mean masked
-        NLL, moe aux loss as ``forward``'s)."""
-        x, aux = self._backbone(params, tokens)
+        each chunk's logits instead of saving them.  ``labels`` and
+        ``loss_mask`` span the whole stream, frames included.  Returns
+        (mean masked NLL, moe aux loss as ``forward``'s)."""
+        x, aux = self._backbone(params, tokens, embeds)
         head = self._head(params)
         S = x.shape[1]
         c = min(loss_chunk, S)
@@ -375,16 +381,18 @@ class LM:
         return {"layers": c, "pos": 0}
 
     @torch.no_grad()
-    def prefill(self, params: dict, tokens: torch.Tensor,
+    def prefill(self, params: dict, tokens: torch.Tensor | None = None,
+                embeds: torch.Tensor | None = None,
                 capacity: int | None = None):
         """Forward pass that also populates the cache. Returns (logits of
-        the last position (B, 1, Vp), cache)."""
-        B, Sq = tokens.shape
+        the last position (B, 1, Vp), cache); the prompt is the frames
+        and the tokens, so the capacity and ``pos`` count both."""
+        x = self._embed(params, tokens, embeds)
+        B, Sq = x.shape[0], x.shape[1]
         capacity = capacity or Sq
         if capacity < Sq:
             raise ValueError(f"cache capacity {capacity} < prompt {Sq}")
         cache = self.init_cache(B, capacity)
-        x = self._embed(params, tokens)
         positions = torch.arange(Sq, device=x.device)[None, :]
         x, _ = self._layers(params, x, positions, cache=cache, pos=0)
         cache["pos"] = Sq
@@ -394,7 +402,7 @@ class LM:
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         """One decode step. tokens: (B, 1). Returns (logits (B, 1, Vp),
         cache), the cache's tensors updated in place."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, None)
         pos = int(cache["pos"])
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
         x, _ = self._layers(params, x, positions, cache=cache, pos=pos)

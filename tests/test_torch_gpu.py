@@ -19,8 +19,10 @@ update's gradient and its greedy placements), K3 and K4 (the SSM's and
 RWKV's scans) and their backward kernels (K3-bwd, K4-bwd) against
 their plain versions and a float64 run, the scans' ops training through
 the kernels, hymba and rwkv at SMOKE on the card against the CPU (serve
-and a train step's gradients), and the placement decode's batch invariance (a task decoded alone
-and in batches of 3, 16 and 20: every step's logits bit-equal).
+and a train step's gradients), the placement decode's batch invariance (a task decoded alone
+and in batches of 3, 16 and 20: every step's logits bit-equal), and the
+frontend archs (K2 at musicgen-large's and llava-next-34b's head shapes,
+their SMOKE prefill, decode and gradients on the card against the CPU).
 
 K1's forward adds in the plain version's order, so the two are held bit
 for bit.  Its backward adds in another order (by row, in chunks), so it is
@@ -1568,3 +1570,63 @@ def test_place_equals_place_many_on_cuda(cuda, no_tf32):
             assert np.array_equal(p.assignment, a)
             assert np.float32(p.est_cost_ms).view(np.int32) == \
                 np.float32(est).view(np.int32)
+
+
+@pytest.mark.parametrize("Hq, Hkv, hd", [(32, 32, 64), (56, 8, 128)],
+                         ids=["musicgen", "llava"])
+@pytest.mark.parametrize("S", [257, 1000])
+def test_bf16_tensor_cores_frontend_head_shapes(cuda, Hq, Hkv, hd, S):
+    """K2 at musicgen-large's heads (hd 64, group 1, no window) and
+    llava-next-34b's (hd 128, 56 query over 8 KV heads: group 7)."""
+    q, k, v = _qkv_served(Hq + hd + S, 1, S, S, Hq, Hkv, hd, cuda)
+    n0 = flash_attention_cuda.launches
+    out = flash_attention_cuda(q, k, v)
+    assert flash_attention_cuda.launches == n0 + 1
+    _assert_bf16_limits(out, attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "musicgen-large"])
+def test_frontend_lm_on_cuda_matches_cpu(cuda, no_tf32, arch):
+    """SMOKE, float32, seeded embeds and tokens: the card's prefill (K2)
+    against the CPU's (plain), logits within 1e-4 and the cache position
+    counting the frames; then 3 decode steps and one train step's loss
+    and gradients (1e-5 / 1e-4 of each leaf's largest)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params
+    cfg = get_smoke(arch).resolve(1)
+    nf = cfg.n_frontend_tokens
+    rng = np.random.default_rng(4)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)),
+                             dtype=torch.int32)
+    embeds = torch.as_tensor(rng.normal(0, 0.02, (2, nf, cfg.d_model)),
+                             dtype=torch.float32)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab, (2, nf + 48)),
+                             dtype=torch.int32)
+    gpu = ST.build_model(cfg, remat=False, dtype=torch.float32, device=cuda)
+    cpu = ST.build_model(cfg, remat=False, dtype=torch.float32, device="cpu")
+    params = gpu.init_params(0)
+    cparams = map_params(lambda t: t.cpu().clone(), params)
+    n0 = flash_attention_cuda.launches
+    logits, cache = gpu.prefill(params, tokens.to(cuda), embeds.to(cuda),
+                                capacity=nf + 48 + 3)
+    clogits, ccache = cpu.prefill(cparams, tokens, embeds,
+                                  capacity=nf + 48 + 3)
+    assert flash_attention_cuda.launches == n0 + cfg.n_layers
+    assert cache["pos"] == ccache["pos"] == nf + 48
+    torch.testing.assert_close(logits.cpu(), clogits, rtol=1e-4, atol=1e-4)
+    tok = clogits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(3):
+        logits, cache = gpu.decode_step(params, cache, tok.to(cuda))
+        clogits, ccache = cpu.decode_step(cparams, ccache, tok)
+        torch.testing.assert_close(logits.cpu(), clogits, rtol=1e-4,
+                                   atol=1e-4)
+        tok = clogits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    batch = {"tokens": tokens, "labels": labels, "embeds": embeds}
+    grads, loss, _ = ST.make_grad_fn(gpu)(
+        params, {k: v.to(cuda) for k, v in batch.items()})
+    cgrads, closs, _ = ST.make_grad_fn(cpu)(cparams, batch)
+    assert abs(float(loss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for g, c in zip(grads, cgrads):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * max(
+            float(c.abs().max()), 1e-30)

@@ -85,7 +85,7 @@ def test_configs_are_the_reference():
             assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
                 jget(arch))
         assert C.supports_shape(arch, "long_500k")
-    assert len(C.ARCH_NAMES) == 8
+    assert len(C.ARCH_NAMES) == 10
     assert C.LONG_CONTEXT_ARCHS == JC.LONG_CONTEXT_ARCHS
 
 

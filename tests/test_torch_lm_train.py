@@ -274,5 +274,6 @@ def test_configs_registry():
             assert C.supports_shape(arch, shape) == JC.supports_shape(
                 arch, shape)
     assert C.LONG_CONTEXT_ARCHS == JC.LONG_CONTEXT_ARCHS
-    with pytest.raises(KeyError, match="does not run"):
-        C.get_full("musicgen-large")
+    assert C.ARCH_NAMES == JC.ARCH_NAMES
+    with pytest.raises(KeyError, match="unknown arch"):
+        C.get_full("no-such-arch")

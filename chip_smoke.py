@@ -47,7 +47,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    13's), float32 to a limit below a typical output;
 7. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
    seeded weights) through ``repro_torch.launch.serve.serve``: 2 prompts
-   of 8192 tokens, one warm-up prefill, a timed prefill and 31 greedy
+   of 8192 tokens, one warm-up prefill, a timed prefill and 15 greedy
    decode steps -- 24 K2 launches per prefill -- then a torch.profiler
    window over one prefill and over 4 decode steps;
 7c. the same path at full width with 2 layers in float32, on the card (K2)
@@ -64,10 +64,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    paper's budget: 10 iterations of 10 collects, 300 cost steps, 10 RL
    steps of 10 episodes) against it; the trained agent, the untrained one
    and random place the 20 test tasks, and the trained agent must cost
-   least by the card's ``MeasuredOracle``; two trained placements are
-   timed live with K1 (``measure_placement``) beside the oracle's
-   estimate; one cost stage of 50 fused steps from the same weights,
-   ring and slots must give the same losses on the card and on the CPU
+   least by the card's ``MeasuredOracle``; test task 0's trained
+   placement is timed live with K1 (``measure_placement``, at each
+   table's own pooling and at 4) beside the oracle's estimate; one cost
+   stage of 50 fused steps from the same weights, ring and slots must
+   give the same losses on the card and on the CPU
    within 1e-4 relative; and torch.profiler counts the device ops of a
    cost step and of a REINFORCE step and their busy share;
 8b. (after phase 8) Table 1's DLRM-50 (4) row on the card
@@ -80,8 +81,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and the 16 train tasks, every placement legal, each mean priced by
    ``MeasuredOracle`` with the speedups over random and over the best
    baseline and ``beats_all`` (printed, not checked); (c) the RNN's and
-   ``expert_best``'s placements of test tasks 0 and 1 timed live with K1
-   (``measure_placement``) beside phase 8's trained ones, and K1 and its
+   ``expert_best``'s placements of test task 0 timed live with K1
+   (``measure_placement``) beside phase 8's trained one, and K1 and its
    backward held to plain at each of their devices' shapes and indices
    (a placement equal to one already timed on that task is timed once);
    (d) one RNN update from the same converted weights, task and noise
@@ -94,7 +95,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    task 0's 50 tables (rows capped at 2^20), batch 65536, float32, the
    four shards' arenas on this one card through ``lookup_unsharded`` (K1
    forward and backward per shard and step), row-wise Adagrad on the
-   arenas and Adam on the dense nets: 2 warm-up and 4 timed steps for
+   arenas and Adam on the dense nets: 2 warm-up and 2 timed steps for
    phase 8's trained placement and its random one, on the same batches
    (``DLRMBatchStream`` through ``Prefetcher``, made once); first, on the
    trained placement's first batch, K1 forward and backward per shard at
@@ -131,13 +132,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    whole-table lookup, each shard's K1 output bit-equal to plain on its
    arena and rows, and from one upstream gradient K1's backward per
    shard bit-equal to its plain replay and every slot held to its table's
-   float64 gradient columns by phase 3b's rule.
+   float64 gradient columns by phase 3b's rule (plain's float32 sum on
+   the host, in a fixed order, capped at its largest error over 10 runs
+   in the order of CUDA's atomics: ``table_grad_refs``).
 12. (after phase 11) placement serving over phase 8's trained agent (16
    candidates, decoding on the card) and its ``KernelOracle``: (a) b11's
    paper regime (12 jobs x 50 tables, 4 devices, 1500 requests + 8 tail
    jobs, drift 0.8) through ``PlacementService`` under the ``drift``,
    ``never`` and ``always`` policies, beside the cold leg
-   (``session.place`` on the first 100 requests): every request served
+   (``session.place`` on the first 50 requests): every request served
    with a legal placement from the cache or a decode, no decode raised, hit
    rate >= 0.5 in each leg, warm-hit p50 >= 20x under cold p50, and a
    zero-drift replay bit-equal to ``place_many``; (b) b12's paper regime
@@ -159,7 +162,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    recomputing the blockwise scan): (a) h2o-danube-1.8b at full width and
    depth (24 layers, 1831201280 bf16 params, seeded as in phase 7), no
    remat, batch 2 x 4096 tokens (train_4k's sequence, its batch cut from
-   256): 1 warm-up and 3 steps timed by CUDA events, tokens/s, finite
+   256): 1 warm-up and 1 step timed by CUDA events, tokens/s, finite
    losses, peak memory, 24 K2 launches a step, then torch.profiler over
    one step (kernel ms, idle share, the shares of K2, of the attention
    backward and of cuBLAS) and the attention backward alone on layer 0;
@@ -182,10 +185,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    batched matmuls, the combine as ordered gathers and adds): (a)
    olmoe-1b-7b at full width and depth (16 layers, 64 experts, top-8,
    seeded bf16) served through ``launch.serve.serve``: 2 x 8192-token
-   prompts and 32 tokens (prefill ms, decode ms a token, peak), then each
+   prompts and 16 tokens (prefill ms, decode ms a token, peak), then each
    layer's dropped-slot share on one more prefill; (b) the same weights
    trained by ``make_train_step`` (AdamW lr 3e-4, weight decay 0.1,
-   ``moe_aux_weight`` 0.01, remat) on 2 x 4096 tokens: 1 warm-up and 3
+   ``moe_aux_weight`` 0.01, remat) on 2 x 4096 tokens: 1 warm-up and 1
    steps timed by CUDA events, tokens/s, peak, losses and load-balance
    losses, then torch.profiler over one step (the shares of the expert
    GEMMs, dispatch and combine, routing, the attention backward and
@@ -202,7 +205,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 15. (after phase 14) the hybrid SSM and RWKV path (``models/ssm``: the
    selective scan K3 and the WKV-6 scan K4): (a) hymba-1.5b at full width
    and depth (32 layers, seeded bf16) served through
-   ``launch.serve.serve``: 2 x 8192-token prompts and 32 tokens (prefill
+   ``launch.serve.serve``: 2 x 8192-token prompts and 16 tokens (prefill
    ms, decode ms a token, tokens/s, peak, wall), K2 launched 32 times a
    prefill and K3 32 times a prefill and a decode step, no other kernel,
    the parameter tree equal to ``LM.param_layout``'s, then phase 7b's
@@ -215,7 +218,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1024); K3's hT and float32 y and K4's sT equal plain's bit for bit;
    (d) both archs at SMOKE, seeded, float32, on the card and on the CPU:
    logits within 1e-4, 8 greedy tokens equal; (e) K3's and K4's medians
-   of 10 after 2 warm-ups and their plain versions' of 3 after 1 at the
+   of 10 after 2 warm-ups and their plain versions' one after 1 at the
    served shapes, beside the bound (K3's with its exponentials at the
    SFU's rate), each kernel's time at the decode shape (S 1), its
    registers and its resident warps an SM; it fails if a kernel takes
@@ -229,7 +232,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1641579200 seeded bf16 params) trained by ``make_train_step`` (AdamW,
    lr 3e-4, weight decay 0.1, no remat, as danube) on 2 x
    4096 tokens (train_4k's sequence, its batch cut from 256): 1 warm-up
-   and 2 steps timed by CUDA events, tokens/s, finite losses, every leaf
+   and 1 step timed by CUDA events, tokens/s, finite losses, every leaf
    moved (but the bf16 ones that rounding holds: norms at 1), the peak, K2, K3 and K3-bwd launched as many times a step as
    the path needs them and no other kernel, then torch.profiler over one
    step (``[ssm train profile]``: K3, K3-bwd, K2, the attention backward,
@@ -251,17 +254,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (a) musicgen-large at full width and depth (48 layers, 2424506368
    seeded bf16 params, gelu, 32 heads of 64) served through
    ``launch.serve.serve``: 2 prompts of 256 frame embeddings + 7936
-   tokens and 32 greedy tokens, the cache position counting the frames,
+   tokens and 16 greedy tokens, the cache position counting the frames,
    then torch.profiler over one more prefill; the same weights trained
    by ``make_train_step`` (AdamW, lr 3e-4, weight decay 0.1, no remat) on
    ``LMBatchStream``'s batches of 2 x 4096 positions (256 frames, their
-   labels masked, + 3840 tokens): 1 warm-up and 3 steps timed by CUDA
+   labels masked, + 3840 tokens): 1 warm-up and 1 step timed by CUDA
    events, finite losses, the peak, then torch.profiler over one step;
    (b) llava-next-34b at full width and depth (60 layers, 34388917248
    seeded bf16 params) served the same way, 2 prompts of 2304 patch
    embeddings + 1792 tokens and 8 tokens, and at full width cut to 2
-   layers trained the same way (2304 + 1792 positions, 1 warm-up and 2
-   timed steps); (c) K2 against plain by phase 13's
+   layers trained the same way (2304 + 1792 positions, 1 warm-up and 1
+   timed step); (c) K2 against plain by phase 13's
    ``attention_ulp_err`` on layer 0's real q/k/v of each served prompt
    (musicgen: hd 64, group 1; llava: hd 128, group 7); (d) both archs at
    SMOKE, seeded, float32, on the card (K2) and on the CPU (plain), the
@@ -270,7 +273,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Every serve and train time prints ``mfu``.  Each leg prints its
    seconds.
 
-Every LM line (phases 7, 13-17) prints ``mfu``, the model FLOP
+18. (after phase 17) the LM under sharding rules (``production_rules()``:
+   batch on ``data``, heads and channels on ``model``, FSDP on) on a 1 x 1
+   ``(data, model)`` ``DeviceMesh`` over NCCL at one rank, the
+   parameters DTensors placed by ``LM.param_specs`` and the kernels run
+   on each rank's local shards: (a) hymba-1.5b at ``resolve(16)`` (32
+   query heads, 7 of them padded and read through ``kv_map``; vocab
+   32016) at full width and depth served through ``make_prefill_step`` /
+   ``make_decode_step``: 2 x 8192-token prompts and 3 greedy steps, the
+   cache placed by ``LM.cache_specs``, K2 and K3 launched as the path
+   needs them and no other kernel; the same weights with ``NO_SHARDING``:
+   logits and tokens bit-equal; (b) hymba-1.5b at ``resolve(16)``, 2
+   layers, one ``make_grad_fn`` step on 2 x 4096 tokens under the rules
+   against ``NO_SHARDING``: the loss and every gradient leaf bit-equal
+   but the embedding's (the reference's one-hot matmul), held within as
+   many bf16 steps at its largest entry as the batch's most repeated
+   token's count;
+   then ``make_train_step`` (AdamW) under the rules, 1 warm-up and 2
+   timed steps (K2, K3, K3-bwd); (c) rwkv6-1.6b at 2 layers served as
+   (a) (K4), bit-equal; (d) K2 on (a)'s layer 0 q/k/v at the padded-head
+   shape by phase 13's ``attention_ulp_err``, K3 and K4 by phase 15's
+   checks and K3-bwd by phase 16's, on the arguments the rules handed
+   them.  Each leg prints its seconds, peaks, times and ``mfu``.
+
+Every LM line (phases 7, 13-18) prints ``mfu``, the model FLOP
 utilisation: ``launch/roofline.model_flops`` at the smoke's own batch and
 sequence over the measured time at the card's bf16 peak
 (``roofline.PEAK_FLOPS``, where this script takes its peaks from).
@@ -308,15 +334,16 @@ BF16_FLOP_PER_S = PEAK_FLOPS     # H100 SXM bf16 tensor cores, dense
 BATCH = 65536                    # the paper's DLRM batch
 MAX_ROWS = 2 ** 20
 N_MEASURED_TASKS = 2
+SIM2REAL_TASKS = 1               # phase 8: trained placements timed live
 ARCH = "h2o-danube-1.8b"
 SERVE_BATCH = 2                  # two prompts of two windows each
 SERVE_PROMPT = 8192
-SERVE_TOKENS = 32
+SERVE_TOKENS = 16
 TRAIN_TASKS = 16                 # the table1_main quick regime
 CROSS_STEPS = 50
 PROFILE_COST_STEPS = 30          # phase 8's profile of the training stages
 PROFILE_RL_STEPS = 2
-DLRM_STEPS = 6                   # phase 10: 2 warm-up + 4 timed steps
+DLRM_STEPS = 4                   # phase 10: 2 warm-up + 2 timed steps
 DLRM_WARMUP = 2
 K1_BWD_KERNELS = ("compact_kernel", "radix_hist_kernel", "radix_scan_kernel",
                   "radix_scatter_kernel", "runs_kernel", "chunks_kernel",
@@ -1413,7 +1440,7 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
     """Algorithm 1 on measured costs: calibrate K1 on the card through
     ``KernelOracle``, train DreamShard on DLRM-50 (4) against it, place the
     test tasks with the trained agent, the untrained one and random, and
-    measure two trained placements live with K1."""
+    measure test task 0's trained placement live with K1."""
     import tempfile
     from repro_torch import telemetry as tele
     from repro_torch.api import KernelOracle, MeasuredOracle
@@ -1510,9 +1537,9 @@ def phase_train(torch, np, K, counters, summary: dict, artifact: str | None):
           f"the trained agent does not beat the untrained one and random: "
           f"{mean}")
 
-    # 4. sim-to-real: live K1 timing of two trained placements
+    # 4. sim-to-real: live K1 timing of the trained placements
     live = []
-    for ti, task in enumerate(test[:N_MEASURED_TASKS]):
+    for ti, task in enumerate(test[:SIM2REAL_TASKS]):
         a = placements["trained"][ti].assignment
         est = measured.evaluate(task.raw_features, a, task.n_devices)
         for pooling in (None, 4):
@@ -1659,7 +1686,7 @@ def cost_stage_cross_device(torch, np, agent, untrained) -> dict:
 
 # phase 8b: Table 1's DLRM-50 (4) row (``benchmarks/table1_main.py:36-52``)
 RNN_EPISODES = 10                # table1_main's RNN: 10 episodes an update
-TABLE1_LIVE_TASKS = 2            # test tasks whose leading placements run live
+TABLE1_LIVE_TASKS = 1            # test tasks whose leading placements run live
 
 
 def train_rnn(oracle, train, seed: int, device: str | None) -> dict:
@@ -1777,7 +1804,7 @@ def phase_table1(torch, np, K, counters, ctx, summary: dict) -> dict:
     trained agent: (a) the RNN baseline trained on the card against
     ``KernelOracle`` with the matched budget, (b) every strategy priced by
     ``MeasuredOracle`` on the test and train tasks, (c) the RNN's and
-    ``expert_best``'s placements of test tasks 0 and 1 timed live with K1
+    ``expert_best``'s placements of test task 0 timed live with K1
     and K1 held to plain at each of their devices, (d) the RNN's update
     and greedy placements on the card against the CPU.  Returns K1's
     launches on this path, counted from zero."""
@@ -2060,7 +2087,7 @@ def dlrm_full_width(torch, np, K, counters, task0, summary) -> dict:
     """(b) DLRM at FULL's widths over test task 0's 50 tables (rows capped
     at 2^20), batch 65536, float32, every shard's arena on this card
     through ``lookup_unsharded``: K1 against plain at the step's shapes
-    (``dlrm_kernel_checks``), then 2 warm-up and 4 timed steps for the
+    (``dlrm_kernel_checks``), then 2 warm-up and 2 timed steps for the
     trained placement and for the random one, on the same batches.
     Returns the K1 launches of these steps (and of the profiled one)."""
     from repro_torch.configs import dlrm as CD
@@ -2470,19 +2497,34 @@ def split_arenas(torch, whole_plan, whole, plan, raw):
 
 
 def table_grad_refs(torch, idx_t, g_t, n_rows: int):
-    """(float64, plain float32) gradient of one table's ``n_rows`` rows
-    from its ``(B, P)`` indices (-1 padding) and its columns of the
-    upstream gradient ``(B, w)``: the float64 ``index_add_`` and the
-    plain version's slot-by-slot float32 ``index_add_``."""
-    ref64 = torch.zeros((n_rows + 1, g_t.shape[1]), dtype=torch.float64,
-                        device=g_t.device)
-    plain = torch.zeros((n_rows + 1, g_t.shape[1]), device=g_t.device)
-    g64 = g_t.double()
-    for j in range(idx_t.shape[1]):
-        rows = torch.where(idx_t[:, j] >= 0, idx_t[:, j], n_rows).long()
-        ref64.index_add_(0, rows, g64)
-        plain.index_add_(0, rows, g_t)
-    return ref64[:n_rows], plain[:n_rows]
+    """(float64 gradient, plain's float32 error) of one table's ``n_rows``
+    rows from its ``(B, P)`` indices (-1 padding) and its columns of the
+    upstream gradient ``(B, w)``, for the rule that holds K1's backward to
+    twice plain's error + 1e-6.  Plain is the slot-by-slot float32
+    ``index_add_``; its error is taken in one fixed order, on the host
+    (each row's adds in slot order, then batch order, the same every
+    run), so that the limit does not move with the order of CUDA's
+    atomics, and capped at the largest that 10 runs of it on the card
+    give in the atomics' order (the rule before), so that it is never
+    looser than that rule over those runs."""
+    dev = g_t.device
+
+    def index_sum(dtype, idx, g):
+        out = torch.zeros((n_rows + 1, g.shape[1]), dtype=dtype,
+                          device=g.device)
+        for j in range(idx.shape[1]):
+            rows = torch.where(idx[:, j] >= 0, idx[:, j], n_rows).long()
+            out.index_add_(0, rows, g.to(dtype))
+        return out[:n_rows]
+
+    ref64 = index_sum(torch.float64, idx_t, g_t)
+
+    def plain_err(idx, g):
+        plain = index_sum(torch.float32, idx, g).to(dev, torch.float64)
+        return float((plain - ref64).abs().max())
+
+    atomics = max(plain_err(idx_t, g_t) for _ in range(10))
+    return ref64, min(plain_err(idx_t.cpu(), g_t.cpu()), atomics)
 
 
 def sharded_lookup(torch, np, K, counters, shard_ctx) -> dict:
@@ -2594,11 +2636,10 @@ def sharded_lookup(torch, np, K, counters, shard_ctx) -> dict:
             t = int(plan.slot_table[s, j])
             c0, c1 = (int(c) for c in plan.slot_cols[s, j])
             b = int(plan.base_rows[s, j])
-            ref64, plain = table_grad_refs(
+            ref64, plain_err = table_grad_refs(
                 torch, idx[:, t], upstream[:, t, c0:c1].contiguous(),
                 int(rows[t]))
             got = grad[b:b + rows[t], :c1 - c0]
-            plain_err = float((plain.double() - ref64).abs().max())
             err = float((got.double() - ref64).abs().max())
             row = {"shard": s, "table": t, "cols": [c0, c1], "err": err,
                    "plain_err": plain_err}
@@ -2614,7 +2655,7 @@ def sharded_lookup(torch, np, K, counters, shard_ctx) -> dict:
                       f"whole-table table {t}: max |err| "
                       f"{row['whole_err']:.3g} over 2 x {plain_err:.3g}")
             slots.append(row)
-            del ref64, plain
+            del ref64
         shards.append({"shard": s, "rows": shape[0], "slots": len(g)})
     peak = torch.cuda.max_memory_allocated()
     split_rows = [r for r in slots if "whole_err" in r]
@@ -2677,7 +2718,7 @@ SERVE_ADMISSION = dict(max_wait_ms=2.0, max_batch=8, ewma_alpha=0.3,
                        replace_max_evals=96, replace_budget_ms=None, seed=0)
 SERVE_THRESHOLD = 0.05           # max per-table TV distance (b11 "drift")
 SERVE_MS_PER_GB = 25.0           # migration term and b11's accounting charge
-SERVE_COLD_REQUESTS = 100        # b11's cold leg, cut to the trace's first 100
+SERVE_COLD_REQUESTS = 50         # b11's cold leg, cut to the trace's first 50
 MIN_HIT_RATE = 0.5               # b11's limits
 HIT_SPEEDUP_P50 = 20.0
 MAX_RECOVERY_RATIO = 0.25        # b12's limit
@@ -3222,7 +3263,7 @@ def phase_serving(torch, np, K, counters, ctx, summary: dict) -> dict:
 
 TRAIN_BATCH = 2                  # train_4k's sequence; its batch cut 256 -> 2
 TRAIN_SEQ = 4096
-TRAIN_TIMED = 3                  # after 1 warm-up step
+TRAIN_TIMED = 1                  # after 1 warm-up step
 CROSS_TRAIN_SEQ = 1024           # 13 (b): 2 layers, float32, cuda vs cpu
 GRAD_CHECK_SEQ = 1024            # 13 (c): plain's float64 autograd
 DENSE_ARCHS = ("qwen2.5-14b", "phi4-mini-3.8b", "granite-34b")
@@ -3851,7 +3892,7 @@ MOE_PROFILE_SPANS = {
 
 def moe_serve(torch, FA, counters, summary: dict):
     """14 (a): olmoe-1b-7b at full width and depth (16 layers, seeded bf16)
-    served through the entry point: 2 x 8192-token prompts, 32 tokens;
+    served through the entry point: 2 x 8192-token prompts, 16 tokens;
     then each layer's dropped-slot share on one more, untimed prefill."""
     from repro_torch.launch import steps as ST
     from repro_torch.launch.serve import serve
@@ -3913,7 +3954,7 @@ def moe_serve(torch, FA, counters, summary: dict):
 def moe_train(torch, np, FA, counters, params, summary: dict) -> tuple:
     """14 (b): olmoe-1b-7b at full width and depth, bf16, remat, AdamW (lr
     3e-4, weight decay 0.1, ``moe_aux_weight`` 0.01) from the served
-    weights: batch 2 x 4096, 1 warm-up and 3 timed steps, then one under
+    weights: batch 2 x 4096, 1 warm-up and 1 timed step, then one under
     torch.profiler."""
     from repro_torch.configs import get_full
     from repro_torch.launch import steps as ST
@@ -4225,24 +4266,26 @@ def phase_moe(torch, np, FA, plain, counters, summary: dict) -> dict:
 
 
 SSM_SERVE_PROMPT = 8192          # 15 (a), (b): as phases 7 and 14 serve
+SCAN_PLAIN_REPEATS = 1           # 15 (e): the plain loops, 1 after 1 warm-up
 SSM_CROSS_SEQ = 80               # 15 (d): SMOKE, float32, past hymba's window
 SSM_CROSS_DECODE = 8
 
 
 class _FirstCall:
     """While active, keeps the arguments of the first call of
-    ``module.name`` (the call itself still runs)."""
+    ``module.name`` (``args``, ``kwargs``; the call itself still runs)."""
 
     def __init__(self, module, name: str):
-        self.module, self.name, self.args = module, name, None
+        self.module, self.name = module, name
+        self.args = self.kwargs = None
 
     def __enter__(self):
         self.fn = getattr(self.module, self.name)
 
-        def record(*args):
+        def record(*args, **kwargs):
             if self.args is None:
-                self.args = args
-            return self.fn(*args)
+                self.args, self.kwargs = args, kwargs
+            return self.fn(*args, **kwargs)
         setattr(self.module, self.name, record)
         return self
 
@@ -4280,7 +4323,7 @@ SSM_GRAD_FIRST_MS = {"selective_scan_bwd": 4.05, "wkv6_bwd": 3.96}
 
 def ssm_serve(torch, FA, SS, WK, counters, arch: str, summary: dict):
     """15 (a), (b): ``arch`` at full width and depth (seeded bf16) served
-    through the entry point: 2 x 8192-token prompts, 32 tokens; then
+    through the entry point: 2 x 8192-token prompts, 16 tokens; then
     layer 0's real scan inputs, kept from one more untimed prefill, and
     torch.profiler over a prefill and 4 decode steps (phase 7b's)."""
     from repro_torch.kernels.selective_scan import ops as scan_ops
@@ -4463,7 +4506,8 @@ def scan_yardstick(torch, kernel, plain, args, decode_args, occupancy, *,
     with torch.no_grad():
         ms = median_time_ms(kernel, args, warmup=2, repeats=10)
         decode_ms = median_time_ms(kernel, decode_args, warmup=2, repeats=10)
-        plain_ms = median_time_ms(plain, args, warmup=1, repeats=3)
+        plain_ms = median_time_ms(plain, args, warmup=1,
+                                  repeats=SCAN_PLAIN_REPEATS)
     kernel.launches = n0
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "float32 operations": ops / F32_FLOP_PER_S * 1e3,
@@ -4631,7 +4675,7 @@ def phase_ssm(torch, np, FA, SS, WK, plain, counters, summary: dict) -> dict:
 
 SSM_TRAIN_BATCH = 2              # 16 (a), (b): train_4k's sequence, its
 SSM_TRAIN_SEQ = 4096             # batch cut from 256 to 2
-SSM_TRAIN_TIMED = 2              # after 1 warm-up step
+SSM_TRAIN_TIMED = 1              # after 1 warm-up step
 SSM_TRAIN_PARAMS = {"hymba-1.5b": 1641579200, "rwkv6-1.6b": 1678264320}
 
 
@@ -4674,7 +4718,7 @@ def ssm_train(torch, np, FA, SS, WK, counters, arch: str,
     """16 (a), (b): ``arch`` at full width and depth (seeded bf16) trained
     by ``make_train_step`` (AdamW, lr 3e-4, weight decay 0.1, no remat) on
     2 x 4096
-    tokens: 1 warm-up and 2 steps timed by CUDA events; finite losses,
+    tokens: 1 warm-up and 1 step timed by CUDA events; finite losses,
     every leaf moved but those bf16 rounding holds (``_bf16_held``), the
     launches of each kernel; then torch.profiler
     over one more step.  Returns (launches by kernel, layer 0's scan
@@ -5116,9 +5160,9 @@ VLM_SERVE_PROMPT = 4096          # tokens a prompt, 8 tokens decoded
 VLM_SERVE_TOKENS = 8
 FRONTEND_TRAIN_BATCH = 2         # train_4k's sequence, its batch cut from
 FRONTEND_TRAIN_SEQ = 4096        # 256 to 2 (frames included)
-AUDIO_TRAIN_TIMED = 3            # after 1 warm-up step
+AUDIO_TRAIN_TIMED = 1            # after 1 warm-up step
 VLM_TRAIN_LAYERS = 2             # 17 (b): 60 layers cut to 2, as dbrx-132b
-VLM_TRAIN_TIMED = 2              # after 1 warm-up step
+VLM_TRAIN_TIMED = 1              # after 1 warm-up step
 FRONTEND_CROSS_TOKENS = 48       # 17 (d): SMOKE, float32, 16 frames + 48
 FRONTEND_CROSS_DECODE = 8
 
@@ -5460,6 +5504,342 @@ def phase_frontends(torch, np, FA, plain, counters, summary: dict) -> dict:
     return paths
 
 
+SHARD_TP = 16                    # 18: the dry-run's resolve(16)
+SHARD_SERVE_PROMPT = 8192        # 18 (a), (c): phase 15's serve shape
+SHARD_DECODE = 3                 # 18 (a), (c): greedy steps after a prefill
+                                 # (the first one untimed: DTensor's first
+                                 # propagation of the decode's shapes)
+SHARD_LAYERS = 2                 # 18 (b), (c): full width cut to 2 layers
+SHARD_TRAIN_BATCH = 2            # 18 (b): phase 16's batch
+SHARD_TRAIN_SEQ = 4096
+SHARD_TRAIN_TIMED = 2            # 18 (b): after 1 warm-up step
+SHARD_DEVICE = "cuda"
+SHARD_BACKEND = "nccl"           # NCCL takes one rank a card
+
+
+def _full(t):
+    """A DTensor's whole value (on a one-rank mesh its local tensor)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _shard_cfg(arch: str, n_layers: int | None):
+    from repro_torch.configs import get_full
+    cfg = get_full(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg.resolve(SHARD_TP)
+
+
+def _events(torch):
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
+                n_layers: int | None, summary: dict) -> dict:
+    """18 (a), (c): ``arch`` at ``resolve(16)`` (full width; ``n_layers``
+    cuts its depth) under ``rules`` on ``mesh``, served through
+    ``make_prefill_step`` / ``make_decode_step``: an untimed prefill, a
+    timed one of 2 x ``SHARD_SERVE_PROMPT`` tokens and ``SHARD_DECODE``
+    greedy steps (the median of all but the first), every count from
+    zero, the cache placed by ``cache_specs``; then the same weights and
+    prompts with ``NO_SHARDING`` (not counted).  Logits and greedy tokens
+    bit-equal: a one-rank mesh runs the same local ops.  Returns the
+    launches under the rules and layer 0's kernel arguments of the first
+    prefill."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import placements
+    from repro_torch.models.transformer import map_params
+    cfg = _shard_cfg(arch, n_layers)
+    n, hybrid = cfg.n_layers, cfg.block == "hybrid"
+    B, P, T = 2, SHARD_SERVE_PROMPT, SHARD_DECODE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = ST.build_model(cfg, device=SHARD_DEVICE)
+    model = ST.build_model(cfg, rules=rules, device=SHARD_DEVICE)
+    params = plain.init_params(0)
+    sharded = model.shard_params(map_params(lambda t: t, params), mesh)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                              dtype=torch.int32, device=SHARD_DEVICE)
+    k2 = _FirstCall(L, "flash_attention")
+    scan = _FirstCall(scan_ops if hybrid else wkv_ops,
+                      "selective_scan" if hybrid else "wkv6")
+
+    def serve(m, p, warm: bool):
+        prefill = ST.make_prefill_step(m, capacity=P + T)
+        decode = ST.make_decode_step(m)
+        if warm:
+            with k2, scan:
+                prefill(p, {"tokens": prompts})
+        t0, t1 = _events(torch)
+        t0.record()
+        logits, cache = prefill(p, {"tokens": prompts})
+        t1.record()
+        t1.synchronize()
+        outs = [_full(logits)]
+        tok = outs[0][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks, step_ms = [tok], []
+        for _ in range(T):
+            s0, s1 = _events(torch)
+            s0.record()
+            logits, cache = decode(p, cache, {"tokens": tok})
+            s1.record()
+            s1.synchronize()
+            step_ms.append(s0.elapsed_time(s1))
+            outs.append(_full(logits))
+            tok = outs[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+        return outs, torch.cat(toks, 1), t0.elapsed_time(t1), step_ms, cache
+
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    t_wall = time.perf_counter()
+    outs, toks, prefill_ms, step_ms, cache = serve(model, sharded, True)
+    wall = time.perf_counter() - t_wall
+    peak = torch.cuda.max_memory_allocated()
+    launches = {type(c).__name__: c.launches for c in counters}
+    specs = model.cache_specs()["layers"]
+    for name, t in cache["layers"].items():
+        check(tuple(t.placements) == placements(mesh, specs[name]),
+              f"{cfg.name}: cache {name} placed {t.placements}")
+    del cache
+    # two prefills (the warm-up and the timed one) and T decode steps
+    expect = {id(SS.selective_scan_cuda if hybrid else WK.wkv6_cuda):
+              n * (2 + T)}
+    if hybrid:
+        expect[id(FA.flash_attention_cuda)] = 2 * n
+    for c in counters:
+        want = expect.get(id(c), 0)
+        check(c.launches == want, f"{cfg.name} under the rules: "
+              f"{type(c).__name__} launched {c.launches} times, not {want}")
+    ref, ref_toks, plain_ms, plain_step_ms, _ = serve(plain, params, False)
+    for c in counters:
+        c.launches = launches[type(c).__name__]
+    equal = [bits_equal(torch, a, b) for a, b in zip(outs, ref)]
+    check(all(equal), f"{cfg.name}: logits under the rules differ from "
+          f"NO_SHARDING's bits (the prefill, then each step: {equal})")
+    check(bool(torch.equal(toks, ref_toks)), f"{cfg.name}: greedy tokens")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+          f"{cfg.name}: finite logits")
+    check(outs[0].shape == (B, 1, cfg.vocab_padded), "logits shape")
+    decode_ms = sorted(step_ms[1:])[(T - 1) // 2]
+    out = {"arch": cfg.name, "tp": SHARD_TP, "layers": n, "batch": B,
+           "prompt": P, "decode_steps": T,
+           "n_heads_padded": cfg.n_heads_padded,
+           "vocab_padded": cfg.vocab_padded, "prefill_ms": prefill_ms,
+           "decode_ms": step_ms, "decode_ms_median": decode_ms,
+           "no_sharding_prefill_ms": plain_ms,
+           "no_sharding_decode_ms": plain_step_ms,
+           "peak_memory_bytes": peak, "wall_s": wall, "launches": launches,
+           "mfu": {"prefill": lm_mfu(cfg, "prefill", B, P, prefill_ms),
+                   "decode": lm_mfu(cfg, "decode", B, P, decode_ms)},
+           "logits_bit_equal": all(equal)}
+    log(f"[shard serve] {cfg.name} at resolve({SHARD_TP}): {n} layers, "
+        f"{cfg.n_heads_padded} query heads ({cfg.n_heads} real), vocab "
+        f"{cfg.vocab_padded}; rules on a 1 x 1 (data, model) mesh: prefill "
+        f"2 x {P} {prefill_ms:.1f} ms (mfu {out['mfu']['prefill']:.3f}; "
+        f"NO_SHARDING {plain_ms:.1f} ms), decode {decode_ms:.2f} ms/token "
+        f"(mfu {out['mfu']['decode']:.5f}; NO_SHARDING "
+        f"{sorted(plain_step_ms[1:])[(T - 1) // 2]:.2f}); peak "
+        f"{peak / 1e9:.2f} GB; "
+        f"wall {wall:.1f} s; launches {launches}; the logits and {T + 1} "
+        "greedy tokens bit-equal to NO_SHARDING's")
+    summary.setdefault("shard_serve", {})[cfg.name] = out
+    return {"launches": launches, "scan": scan.args,
+            "k2": (k2.args + (k2.kwargs["window"],)) if hybrid else None}
+
+
+def shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
+                summary: dict) -> dict:
+    """18 (b): hymba-1.5b at ``resolve(16)``, full width cut to 2 layers,
+    bf16, no remat: one ``make_grad_fn`` step under ``rules`` on phase
+    16's batch (2 x 4096) against ``NO_SHARDING`` on the same weights,
+    the loss and every gradient leaf; then ``make_train_step`` (AdamW, lr
+    3e-4, weight decay 0.1) under the rules, 1 warm-up and
+    ``SHARD_TRAIN_TIMED`` steps by CUDA events.  The loss and every leaf
+    but the embedding's must be bit-equal.  Under the rules the embedding
+    is the reference's one-hot matmul, whose backward sums each table
+    row's upstream rows in float32 and rounds once, where the gather's
+    backward accumulates them in the table's bf16 (each add rounded, at
+    the scale of a partial sum, so a row's difference is no ulp count of
+    its own value where its terms cancel); so the embedding's gradient is
+    held within as many bf16 steps at its largest entry as the batch
+    repeats its most repeated token.  Returns the launches under the
+    rules and layer 0's K3 arguments of the first step."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params, tree_leaves
+    cfg = _shard_cfg("hymba-1.5b", SHARD_LAYERS)
+    n = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = ST.build_model(cfg, remat=False, device=SHARD_DEVICE)
+    model = ST.build_model(cfg, rules=rules, remat=False,
+                           device=SHARD_DEVICE)
+    params = plain.init_params(0)
+    sharded = model.shard_params(map_params(torch.clone, params), mesh)
+    batches = [_lm_batch(torch, np, cfg.vocab, SHARD_TRAIN_BATCH,
+                         SHARD_TRAIN_SEQ, SHARD_DEVICE, seed=i)
+               for i in range(1 + SHARD_TRAIN_TIMED)]
+    expect = {id(FA.flash_attention_cuda): n, id(SS.selective_scan_cuda): n,
+              id(SS.selective_scan_grad_cuda): n}
+    for c in counters:                         # counts of this path only
+        c.launches = 0
+    with _FirstCall(scan_ops, "selective_scan") as rec:
+        grads, loss, _ = ST.make_grad_fn(model)(sharded, batches[0])
+    torch.cuda.synchronize()
+    launches = {type(c).__name__: c.launches for c in counters}
+    for c in counters:
+        want = expect.get(id(c), 0)
+        check(c.launches == want, f"{cfg.name} gradient under the rules: "
+              f"{type(c).__name__} launched {c.launches} times, not {want}")
+    ref_grads, ref_loss, _ = ST.make_grad_fn(plain)(params, batches[0])
+    for c in counters:
+        c.launches = launches[type(c).__name__]
+    names = _leaf_names(params)
+    same = [name for name, g, r in zip(names, grads, ref_grads)
+            if bits_equal(torch, _full(g), r)]
+    check(bits_equal(torch, loss, ref_loss), f"loss under the rules "
+          f"{float(loss)} against NO_SHARDING's {float(ref_loss)}")
+    check(set(names) - set(same) <= {"embed"}, "gradients under the rules "
+          f"differ from NO_SHARDING's bits: {sorted(set(names) - set(same))}")
+    g_emb, r_emb = (t.float() for t in (_full(grads[names.index("embed")]),
+                                         ref_grads[names.index("embed")]))
+    top = float(r_emb.abs().max())
+    step = 2.0 ** (math.floor(math.log2(top)) - 7)   # a bf16 step at top
+    emb_steps = float((g_emb - r_emb).abs().max()) / step
+    repeats = int(torch.bincount(batches[0]["tokens"].flatten().long()).max())
+    check(emb_steps <= repeats, f"the embedding's gradient under the rules "
+          f"{emb_steps:.3g} bf16 steps at its largest entry from "
+          f"NO_SHARDING's (limit {repeats})")
+    del grads, ref_grads, plain, params, g_emb, r_emb
+
+    opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1)
+    state = opt.init(tree_leaves(sharded))
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        t0, t1 = _events(torch)
+        t0.record()
+        sharded, state, metrics = step(sharded, state, batch)
+        t1.record()
+        t1.synchronize()
+        losses.append(float(metrics["loss"]))
+        if i:
+            times.append(t0.elapsed_time(t1))
+    n_steps = 1 + len(batches)
+    for c in counters:
+        want = expect.get(id(c), 0) * n_steps
+        check(c.launches == want, f"{cfg.name} train under the rules: "
+              f"{type(c).__name__} launched {c.launches} times in "
+              f"{n_steps} gradients, not {want}")
+        launches[type(c).__name__] = c.launches
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(times)[len(times) // 2]
+    out = {"arch": cfg.name, "tp": SHARD_TP, "layers": n,
+           "batch": SHARD_TRAIN_BATCH, "seq": SHARD_TRAIN_SEQ,
+           "loss": float(loss), "no_sharding_loss": float(ref_loss),
+           "loss_bit_equal": True, "grad_leaves_bit_equal": same,
+           "embed_grad_bf16_steps": emb_steps, "embed_steps_limit": repeats,
+           "step_ms": times, "median_step_ms": step_ms, "losses": losses,
+           "tokens_per_s": SHARD_TRAIN_BATCH * SHARD_TRAIN_SEQ
+           / (step_ms / 1e3), "peak_memory_bytes": peak,
+           "launches": launches,
+           "mfu": lm_mfu(cfg, "train", SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ,
+                         step_ms)}
+    log(f"[shard train] {cfg.name} at resolve({SHARD_TP}), {n} layers, "
+        f"bf16, under the rules: loss {float(loss):.6f} bit-equal to "
+        f"NO_SHARDING's; {len(same)} of {len(names)} gradient leaves "
+        f"bit-equal, the embedding's within {emb_steps:.3g} bf16 steps at "
+        f"its largest entry (limit {repeats}, the most repeated token's "
+        f"count); AdamW steps "
+        f"{[round(t, 2) for t in times]} ms "
+        f"(median {step_ms:.2f}, mfu {out['mfu']:.3f}, 1 warm-up before), "
+        f"losses {[round(x, 4) for x in losses]}; peak {peak / 1e9:.2f} GB; "
+        f"launches {launches}")
+    summary["shard_train"] = out
+    return {"launches": launches, "scan": rec.args}
+
+
+def phase_sharded(torch, np, FA, SS, WK, plain, counters,
+                  summary: dict) -> dict:
+    """18: the LM under sharding rules (``production_rules()``: batch on
+    ``data``, heads and channels on ``model``, FSDP on) on a 1 x 1
+    ``DeviceMesh`` over NCCL at one rank.  Returns each kernel's launches
+    under the rules by path (``"k2"``, ``"k3"``, ``"k3_bwd"``, ``"k4"``).
+    Each leg prints its seconds."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, production_rules
+    legs = dict.fromkeys(("a hymba serve", "b hymba train", "c rwkv serve",
+                          "d kernel checks"), 0.0)
+    names = {k: type(c).__name__ for k, c in (
+        ("k2", FA.flash_attention_cuda), ("k3", SS.selective_scan_cuda),
+        ("k3_bwd", SS.selective_scan_grad_cuda), ("k4", WK.wkv6_cuda))}
+    paths = {k: {} for k in names}
+    checks = {}
+    rules = production_rules()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(SHARD_BACKEND,
+                                init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device=SHARD_DEVICE)
+            t0 = time.perf_counter()
+            res = shard_serve(torch, np, FA, SS, WK, counters, mesh, rules,
+                              "hymba-1.5b", None, summary)
+            for k in ("k2", "k3"):
+                paths[k]["sharded serve"] = res["launches"][names[k]]
+            legs["a hymba serve"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checks["k2"] = k2_train_forward_check(
+                torch, FA, plain, *res["k2"], "hymba-1.5b at resolve(16) "
+                "under the rules, layer 0 of the served prompts (32 heads "
+                "over KV expanded through kv_map)")
+            checks["k3"] = k3_checks(torch, SS, res["scan"])
+            del res
+            torch.cuda.empty_cache()
+            legs["d kernel checks"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            res = shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
+                              summary)
+            for k in ("k2", "k3", "k3_bwd"):
+                paths[k]["sharded train"] = res["launches"][names[k]]
+            legs["b hymba train"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checks["k3_bwd"] = k3_grad_checks(torch, SS, res["scan"])
+            del res
+            torch.cuda.empty_cache()
+            legs["d kernel checks"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            res = shard_serve(torch, np, FA, SS, WK, counters, mesh, rules,
+                              "rwkv6-1.6b", SHARD_LAYERS, summary)
+            paths["k4"]["sharded serve"] = res["launches"][names["k4"]]
+            legs["c rwkv serve"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checks["k4"] = k4_checks(torch, WK, res["scan"])
+            del res
+            torch.cuda.empty_cache()
+            legs["d kernel checks"] += time.perf_counter() - t0
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    check(backend == SHARD_BACKEND, f"the process group runs {backend}")
+    summary["shard_kernel_checks"] = checks
+    log("[shard] launches under the rules: " + ", ".join(
+        f"{names[k]} {sum(v.values())} ({v})" for k, v in paths.items()))
+    for name, secs in legs.items():
+        log(f"[shard] leg {name}: {secs:.1f} s")
+    summary["shard_legs_s"] = legs
+    return paths
+
+
 def run(name: str, fn, *args, phases: dict):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5577,6 +5957,12 @@ def main() -> int:
     lm_launches.update(run("17 VLM and audio frontends", phase_frontends,
                            torch, np, FA, attention_plain, counters, summary,
                            phases=phases))
+    torch.cuda.empty_cache()
+    shard = run("18 sharding rules", phase_sharded, torch, np, FA, SS, WK,
+                attention_plain, counters, summary, phases=phases)
+    lm_launches.update(shard.pop("k2"))
+    for key, by_path in shard.items():
+        ssm["paths"][key].update(by_path)
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],

@@ -8,9 +8,8 @@ meta tensor is a shape stand-in, the port's analogue of the reference's
 out, and no entry point runs on it.  For VLM/audio archs the modality
 frontend is a stub: the specs include a precomputed patch/frame embedding
 tensor of the right shape and the token span shrinks accordingly.
-
-``batch_specs_partition`` needs the sharding rules, so it comes with the
-sharding slice (ROADMAP queue: ``models/sharding``).
+``batch_specs_partition`` gives each input's ``PartitionSpec`` under a
+``ShardingRules`` (batch over the data axes).
 """
 
 from __future__ import annotations
@@ -68,3 +67,12 @@ def input_specs(cfg: ArchConfig, shape: InputShape,
     if shape.kind == "decode":
         return {"tokens": sds((B, 1), torch.int32)}
     raise ValueError(shape.kind)
+
+
+def batch_specs_partition(cfg: ArchConfig, shape: InputShape, rules):
+    """PartitionSpecs matching input_specs (batch over data axes)."""
+    specs = {}
+    for name in input_specs(cfg, shape):
+        rank = {"tokens": 2, "labels": 2, "loss_mask": 2, "embeds": 3}[name]
+        specs[name] = rules.spec("batch", *([None] * (rank - 1)))
+    return specs

@@ -25,26 +25,34 @@ from repro_torch.data.traffic import TrafficConfig, make_trace
 from repro_torch.device import resolve_device
 
 
-def run(device=None) -> dict:
+def run(device=None, *, n_train_tasks: int = 20, n_iterations: int = 3,
+        n_collect: int = 6, n_cost: int = 100, n_batch: int = 32,
+        n_rl: int = 5, n_episode: int = 10, candidates: int = 8,
+        n_jobs: int = 6, n_tables: int = 20,
+        n_requests: int = 300, tail_jobs: int = 3) -> dict:
     """Train the example's small agent on ``device`` (``None``: ``cuda``),
     replay its drifting trace through ``PlacementService`` and print the
-    example's lines.  Returns the service's ``stats()``."""
+    example's lines.  Returns the service's ``stats()``.  The sizes
+    default to the example's: the agent's training budget
+    (``DreamShardConfig``'s fields of the same names, ``candidates`` its
+    ``inference_candidates``) and the trace (``TrafficConfig``'s)."""
     dev = resolve_device(device)
     pool = make_dlrm_pool(seed=0)
     oracle = SimOracle(seed=0)
     train_ids, _ = split_pool(pool, seed=0)
-    train_tasks = sample_tasks(pool, train_ids, 20, 4, 8, seed=0)
+    train_tasks = sample_tasks(pool, train_ids, n_train_tasks, 4, 8, seed=0)
 
     print(f"training a small DreamShard agent on {dev}...")
     agent = DreamShard(train_tasks, oracle, DreamShardConfig(
-        n_iterations=3, n_collect=6, n_cost=100, n_batch=32, n_rl=5,
-        n_episode=10, inference_candidates=8), device=dev)
+        n_iterations=n_iterations, n_collect=n_collect, n_cost=n_cost,
+        n_batch=n_batch, n_rl=n_rl, n_episode=n_episode,
+        inference_candidates=candidates), device=dev)
     agent.train()
 
     # a few recurring jobs, Zipf-skewed popularity, drifting histograms
     trace = make_trace(pool, TrafficConfig(
-        n_jobs=6, n_tables=20, n_devices=4, n_requests=300,
-        drift=0.8, tail_jobs=3, seed=0))
+        n_jobs=n_jobs, n_tables=n_tables, n_devices=4,
+        n_requests=n_requests, drift=0.8, tail_jobs=tail_jobs, seed=0))
 
     svc = PlacementService(agent, config=ServeConfig(
         max_wait_ms=2.0, max_batch=8,     # micro-batch admission window

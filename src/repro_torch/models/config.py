@@ -4,9 +4,12 @@ A copy of ``repro/models/config.py`` (the port imports nothing of
 ``repro``).  Each architecture module in ``repro_torch.configs`` exports a
 ``FULL`` ArchConfig (exact published shape) and a ``SMOKE`` reduced
 variant for CPU tests.  ``resolve(tp)`` adapts head counts to a
-tensor-parallel degree: query heads are padded to a multiple of tp (inert
-zero heads) and KV heads replicated up to tp when smaller.  The port runs
-at ``tp = 1`` only, where nothing is padded.
+tensor-parallel degree: query heads are padded to a multiple of tp and
+KV heads replicated up to tp when smaller (a padded query head reads KV
+head 0: ``models/transformer.LM.kv_map``).  ``resolve`` is a bitwise copy,
+its quirk included: where the padded query heads are cut to a multiple of
+the padded KV heads they may fall below ``n_heads`` (hymba-1.5b at tp 2
+and 4), and ``LM`` refuses such a config.
 """
 
 from __future__ import annotations

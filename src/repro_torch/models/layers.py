@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -63,9 +64,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_chunk: int = 1024,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), KV heads unexpanded ->
-    (B, S, Hq, hd).  At ``tp = 1`` query head h reads KV head h // G,
-    which is the reference's ``kv_map`` expansion.  The chunks are those
-    of the backward's blockwise recompute."""
+    (B, S, Hq, hd).  Query head h reads KV head h // G, the reference's
+    ``kv_map`` expansion where no head is padded (``LM._attend`` expands
+    the KV heads first where the map differs).  The chunks are those of
+    the backward's blockwise recompute."""
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
 
@@ -146,23 +148,51 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     valid_mask: torch.Tensor) -> torch.Tensor:
-    """Single-token attention over a cache.
+def expand_kv(k: torch.Tensor, v: torch.Tensor,
+              heads: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """k, v (B, T, Hkv, hd) as query head h reads them, through KV head
+    ``heads[h]``: as they are where that is ``h // G``, else gathered
+    through ``heads`` (B, T, Hq, hd), one KV head a query head."""
+    nq, nk = len(heads), k.shape[2]
+    if nq % nk == 0 and np.array_equal(heads, np.arange(nq) // (nq // nk)):
+        return k, v
+    idx = torch.as_tensor(heads, device=k.device)
+    return k[:, :, idx], v[:, :, idx]
 
-    q: (B, 1, Hq, hd); caches: (B, T, Hkv, hd); valid_mask: (B, T) bool.
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, valid_mask: torch.Tensor,
+                             heads: np.ndarray, group=None) -> torch.Tensor:
+    """Single-token attention over a cache, query head h reading KV head
+    ``heads[h]`` (``expand_kv``).  With ``group`` the cache is one rank's
+    slice of the keys, and the softmax is one flash-decoding pass: the
+    running max all-reduced (MAX) over the group, then ``sum p`` and
+    ``sum p v`` with ``p = exp(s - max)`` all-reduced (SUM), so every rank
+    gets the whole softmax.
+
+    q: (B, 1, Hq, hd); caches: (B, T, Hkv, hd); valid_mask: (B, T) bool
+    -> (B, 1, Hq, hd) in q's dtype.
     """
     B, _, Hq, hd = q.shape
+    k_cache, v_cache = expand_kv(k_cache, v_cache, heads)
     Hkv = k_cache.shape[2]
     G = Hq // Hkv
-    scale = 1.0 / np.sqrt(hd)
-    qr = q.reshape(B, Hkv, G, hd)
-    s = torch.einsum("bhgd,bkhd->bhgk", qr.float(), k_cache.float()) * scale
+    qr = q.reshape(B, Hkv, G, hd).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float()) * (
+        1.0 / np.sqrt(hd))
     s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return out.reshape(B, 1, Hq, hd).to(q.dtype)
+    if group is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+        return out.reshape(B, 1, Hq, hd).to(q.dtype)
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    dist.all_reduce(den, group=group)
+    dist.all_reduce(acc, group=group)
+    return (acc / den).reshape(B, 1, Hq, hd).to(q.dtype)
 
 
 # ---- MLP ----------------------------------------------------------------------

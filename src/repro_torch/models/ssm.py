@@ -33,13 +33,17 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 # ---- selective SSM (Mamba-style) --------------------------------------------
 
-def _ssm_recurrence(params: dict, x: torch.Tensor, h0: torch.Tensor):
-    """x: (B, S, Di) post-conv activations; h0: (B, Di, N). -> (y, hT)."""
+def _ssm_recurrence(params: dict, x: torch.Tensor, h0: torch.Tensor,
+                    scan=None):
+    """x: (B, S, Di) post-conv activations; h0: (B, Di, N). -> (y, hT).
+    ``scan`` is the op (``selective_scan``'s signature), by default
+    ``selective_scan`` itself; a sharded model passes it on its own
+    channels."""
     A = -torch.exp(params["logA"])                              # (Di, N)
     dt = softplus((x * params["wdt"]).float())
     Bc = (x @ params["wB"]).float()
     Cc = (x @ params["wC"]).float()
-    return scan_ops.selective_scan(x, dt, Bc, Cc, A, h0)
+    return (scan or scan_ops.selective_scan)(x, dt, Bc, Cc, A, h0)
 
 
 def _causal_conv(x: torch.Tensor, conv: torch.Tensor,
@@ -48,16 +52,16 @@ def _causal_conv(x: torch.Tensor, conv: torch.Tensor,
     Di). Returns (out, the next carry)."""
     W = conv.shape[0]
     if carry is None:
-        carry = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
-                            device=x.device)
+        carry = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
     xp = torch.cat([carry, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * conv[i] for i in range(W))
     return out, xp[:, -(W - 1):]
 
 
 def ssm_apply(params: dict, x: torch.Tensor, state: torch.Tensor | None = None,
-              conv_carry: torch.Tensor | None = None):
-    """x: (B, S, D). Returns (y (B, S, D), (state, conv_carry))."""
+              conv_carry: torch.Tensor | None = None, scan=None):
+    """x: (B, S, D). Returns (y (B, S, D), (state, conv_carry)); ``scan``
+    as ``_ssm_recurrence``'s."""
     di = params["out_proj"].shape[0]
     xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)
     xi, conv_carry = _causal_conv(xi, params["conv"], conv_carry)
@@ -65,7 +69,7 @@ def ssm_apply(params: dict, x: torch.Tensor, state: torch.Tensor | None = None,
     if state is None:
         state = torch.zeros((x.shape[0], di, params["wB"].shape[1]),
                             dtype=torch.float32, device=x.device)
-    y, state = _ssm_recurrence(params, xi, state)
+    y, state = _ssm_recurrence(params, xi, state, scan=scan)
     y = y + xi * params["dskip"]
     y = y * F.silu(z.float()).to(x.dtype)
     return y @ params["out_proj"], (state, conv_carry)
@@ -84,9 +88,11 @@ def _token_shift(x: torch.Tensor, sx: torch.Tensor):
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, sx: torch.Tensor,
-                  state: torch.Tensor):
+                  state: torch.Tensor, scan=None):
     """RWKV6 time mixing. state: (B, H, hd, hd) f32; sx: (B, D). Returns
-    (y, sx', state')."""
+    (y, sx', state').  ``scan`` is the op (``wkv6``'s signature), by
+    default ``wkv6`` itself; a sharded model passes it on its own
+    heads."""
     B, S, D = x.shape
     H, hd = D // RWKV_HEAD_DIM, RWKV_HEAD_DIM
     prev, sx_new = _token_shift(x, sx)
@@ -101,7 +107,7 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, sx: torch.Tensor,
     wlog = (mix(3) @ p["ww"]).float()
     w = torch.exp(-torch.exp(wlog + p["w_bias"])).reshape(B, S, H, hd)
     g = F.silu((mix(4) @ p["wg"]).float())
-    y, state = wkv_ops.wkv6(r, k, v, w, p["u"], state)
+    y, state = (scan or wkv_ops.wkv6)(r, k, v, w, p["u"], state)
     y = (y.reshape(B, S, D) * g).to(x.dtype)
     return y @ p["wo"], sx_new, state
 

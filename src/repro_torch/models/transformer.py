@@ -3,8 +3,8 @@ phi4-mini-3.8b, granite-34b), the MoE ones (olmoe-1b-7b, dbrx-132b),
 hymba's hybrid block (hymba-1.5b), RWKV-6 (rwkv6-1.6b) and the frontend
 archs (llava-next-34b, musicgen-large).
 
-The counterpart of ``repro/models/transformer.py`` at ``tp = 1``: GQA
-and MQA, QKV biases, tied embeddings, top-k routed
+The counterpart of ``repro/models/transformer.py`` at any ``resolve(tp)``:
+GQA and MQA, QKV biases, tied embeddings, top-k routed
 experts (``layers.moe_apply``) in place of the MLP, whose load-balance
 losses ``forward`` and ``forward_loss`` return averaged over the layers;
 ``block="hybrid"`` adds a selective SSM (``ssm.ssm_apply``) to attention
@@ -27,15 +27,34 @@ Entry points:
   * ``prefill``      -- forward + a populated cache
   * ``decode_step``  -- one token against the (circular) cache
 
-Train and prefill attention run through the flash attention op with KV
-heads unexpanded (K2 on the card; its backward recomputes the blockwise
-scan in ``q_chunk``/``kv_chunk`` blocks); the SSM's and RWKV's scans
-over time run through K3 and K4 on the card, and their backward through
-K3-bwd and K4-bwd (under ``remat`` each layer's scan runs again in the
-backward, with the same bits).  The cache (KV, and the
-SSM's state and conv carry, or RWKV's WKV state and token-shift rows) is
-updated in place: ``prefill`` allocates it and ``decode_step`` writes its
-token into the tensors it is given, returning them with ``pos`` advanced.
+Padded heads: ``resolve(tp)`` pads the query heads to a multiple of tp,
+and query head h reads KV head ``kv_map[h]`` (``h // G`` for a real
+head, KV head 0 for a padded one).  Where that map is ``h // G`` K2
+reads the KV heads unexpanded; elsewhere they are expanded through it
+first and K2 runs at one query head a KV head.  Decode reads the cache
+through the same map (the reference's decode does not where the padded
+heads divide by the KV heads: ROADMAP, kept divergences).
+
+Sharding: under enabled ``ShardingRules`` (``models/sharding``) the
+parameters are DTensors over a ``DeviceMesh`` placed by ``param_specs``
+(``shard_params``), and the activations are pinned by ``rules.constrain``
+at the reference's sites, with the residual stream sequence-parallel over
+the model axis; DTensor inserts the collectives.  Every kernel (K2, K3,
+K3-bwd, K4, K4-bwd) runs through ``sharding.local_apply`` on the rank's
+own heads or channels.  The cross-entropy over a vocab shard and decode
+over a cache split along its sequence run in ``local_apply`` with an
+explicit all-reduce of their running max.  Inputs may be plain tensors
+(every rank passes the global batch) or DTensors; outputs are DTensors.
+
+Train and prefill attention run through the flash attention op (K2 on
+the card; its backward recomputes the blockwise scan in
+``q_chunk``/``kv_chunk`` blocks); the SSM's and RWKV's scans over time
+run through K3 and K4 on the card, and their backward through K3-bwd and
+K4-bwd (under ``remat`` each layer's scan runs again in the backward,
+with the same bits).  The cache (KV, and the SSM's state and conv carry,
+or RWKV's WKV state and token-shift rows) is updated in place:
+``prefill`` allocates it and ``decode_step`` writes its token into the
+tensors it is given, returning them with ``pos`` advanced.
 """
 
 from __future__ import annotations
@@ -44,12 +63,22 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed import tensor as dtensor
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import (NO_SHARDING, P, ShardingRules,
+                                         Summed, distribute_tree,
+                                         local_apply, model_coords,
+                                         placements, shard_start)
 
 
 class ParamSpec(NamedTuple):
@@ -63,33 +92,50 @@ class ParamSpec(NamedTuple):
 
 
 class LM:
-    def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
+                 dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
                  remat: bool = True, q_chunk: int = 1024,
                  kv_chunk: int = 1024):
-        if cfg.tp != 1 or not cfg.head_dim:
-            raise ValueError("config must be resolve(1)d: the port runs "
-                             "unsharded (sharding is on the ROADMAP queue)")
+        if cfg.tp < 1 or not cfg.head_dim:
+            raise ValueError("config must be resolve()d")
         if cfg.block not in ("attn", "hybrid", "rwkv"):
             raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
-        if cfg.block != "rwkv" and (cfg.n_heads_padded != cfg.n_heads
-                                    or cfg.n_heads % cfg.n_kv_heads):
-            raise NotImplementedError(
-                f"{cfg.name}: query heads must group evenly over KV heads")
+        if cfg.n_heads and cfg.n_heads_padded < cfg.n_heads:
+            raise ValueError(
+                f"{cfg.name} at tp={cfg.tp}: resolve() cuts its "
+                f"{cfg.n_heads} query heads to {cfg.n_heads_padded}, a "
+                f"multiple of {cfg.n_kv_padded} padded KV heads: the query "
+                "heads do not group evenly over the KV heads")
         self.cfg = cfg
+        self.rules = rules
         self.dtype = dtype
         self.device = resolve_device(device)
         self.remat = remat
         self.q_chunk = q_chunk
         self.kv_chunk = kv_chunk
+        if cfg.n_heads:
+            # map (padded) q head -> true kv head; padded heads reuse head 0
+            g = max(1, cfg.n_heads // cfg.n_kv_heads)
+            self.kv_map = np.array(
+                [min(i // g, cfg.n_kv_heads - 1) if i < cfg.n_heads else 0
+                 for i in range(cfg.n_heads_padded)])
+        else:
+            self.kv_map = None
+        # KV heads split over the model axis; otherwise replicated, and the
+        # cache split along its sequence instead
+        self.kv_shardable = bool(cfg.n_kv_heads
+                                 and cfg.n_kv_heads % cfg.tp == 0)
 
     # ---- parameters ----------------------------------------------------------
 
     def param_layout(self) -> dict:
         """The parameter tree, each leaf a ``ParamSpec`` (shape, dtype and
         how ``init_params`` draws it), allocating nothing: shapes as in
-        the reference (no ``lm_head`` with tied embeddings; QKV biases at
-        zero; on MoE layers a float32 ``router`` and stacked experts in
+        the reference (``wq`` (d, Hq_pad x hd) and ``wo`` (Hq_pad x hd, d)
+        over the padded query heads, ``wk``/``wv`` over the true KV heads,
+        the vocab padded; no ``lm_head`` with tied embeddings; QKV biases
+        at zero; on MoE layers a float32 ``router`` and stacked experts in
         place of the ``mlp``; on hybrid layers an ``ssm`` subtree with
         ``conv`` at 0.2, ``logA = log(1..N)`` in float32 and ``dskip`` at
         1; on RWKV layers the ``ln1``/``ln2``/``rwkv`` layout, ``mu`` and
@@ -175,10 +221,176 @@ class LM:
 
         return map_params(make, self.param_layout())
 
+    # ---- parameter partition specs ------------------------------------------
+
+    def param_specs(self, fsdp: bool | None = None) -> dict:
+        """Parameter PartitionSpecs, the reference's.  With ``fsdp``
+        (default: on when sharding is enabled), each weight's d_model-like
+        dim is additionally sharded over the data axis (ZeRO-3)."""
+        cfg = self.cfg
+        m = self.rules.model_axis          # None = pure-FSDP (no TP)
+        fsdp = self.rules.enabled if fsdp is None else fsdp
+        d = self.rules.fsdp_dim if fsdp else None
+        kv = P(None, d, m) if self.kv_shardable else P(None, d, None)
+        kvb = P(None, m) if self.kv_shardable else P(None, None)
+        if cfg.block == "rwkv":
+            lay = {"ln1": P(None, None), "ln2": P(None, None),
+                   "rwkv": {
+                       "att": {"mu": P(None, None, None),
+                               "wr": P(None, d, m), "wk": P(None, d, m),
+                               "wv": P(None, d, m), "wg": P(None, d, m),
+                               "ww": P(None, d, m),
+                               "w_bias": P(None, None),
+                               "u": P(None, m, None),
+                               "wo": P(None, m, d)},
+                       "ffn": {"mu": P(None, None, None),
+                               "wk": P(None, d, m),
+                               "wv": P(None, m, d),
+                               "wr": P(None, d, None)}}}
+        else:
+            lay = {"ln1": P(None, None), "ln2": P(None, None),
+                   "wq": P(None, d, m), "wk": kv, "wv": kv,
+                   "wo": P(None, m, d)}
+            if cfg.qkv_bias:
+                lay.update({"bq": P(None, m), "bk": kvb, "bv": kvb})
+            if cfg.block == "hybrid":
+                lay["ssm"] = {"in_proj": P(None, d, m),
+                              "conv": P(None, None, m),
+                              "wdt": P(None, m),
+                              "wB": P(None, m, None), "wC": P(None, m, None),
+                              "logA": P(None, m, None),
+                              "out_proj": P(None, m, d),
+                              "dskip": P(None, m)}
+            if cfg.moe:
+                lay["moe"] = {"router": P(None, None, None),
+                              "wg": P(None, m, d, None),
+                              "wu": P(None, m, d, None),
+                              "wo": P(None, m, None, d)}
+            else:
+                mlp = {"wu": P(None, d, m), "wo": P(None, m, d)}
+                if cfg.act == "swiglu":
+                    mlp["wg"] = P(None, d, m)
+                lay["mlp"] = mlp
+        specs = {"embed": P(m, d), "final_norm": P(None), "layers": lay}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = P(d, m)
+        return specs
+
+    def cache_specs(self, rules: ShardingRules | None = None) -> dict:
+        """PartitionSpecs for the cache tree: KV heads over the model axis
+        where they divide, else the cache's sequence."""
+        r = rules or self.rules
+        cfg = self.cfg
+        kv = (r.spec(None, "batch", None, "model", None) if self.kv_shardable
+              else r.spec(None, "batch", "model", None, None))
+        c = {}
+        if cfg.block in ("attn", "hybrid"):
+            c["k"] = kv
+            c["v"] = kv
+        if cfg.block == "hybrid":
+            c["ssm_state"] = r.spec(None, "batch", "model", None)
+            c["conv"] = r.spec(None, "batch", None, "model")
+        if cfg.block == "rwkv":
+            c["wkv"] = r.spec(None, "batch", "model", None, None)
+            c["sx_att"] = r.spec(None, "batch", None)
+            c["sx_ffn"] = r.spec(None, "batch", None)
+        return {"layers": c, "pos": P()}
+
+    def check_mesh(self, mesh) -> None:
+        """Raise where this model cannot run on ``mesh`` under its rules:
+        MoE layers with a model axis of more than one rank."""
+        _, n_model, _ = model_coords(self.rules, mesh)
+        if self.cfg.moe and n_model > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name}: MoE layers over a model axis of "
+                f"{n_model} ranks need expert parallelism (seq_chunks = "
+                "tp), ROADMAP's next item; a model axis of one rank runs")
+        if self.kv_map is not None:
+            for c in range(n_model):
+                self._rank_heads(c, n_model, True, self.kv_shardable)
+
+    def shard_params(self, params: dict, mesh) -> dict:
+        """``params`` (the same values on every rank) as DTensors on
+        ``mesh`` placed by ``param_specs``."""
+        if not self.rules.enabled:
+            raise ValueError("shard_params needs enabled sharding rules")
+        self.check_mesh(mesh)
+        return distribute_tree(params, self.param_specs(), mesh)
+
+    # ---- sharding helpers ----------------------------------------------------
+
+    def _local(self, fn, out_specs, in_specs, *args):
+        return local_apply(self.rules, fn, out_specs, in_specs, *args)
+
+    def _mesh(self, params):
+        return (params["final_norm"].device_mesh if self.rules.enabled
+                else None)
+
+    def _input(self, t, mesh, *logical):
+        """A model input under the rules: a plain tensor (the global
+        batch, the same on every rank) distributed by ``logical``; a
+        DTensor pinned to it."""
+        if t is None or not self.rules.enabled:
+            return t
+        if isinstance(t, DTensor):
+            return self.rules.constrain(t, *logical)
+        return dtensor.distribute_tensor(
+            t.to(self.device), mesh, self.rules.placements(mesh, *logical))
+
+    def _zeros(self, mesh, shape, dtype, *logical):
+        if not self.rules.enabled:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return dtensor.zeros(shape, dtype=dtype, device_mesh=mesh,
+                             placements=self.rules.placements(mesh, *logical))
+
+    def _store(self, dst, src) -> None:
+        """``dst.copy_(src)``, ``src`` first placed as ``dst`` is."""
+        if isinstance(dst, DTensor) and tuple(src.placements) != tuple(
+                dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.copy_(src)
+
+    def _local_heads(self, mesh, q_split: bool, kv_split: bool):
+        """This rank's query heads and the map of each to a KV head of
+        its local KV tensor (``_rank_heads``)."""
+        c, n, _ = model_coords(self.rules, mesh)
+        return self._rank_heads(c, n, q_split, kv_split)
+
+    def _rank_heads(self, c: int, n: int, q_split: bool, kv_split: bool):
+        """Model rank ``c`` of ``n``'s query heads ``[q0, q0 + nq)`` and
+        the map of each to a KV head of its local KV tensor; ``ValueError``
+        where a head's KV head lies on another rank (a padded head, which
+        reads KV head 0, past the first rank's KV heads)."""
+        Hq, Hkv = self.cfg.n_heads_padded, self.cfg.n_kv_heads
+        q0 = shard_start(Hq, n, c) if q_split else 0
+        nq = (shard_start(Hq, n, c + 1) - q0) if q_split else Hq
+        k0 = shard_start(Hkv, n, c) if kv_split else 0
+        nk = (shard_start(Hkv, n, c + 1) - k0) if kv_split else Hkv
+        heads = self.kv_map[q0:q0 + nq] - k0
+        bad = np.flatnonzero((heads < 0) | (heads >= nk))
+        if bad.size:
+            h = q0 + int(bad[0])
+            raise ValueError(
+                f"{self.cfg.name} at tp={self.cfg.tp}: query head {h} on "
+                f"model rank {c} of {n} reads KV head {self.kv_map[h]}, "
+                f"which that rank does not hold (it holds KV heads "
+                f"[{k0}, {k0 + nk}))")
+        return heads
+
     # ---- sublayers -------------------------------------------------------------
 
+    def _attend(self, q, k, v, heads: np.ndarray):
+        """q (B, S, nq, hd) local query heads; k, v (B, S, nk, hd) local
+        KV heads; ``heads[h]`` the KV head of query head h.  Where it is
+        ``h // G`` K2 reads the KV heads as they are; elsewhere they are
+        expanded through ``heads`` first (one query head a KV head)."""
+        k, v = L.expand_kv(k, v, heads)
+        return L.flash_attention(q, k, v, causal=True,
+                                 window=self.cfg.sliding_window,
+                                 q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+
     def _attn(self, lp, h, positions, cache=None, pos=None):
-        cfg = self.cfg
+        cfg, rules = self.cfg, self.rules
         B, Sq, _ = h.shape
         hd, Hq, Hkv = cfg.head_dim, cfg.n_heads_padded, cfg.n_kv_heads
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
@@ -187,39 +399,110 @@ class LM:
         q = q.reshape(B, Sq, Hq, hd)
         k = k.reshape(B, Sq, Hkv, hd)
         v = v.reshape(B, Sq, Hkv, hd)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        mesh = q.device_mesh if rules.enabled else None
+        kv_ax = "model" if self.kv_shardable else None
+        q_spec = ("batch", None, "model", None)
+        kv_spec = ("batch", None, kv_ax, None)
+        q = rules.constrain(q, *q_spec)
+        theta = cfg.rope_theta
 
         if cache is None or Sq > 1:                     # forward / prefill
-            if cache is not None:
-                cache["k"][:, :Sq] = k
-                cache["v"][:, :Sq] = v
-            out = L.flash_attention(q, k, v, causal=True,
-                                    window=cfg.sliding_window,
-                                    q_chunk=self.q_chunk,
-                                    kv_chunk=self.kv_chunk)
+            heads = self._local_heads(mesh, True, self.kv_shardable)
+            T0 = self._cache_t0(mesh, cache)
+
+            def attend(q, k, v, kc, vc):
+                q = L.apply_rope(q, positions, theta)
+                k = L.apply_rope(k, positions, theta)
+                if kc is not None:
+                    _write(kc, k, 0, T0)
+                    _write(vc, v, 0, T0)
+                return (self._attend(q, k, v, heads),)
+
+            c_spec = None if cache is None else self._kv_cache_spec()
+            (out,) = self._local(attend, (q_spec,),
+                                 (q_spec, kv_spec, kv_spec, c_spec, c_spec),
+                                 q, k, v, *((None, None) if cache is None
+                                            else (cache["k"], cache["v"])))
         else:                                           # single-token decode
-            T = cache["k"].shape[1]
-            idx = pos % T                               # circular buffer
-            cache["k"][:, idx] = k[:, 0]
-            cache["v"][:, idx] = v[:, 0]
-            # the reference masks by n_valid only: with capacity > window
-            # decode attends past the sliding window (ROADMAP, LM module)
-            n_valid = min(pos + 1, T)
-            valid = (torch.arange(T, device=h.device) < n_valid)[None, :]
-            out = L.decode_attention(q, cache["k"], cache["v"],
-                                     valid.expand(B, T))
-        return out.reshape(B, Sq, Hq * hd) @ lp["wo"]
+            out = self._decode_attn(mesh, q, k, v, cache, positions, pos)
+        out = rules.constrain(out.reshape(B, Sq, Hq * hd), "batch", None,
+                              "model")
+        return out @ lp["wo"]
+
+    def _kv_cache_spec(self):
+        return ("batch", None, "model", None) if self.kv_shardable else (
+            "batch", "model", None, None)
+
+    def _cache_t0(self, mesh, cache):
+        """Where this rank's slice of a sequence-split cache starts."""
+        if cache is None or self.kv_shardable:
+            return 0
+        c, n, _ = model_coords(self.rules, mesh)
+        return shard_start(cache["k"].shape[1], n, c)
+
+    def _decode_attn(self, mesh, q, k, v, cache, positions, pos):
+        """One token against the cache, every query head through
+        ``kv_map``.  With the KV heads split, each rank attends its own
+        heads; with the cache split along its sequence, each rank scores
+        every query head against its slice of the keys, and the running
+        max and the softmax's two sums are all-reduced over the model
+        axis (``layers.decode_attention_partial``)."""
+        cfg, rules = self.cfg, self.rules
+        T = cache["k"].shape[1]
+        idx = pos % T                                   # circular buffer
+        # the reference masks by n_valid only: with capacity > window
+        # decode attends past the sliding window (ROADMAP, LM module)
+        n_valid = min(pos + 1, T)
+        theta = cfg.rope_theta
+        heads_ax = "model" if self.kv_shardable else None
+        heads = self._local_heads(mesh, self.kv_shardable, self.kv_shardable)
+        t0 = self._cache_t0(mesh, cache)
+        _, n, group = model_coords(rules, mesh)
+        # a sequence-split cache over more than one rank: the softmax's
+        # max and sums all-reduced
+        reduce_group = group if n > 1 and not self.kv_shardable else None
+        c_spec = self._kv_cache_spec()
+
+        def attend(q, k, v, kc, vc):
+            q = L.apply_rope(q, positions, theta)
+            k = L.apply_rope(k, positions, theta)
+            _write(kc, k, idx, t0)
+            _write(vc, v, idx, t0)
+            valid = (t0 + torch.arange(kc.shape[1], device=kc.device)
+                     ) < n_valid
+            return (L.decode_attention_partial(
+                q, kc, vc, valid[None, :].expand(q.shape[0], -1), heads,
+                group=reduce_group),)
+
+        spec = ("batch", None, heads_ax, None)
+        (out,) = self._local(attend, (spec,), (spec, spec, spec, c_spec,
+                                               c_spec),
+                             q, k, v, cache["k"], cache["v"])
+        return out
 
     def _ffn(self, lp, h):
         """The MLP, or on MoE layers the routed experts; returns (y, the
         load-balance loss, 0.0 without experts)."""
         cfg = self.cfg
         if cfg.moe:
-            return L.moe_apply(lp["moe"], h, n_experts=cfg.moe.n_experts,
-                               top_k=cfg.moe.top_k,
-                               capacity_factor=cfg.moe.capacity_factor,
-                               act=cfg.act)
+            seq_chunks = cfg.tp if h.shape[1] % cfg.tp == 0 else 1
+
+            def moe(x, *leaves):
+                p = dict(zip(("router", "wg", "wu", "wo"), leaves))
+                return L.moe_apply(p, x, n_experts=cfg.moe.n_experts,
+                                   top_k=cfg.moe.top_k,
+                                   capacity_factor=cfg.moe.capacity_factor,
+                                   act=cfg.act, seq_chunks=seq_chunks)
+
+            if self.rules.enabled:
+                # a model axis of one rank: the experts run whole on every
+                # rank, the stream gathered over the batch axes
+                self.check_mesh(h.device_mesh)
+            rep = (None, None, None)
+            leaves = [lp["moe"][n] for n in ("router", "wg", "wu", "wo")]
+            y, aux = self._local(moe, (rep, ()), (rep, *[
+                (None,) * t.dim() for t in leaves]), h, *leaves)
+            return y, aux
         return L.mlp_apply(lp["mlp"], h, cfg.act), 0.0
 
     def _layer(self, lp, x, positions, cache=None, pos=None):
@@ -228,21 +511,40 @@ class LM:
         cfg = self.cfg
         if cfg.block == "rwkv":
             return self._rwkv_layer(lp, x, cache), 0.0
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        h = self._normed(x, lp["ln1"])
         mix = self._attn(lp, h, positions, cache=cache, pos=pos)
         if cfg.block == "hybrid":        # the SSM heads on the same input
             st = (None, None) if cache is None else (cache["ssm_state"],
                                                       cache["conv"])
             y, (state, conv) = SSM.ssm_apply(lp["ssm"], h, state=st[0],
-                                             conv_carry=st[1])
+                                             conv_carry=st[1],
+                                             scan=self._ssm_scan)
             mix = mix + y
             if cache is not None:
-                cache["ssm_state"].copy_(state)
-                cache["conv"].copy_(conv)
-        x = x + mix
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y, aux = self._ffn(lp, h)
-        return x + y, aux
+                self._store(cache["ssm_state"], state)
+                self._store(cache["conv"], conv)
+        # the (partial-sum) sublayer output pinned to the stream's spec
+        # before the residual add, as the reference does
+        x = x + self._constrain_stream(mix)
+        y, aux = self._ffn(lp, self._normed(x, lp["ln2"]))
+        return self._constrain_stream(x + self._constrain_stream(y)), aux
+
+    def _ssm_scan(self, x, dt, Bc, Cc, A, h0):
+        """K3 on this rank's SSM channels."""
+        ch = ("batch", None, "model")
+        rep = ("batch", None, None)
+        st = ("batch", "model", None)
+        return self._local(scan_ops.selective_scan, (ch, st),
+                           (ch, ch, rep, rep, ("model", None), st),
+                           x, dt, Bc, Cc, A, h0)
+
+    def _wkv_scan(self, r, k, v, w, u, s0):
+        """K4 on this rank's RWKV heads."""
+        hs = ("batch", None, "model", None)
+        st = ("batch", "model", None, None)
+        return self._local(wkv_ops.wkv6, (hs, st),
+                           (hs, hs, hs, hs, ("model", None), st),
+                           r, k, v, w, u, s0)
 
     def _rwkv_layer(self, lp, x, cache=None):
         """RWKV-6: time mixing, then channel mixing, each on its own normed
@@ -251,21 +553,37 @@ class LM:
         B, d = x.shape[0], cfg.d_model
         H, hd = d // SSM.RWKV_HEAD_DIM, SSM.RWKV_HEAD_DIM
         if cache is None:
-            sx0 = sx1 = torch.zeros((B, d), dtype=x.dtype, device=x.device)
-            st0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                              device=x.device)
+            mesh = x.device_mesh if self.rules.enabled else None
+            sx0 = sx1 = self._zeros(mesh, (B, d), x.dtype, "batch", None)
+            st0 = self._zeros(mesh, (B, H, hd, hd), torch.float32,
+                              "batch", "model", None, None)
         else:
             sx0, sx1, st0 = cache["sx_att"], cache["sx_ffn"], cache["wkv"]
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, sx_att, wkv = SSM.rwkv_time_mix(lp["rwkv"]["att"], h, sx0, st0)
-        x = x + y
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        h = self._normed(x, lp["ln1"])
+        y, sx_att, wkv = SSM.rwkv_time_mix(lp["rwkv"]["att"], h, sx0, st0,
+                                           scan=self._wkv_scan)
+        x = x + self._constrain_stream(y)
+        h = self._normed(x, lp["ln2"])
         y, sx_ffn = SSM.rwkv_channel_mix(lp["rwkv"]["ffn"], h, sx1)
         if cache is not None:
-            cache["wkv"].copy_(wkv)
-            cache["sx_att"].copy_(sx_att)
-            cache["sx_ffn"].copy_(sx_ffn)
-        return x + y
+            self._store(cache["wkv"], wkv)
+            self._store(cache["sx_att"], sx_att)
+            self._store(cache["sx_ffn"], sx_ffn)
+        return self._constrain_stream(x + self._constrain_stream(y))
+
+    def _normed(self, x, weight):
+        """A sublayer's input: the stream normed, and gathered along the
+        sequence where the stream is split over it (Megatron-SP's
+        all-gather before the column-parallel matmuls)."""
+        h = L.rms_norm(x, weight, self.cfg.norm_eps)
+        return self.rules.constrain(h, "batch", None, None)
+
+    def _constrain_stream(self, x):
+        """Residual stream: sequence-parallel over the model axis when the
+        sequence divides (Megatron-SP), else batch-split only."""
+        if x.shape[1] > 1 and x.shape[1] % self.cfg.tp == 0:
+            return self.rules.constrain(x, "batch", "model", None)
+        return self.rules.constrain(x, "batch", None, None)
 
     def _layers(self, params, x, positions, cache=None, pos=None):
         """The layer stack. Returns (x, the mean of the layers' aux)."""
@@ -286,13 +604,46 @@ class LM:
 
     def _embed(self, params, tokens, embeds):
         """``[embeds (cast to the model's dtype), token embeddings]``
-        along the sequence; either may be None."""
+        along the sequence; either may be None.  Under the rules while
+        autograd records the lookup is the reference's one-hot matmul,
+        whose backward stays vocab-sharded; otherwise a gather
+        (``_gather_rows`` under the rules)."""
+        mesh = self._mesh(params)
         xs = []
         if embeds is not None:
-            xs.append(embeds.to(self.dtype))
+            xs.append(self._input(embeds, mesh, "batch", None, None).to(
+                self.dtype))
         if tokens is not None:
-            xs.append(params["embed"][tokens.long()])
-        return torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+            tokens = self._input(tokens, mesh, "batch", None).long()
+            table = params["embed"]
+            if not self.rules.enabled:
+                xs.append(table[tokens])
+            elif torch.is_grad_enabled():
+                xs.append(F.one_hot(tokens, table.shape[0]).to(
+                    self.dtype) @ table)
+            else:
+                xs.append(self._gather_rows(mesh, table, tokens))
+        x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+        return self._constrain_stream(x)
+
+    def _gather_rows(self, mesh, table, tokens):
+        """``table[tokens]`` from a table split over the vocab: each rank
+        reads the rows its shard holds (zeros elsewhere), a partial sum
+        over the model axis that DTensor adds when the stream is pinned
+        (DTensor's own embedding rule fails on a batch split over another
+        mesh dim)."""
+        c, n, _ = model_coords(self.rules, mesh)
+        v0 = shard_start(table.shape[0], n, c)
+
+        def rows(tab, tok):
+            tok = tok - v0
+            here = (tok >= 0) & (tok < tab.shape[0])
+            out = tab[tok.clamp(0, tab.shape[0] - 1)]
+            return (torch.where(here[..., None], out, 0),)
+
+        (x,) = self._local(rows, (Summed(("batch", None, None)),),
+                           (("model", None), ("batch", None)), table, tokens)
+        return x
 
     def _head(self, params):
         """(D, Vp): ``embed.T`` with tied embeddings, else ``lm_head``."""
@@ -301,14 +652,15 @@ class LM:
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return x @ self._head(params)
+        return self.rules.constrain(x @ self._head(params), "batch", None,
+                                    "model")
 
     # ---- entry points -------------------------------------------------------------
 
     def _backbone(self, params, tokens=None, embeds=None):
         """Embed + layer stack + final norm. Returns (x (B, S, D), aux)."""
         x = self._embed(params, tokens, embeds)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, aux = self._layers(params, x, positions)
         return L.rms_norm(x, params["final_norm"], self.cfg.norm_eps), aux
 
@@ -318,7 +670,9 @@ class LM:
         Vp) over the frames and the tokens, moe aux loss: the layers'
         mean, a float32 scalar; 0.0 without experts)."""
         x, aux = self._backbone(params, tokens, embeds)
-        return x @ self._head(params), aux
+        x = self.rules.constrain(x, "batch", None, None)
+        return self.rules.constrain(x @ self._head(params), "batch", None,
+                                    "model"), aux
 
     def forward_loss(self, params: dict, tokens: torch.Tensor | None,
                      labels: torch.Tensor,
@@ -329,21 +683,31 @@ class LM:
         logits.  The head matmul and the CE run one sequence chunk at a
         time under ``torch.utils.checkpoint``, so the backward recomputes
         each chunk's logits instead of saving them.  ``labels`` and
-        ``loss_mask`` span the whole stream, frames included.  Returns
-        (mean masked NLL, moe aux loss as ``forward``'s)."""
+        ``loss_mask`` span the whole stream, frames included.  Under the
+        rules a chunk's logits stay split over the vocab
+        (``_vocab_nll``).  Returns (mean masked NLL, moe aux loss as
+        ``forward``'s)."""
         x, aux = self._backbone(params, tokens, embeds)
+        mesh = self._mesh(params)
         head = self._head(params)
         S = x.shape[1]
         c = min(loss_chunk, S)
         if S % c:
             raise ValueError(f"sequence {S} is not a multiple of the loss "
                              f"chunk {c}")
+        x = self.rules.constrain(x, "batch", None, None)
+        labels = self._input(labels, mesh, "batch", None)
         if loss_mask is None:
             loss_mask = torch.ones(labels.shape, dtype=torch.float32,
-                                   device=x.device)
+                                   device=self.device)
+        loss_mask = self._input(loss_mask, mesh, "batch", None)
 
         def body(xc, lc, mc):
-            return _chunk_ce(xc @ head, lc, mc, self.cfg.vocab)
+            if not self.rules.enabled:
+                return _chunk_ce(xc @ head, lc, mc, self.cfg.vocab)
+            logits = self.rules.constrain(xc @ head, "batch", None, "model")
+            mc = mc.float()
+            return (self._vocab_nll(mesh, logits, lc) * mc).sum(), mc.sum()
 
         nll = msum = 0.0
         for s0 in range(0, S, c):
@@ -354,30 +718,67 @@ class LM:
             nll, msum = nll + n, msum + m
         return nll / torch.clamp(msum, min=1.0), aux
 
-    def init_cache(self, batch: int, capacity: int) -> dict:
+    def _vocab_nll(self, mesh, logits, labels):
+        """Each position's NLL from logits split over the vocab: each rank
+        takes its shard's ``torch.logsumexp`` (padding at -1e9) and its
+        label's logit (0 off its shard); the shards' log-sum-exps combine
+        as ``m + log(sum_r exp(lse_r - m))``, ``m`` their largest
+        (all-reduced, MAX, over the model axis) and the sum a partial sum
+        that DTensor adds, as is the label's logit.  On one rank this is
+        ``torch.logsumexp`` to the bit (``exp(0)`` is 1, ``log(1)`` 0)."""
+        c, n, group = model_coords(self.rules, mesh)
+        v0 = shard_start(self.cfg.vocab_padded, n, c)
+        vocab = self.cfg.vocab
+
+        def part(lg, lab):
+            lg = lg.float()
+            col = v0 + torch.arange(lg.shape[-1], device=lg.device)
+            lg = torch.where(col < vocab, lg, -1e9)
+            lse = torch.logsumexp(lg, dim=-1)
+            m = lse.detach().clone()
+            if group is not None:
+                dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+            lab = lab.long() - v0
+            here = (lab >= 0) & (lab < lg.shape[-1])
+            ll = torch.gather(lg, -1, lab.clamp(0, lg.shape[-1] - 1)[
+                ..., None])[..., 0]
+            return m, torch.exp(lse - m), torch.where(here, ll, 0.0)
+
+        row = ("batch", None)
+        m, s, ll = self._local(part, (row, Summed(row), Summed(row)),
+                               (("batch", None, "model"), row),
+                               logits, labels)
+        return torch.log(s) + m - ll
+
+    def init_cache(self, batch: int, capacity: int, mesh=None) -> dict:
         """Zeros: the KV cache (attention blocks), the SSM's float32 state
         and conv carry (hybrid), or RWKV's float32 WKV state and its two
-        token-shift rows (rwkv), each stacked over the layers."""
+        token-shift rows (rwkv), each stacked over the layers; under the
+        rules DTensors on ``mesh`` placed by ``cache_specs``."""
         cfg, n = self.cfg, self.cfg.n_layers
+        specs = self.cache_specs()["layers"]
 
-        def zeros(*shape, dtype=self.dtype):
-            return torch.zeros((n, batch, *shape), dtype=dtype,
-                               device=self.device)
+        def zeros(name, *shape, dtype=self.dtype):
+            shape = (n, batch, *shape)
+            if not self.rules.enabled:
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+            return dtensor.zeros(shape, dtype=dtype, device_mesh=mesh,
+                                 placements=placements(mesh, specs[name]))
 
         c = {}
         if cfg.block in ("attn", "hybrid"):
-            c["k"] = zeros(capacity, cfg.n_kv_heads, cfg.head_dim)
-            c["v"] = zeros(capacity, cfg.n_kv_heads, cfg.head_dim)
+            c["k"] = zeros("k", capacity, cfg.n_kv_heads, cfg.head_dim)
+            c["v"] = zeros("v", capacity, cfg.n_kv_heads, cfg.head_dim)
         if cfg.block == "hybrid":
             di = cfg.ssm.expand * cfg.d_model
-            c["ssm_state"] = zeros(di, cfg.ssm.state_dim,
+            c["ssm_state"] = zeros("ssm_state", di, cfg.ssm.state_dim,
                                    dtype=torch.float32)
-            c["conv"] = zeros(cfg.ssm.conv_width - 1, di)
+            c["conv"] = zeros("conv", cfg.ssm.conv_width - 1, di)
         if cfg.block == "rwkv":
             H, hd = cfg.d_model // SSM.RWKV_HEAD_DIM, SSM.RWKV_HEAD_DIM
-            c["wkv"] = zeros(H, hd, hd, dtype=torch.float32)
-            c["sx_att"] = zeros(cfg.d_model)
-            c["sx_ffn"] = zeros(cfg.d_model)
+            c["wkv"] = zeros("wkv", H, hd, hd, dtype=torch.float32)
+            c["sx_att"] = zeros("sx_att", cfg.d_model)
+            c["sx_ffn"] = zeros("sx_ffn", cfg.d_model)
         return {"layers": c, "pos": 0}
 
     @torch.no_grad()
@@ -392,10 +793,11 @@ class LM:
         capacity = capacity or Sq
         if capacity < Sq:
             raise ValueError(f"cache capacity {capacity} < prompt {Sq}")
-        cache = self.init_cache(B, capacity)
-        positions = torch.arange(Sq, device=x.device)[None, :]
+        cache = self.init_cache(B, capacity, self._mesh(params))
+        positions = torch.arange(Sq, device=self.device)[None, :]
         x, _ = self._layers(params, x, positions, cache=cache, pos=0)
         cache["pos"] = Sq
+        x = self.rules.constrain(x, "batch", None, None)
         return self._logits(params, x[:, -1:]), cache
 
     @torch.no_grad()
@@ -404,10 +806,20 @@ class LM:
         cache), the cache's tensors updated in place."""
         x = self._embed(params, tokens, None)
         pos = int(cache["pos"])
-        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        # (1, 1): broadcast over each rank's own share of the batch
+        positions = torch.full((1, 1), pos, device=self.device)
         x, _ = self._layers(params, x, positions, cache=cache, pos=pos)
         return self._logits(params, x), {"layers": cache["layers"],
                                          "pos": pos + 1}
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, at: int, t0: int) -> None:
+    """Write ``new`` (B, S, H, hd), positions ``at..at+S``, into the
+    slice of a cache that holds positions ``t0..t0 + len`` (the whole
+    cache where ``t0`` is 0 and the cache is not split)."""
+    lo, hi = max(at, t0), min(at + new.shape[1], t0 + cache.shape[1])
+    if lo < hi:
+        cache[:, lo - t0:hi - t0] = new[:, lo - at:hi - at]
 
 
 # ---- loss -------------------------------------------------------------------

@@ -675,7 +675,11 @@ def test_column_sharded_lookup_on_cuda(cuda, k):
     output equals plain on its arena and rows; from one upstream
     gradient, K1's backward per shard equals its plain replay bit for bit,
     and every slot's gradient is held to its whole-table plan's float64
-    gradient columns by the rule above (twice plain's error + 1e-6).  The
+    gradient columns by the rule above (twice plain's error + 1e-6), with
+    plain's float32 sum taken on the host, in one fixed order, and its
+    error capped at the largest of 10 runs in the order of CUDA's atomics
+    (in that order alone the limit moved from run to run, and about one
+    run in six failed).  The
     column split of the arenas and the per-table gradient references are
     the smoke's own helpers, so this test pins what it checks."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
@@ -742,9 +746,8 @@ def test_column_sharded_lookup_on_cuda(cuda, k):
             b = int(plan.base_rows[s, j])
             got = grads[s][b:b + rows[t], :c1 - c0]
             whole_cols = grads_w[ws][wb:wb + rows[t], c0:c1]
-            ref64, plain = table_grad_refs(
+            ref64, plain_err = table_grad_refs(
                 torch, idx[:, t], up[:, t, c0:c1].contiguous(), int(rows[t]))
-            plain_err = float((plain.double() - ref64).abs().max())
             for cand in (got, whole_cols):
                 err = float((cand.double() - ref64).abs().max())
                 assert err <= 2 * plain_err + 1e-6, (s, t, c0, c1)

@@ -55,7 +55,8 @@ def test_port_modules_found():
               "configs.hymba_1p5b", "configs.rwkv6_1p6b", "models.ssm",
               "kernels.selective_scan.ops", "kernels.selective_scan.kernel",
               "kernels.selective_scan.ref", "kernels.wkv6.ops",
-              "kernels.wkv6.kernel", "kernels.wkv6.ref"):
+              "kernels.wkv6.kernel", "kernels.wkv6.ref",
+              "models.sharding", "launch.mesh"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -148,8 +149,27 @@ def _dlrm(**kw):
     return DLRM(SMOKE, build_plan(_small_pool(8), np.arange(8) % 2, 2), **kw)
 
 
+def _with_process_group(world: int, make, **kw):
+    """``make(**kw)`` under a process group of ``world`` ranks (torch's
+    fake one: it runs no collective) when given the CPU; without a device
+    ``make`` must raise before it needs one."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if kw.get("device") != "cpu":
+        return make(**kw)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        mesh = make(**kw)
+        assert mesh.device_type == "cpu" and mesh.size() == world
+    finally:
+        dist.destroy_process_group()
+
+
 def _entry(name):
     from repro_torch.api import KernelOracle
+    from repro_torch.launch.mesh import (make_mesh, make_production_mesh,
+                                         production_rules)
     from repro_torch.configs import get_smoke
     from repro_torch.core.replay import ReplayBuffer
     from repro_torch.launch.serve import serve
@@ -174,11 +194,24 @@ def _entry(name):
         "ReplayBuffer": lambda **kw: ReplayBuffer(2, 3, 2, **kw),
         "calibrate_comm": lambda **kw: calibrate_comm(**kw),
         "build_model": lambda **kw: build_model(cfg, **kw),
+        "build_model(rules=...)": lambda **kw: build_model(
+            get_smoke("h2o-danube-1.8b").resolve(2),
+            rules=production_rules(), **kw),
+        "make_mesh": lambda **kw: _with_process_group(
+            4, make_mesh, shape=(2, 2), axes=("data", "model"), **kw),
+        "make_production_mesh": lambda **kw: _with_process_group(
+            256, make_production_mesh, **kw),
         "LM.init_params": lambda **kw: LM(cfg, **kw).init_params(0),
         "serve": lambda **kw: serve(batch=1, prompt_len=4, tokens=2, **kw),
         "train_with_placement": _train_dlrm,
         "DLRM": _dlrm,
-        "serve_workflow": lambda **kw: serve_workflow(**kw),
+        # the smallest sizes that still train, serve (ten recurring jobs
+        # fill an admission batch, so later requests hit the cache) and
+        # print: the example's own sizes take minutes on the CPU
+        "serve_workflow": lambda **kw: serve_workflow(
+            n_train_tasks=2, n_iterations=1, n_collect=1, n_cost=1,
+            n_batch=2, n_rl=1, n_episode=1, candidates=1, n_jobs=10,
+            n_tables=8, n_requests=100, tail_jobs=1, **kw),
     }[name]
 
 
@@ -187,6 +220,8 @@ def _entry(name):
                                   "bench_shape", "bench_fused_shape",
                                   "KernelOracle", "ReplayBuffer",
                                   "calibrate_comm", "build_model",
+                                  "build_model(rules=...)", "make_mesh",
+                                  "make_production_mesh",
                                   "LM.init_params", "serve",
                                   "train_with_placement", "DLRM",
                                   "serve_workflow", "RNNPlacer"])

@@ -39,7 +39,7 @@ import torch
 from repro import configs as JC
 from repro.models import layers as JL
 from repro.models.transformer import LM as JaxLM
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_full, get_smoke
 from repro_torch.launch import serve as S
 from repro_torch.launch import steps as ST
 from repro_torch.models import layers as L
@@ -101,17 +101,28 @@ def test_mlp_apply(act):
     np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("layout", ["grouped", "expanded"])
+@pytest.mark.parametrize("layout", ["grouped", "expanded", "mapped"])
 def test_decode_attention(layout):
+    """The port's decode attention (query head h reads KV head
+    ``heads[h]``) against the reference's grouped decode: KV heads read as
+    they are (``h // G``), expanded one a query head, or read through a
+    map that is not ``h // G`` (a padded head reading KV head 0), which
+    the reference takes on its KV expanded through that map."""
     B, T, Hq, Hkv, hd = 2, 20, 8, 2, 16
     kv_heads = Hkv if layout == "grouped" else Hq
+    heads = np.arange(Hq) // (Hq // kv_heads)
+    if layout == "mapped":
+        kv_heads, heads = Hkv, np.array([0, 0, 0, 1, 1, 1, 1, 0])
     q = _rand(7, B, 1, Hq, hd)
     kc, vc = _rand(8, B, T, kv_heads, hd), _rand(9, B, T, kv_heads, hd)
     valid = np.arange(T)[None, :] < np.array([[13], [20]])
-    ref = JL.decode_attention(jnp.asarray(q), jnp.asarray(kc),
-                              jnp.asarray(vc), jnp.asarray(valid))
-    out = L.decode_attention(torch.as_tensor(q), torch.as_tensor(kc),
-                             torch.as_tensor(vc), torch.as_tensor(valid))
+    kr, vr = ((kc[:, :, heads], vc[:, :, heads]) if layout == "mapped"
+              else (kc, vc))
+    ref = JL.decode_attention(jnp.asarray(q), jnp.asarray(kr),
+                              jnp.asarray(vr), jnp.asarray(valid))
+    out = L.decode_attention_partial(
+        torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
+        torch.as_tensor(valid), heads)
     np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
 
 
@@ -276,10 +287,10 @@ def test_lm_greedy_decode(run_both):
 
 @pytest.mark.parametrize("change", [{"n_kv_heads": 3}])
 def test_unsupported_blocks_raise(change):
-    # 8 query heads over 3 KV heads: resolve(1) pads the query heads to 6,
-    # a grouping the port does not run
+    # 8 query heads over 3 KV heads: resolve(1) cuts the query heads to 6,
+    # losing two, which the port refuses (the reference runs it)
     cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"), **change)
-    with pytest.raises(NotImplementedError, match="group evenly"):
+    with pytest.raises(ValueError, match="group evenly"):
         LM(cfg.resolve(1), device="cpu")
 
 
@@ -299,8 +310,11 @@ def test_qkv_bias_and_tied_embeddings_run(change):
 def test_unresolved_or_sharded_config_raises():
     with pytest.raises(ValueError, match="resolve"):
         LM(get_smoke("h2o-danube-1.8b"), device="cpu")
-    with pytest.raises(ValueError, match="resolve"):
-        LM(get_smoke("h2o-danube-1.8b").resolve(2), device="cpu")
+    # a sharded config runs (tests/test_torch_lm_padded.py) unless its
+    # resolve() loses query heads, as hymba-1.5b's does at tp 2
+    LM(get_smoke("h2o-danube-1.8b").resolve(2), device="cpu")
+    with pytest.raises(ValueError, match="tp=2"):
+        LM(get_full("hymba-1.5b").resolve(2), device="cpu")
 
 
 def test_steps_are_the_model_calls():

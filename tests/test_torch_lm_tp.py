@@ -1,0 +1,286 @@
+"""The port's LM under sharding rules over gloo, against its own
+one-device run.
+
+Each mesh is one group of ranks: a subprocess a rank (the ``-c`` script
+below), a ``file://`` store in a temporary directory, every rank killed
+at a deadline, as ``tests/test_torch_sharded.py`` runs its ranks.  The
+group runs every config in turn, each config's outputs (or its error)
+saved apart, so a case fails alone: a process spends ~4 s importing and
+~7 s on DTensor's first sharding propagations, which the next config
+mostly reuses, so a group a config would take several times as long.
+For each config every rank builds the same seeded float32 weights,
+distributes them by ``LM.param_specs`` over a ``(data, model)``
+``DeviceMesh`` and runs:
+the forward's logits, ``forward_loss``, the gradient of every leaf
+(``make_grad_fn``, each reduced to its parameter's placements), one
+AdamW step (``make_train_step``), then a prefill and 4 decode steps on
+a cache placed by ``LM.cache_specs``.  Rank 0 also runs the same
+weights and inputs on one device with ``NO_SHARDING``.  The ranks sum
+in another order, so every output is held within 1e-5 of its largest
+value.  Adam's first step moves a parameter by about the learning rate
+whatever the size of its gradient (``g / (|g| + eps)``), so where a
+gradient entry is small the step turns on the summation order: the step
+is held where the gradient decides it (more than 1e-4 of its leaf's
+largest and 1e-5 in size), within twice the learning rate elsewhere,
+and every rank's parameters equal, bit for bit, one-device AdamW applied
+to the sharded run's own gathered gradients.  The meshes are (1, 2),
+(2, 1) and (2, 2), the last with the weights also split over the data
+axis (FSDP).  On (1, 2) hymba also runs with a vocab of 501, padded to
+502, so that the second rank's vocab shard holds the padding, and danube
+with 7 query heads over 2 KV heads, padded to 8, raises ``ValueError``:
+its query heads 3 and 7 read KV heads that the other rank holds.  An
+MoE config under a model axis of two ranks raises
+``NotImplementedError``; on a model axis of one rank it runs.
+"""
+
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+RANK_DEADLINE_S = 300.0
+LR = 1e-3
+ARCHS = ("h2o-danube-1.8b", "granite-34b", "qwen2.5-14b", "hymba-1.5b",
+         "rwkv6-1.6b")
+MESHES = ((1, 2), (2, 1), (2, 2))
+
+_WORKER = r"""
+import dataclasses, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import get_smoke
+from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.sharding import (NO_SHARDING, ShardingRules,
+                                         placements)
+from repro_torch.models.transformer import LM, map_params, tree_leaves
+
+rank, n_data, n_model, tmp, archs, lr = (
+    int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+    sys.argv[6].split(","), float(sys.argv[7]))
+torch.manual_seed(0)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                        rank=rank, world_size=n_data * n_model)
+B, S, N_DECODE = 2, 16, 4
+
+
+def full(t):
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+def run(model, params, shard):
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                             dtype=torch.int32)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                             dtype=torch.int32)
+    mask = torch.as_tensor((rng.random((B, S)) < 0.8).astype(np.float32))
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab, (N_DECODE, B, 1)),
+                             dtype=torch.int32)
+    out = {}
+    logits, _ = model.forward(params, tokens)
+    out["logits"] = full(logits)
+    batch = {"tokens": tokens, "labels": labels, "loss_mask": mask}
+    grads, loss, _ = ST.make_grad_fn(model)(params, batch)
+    out["loss"] = full(loss)
+    for i, g in enumerate(grads):
+        out[f"grad{i}"] = full(g)
+    plog, cache = model.prefill(params, tokens, capacity=S + N_DECODE)
+    out["prefill"] = full(plog)
+    for j in range(N_DECODE):
+        dlog, cache = model.decode_step(params, cache, forced[j])
+        out[f"decode{j}"] = full(dlog)
+    for name, t in cache["layers"].items():
+        out[f"cache_{name}"] = full(t)
+        if shard:
+            want = placements(t.device_mesh,
+                              model.cache_specs()["layers"][name])
+            assert tuple(t.placements) == want, (name, t.placements, want)
+    opt, step = ST.make_train_step(model, lr=lr, weight_decay=0.1)
+    state = opt.init(tree_leaves(params))
+    params, state, _ = step(params, state, batch)
+    for i, p in enumerate(tree_leaves(params)):
+        out[f"param{i}"] = full(p)
+    return {k: v.float().numpy() for k, v in out.items()}
+
+
+def case(arch, mesh):
+    arch, _, over = arch.partition(":")
+    cfg = get_smoke(arch)
+    if over:
+        field, _, value = over.partition("=")
+        cfg = dataclasses.replace(cfg, **{field: int(value)})
+    cfg = cfg.resolve(2)
+    fsdp = ("data",) if n_data > 1 and n_model > 1 else ()
+    rules = ShardingRules(fsdp_axes=fsdp)
+    kw = dict(dtype=torch.float32, device="cpu", q_chunk=8, kv_chunk=8)
+    plain = LM(cfg, NO_SHARDING, **kw)
+    params = plain.init_params(0)
+    model = LM(cfg, rules, **kw)
+    try:
+        sharded = model.shard_params(map_params(torch.clone, params), mesh)
+    except (NotImplementedError, ValueError) as e:
+        return {"raised": f"{type(e).__name__}: {e}"}
+    got = run(model, sharded, True)
+    if rank == 0:
+        # one-device AdamW on the gathered sharded gradients
+        leaves = [p.clone() for p in tree_leaves(params)]
+        opt = ST.adamw(lr, weight_decay=0.1)
+        opt.apply([torch.as_tensor(got[f"grad{i}"])
+                   for i in range(len(leaves))], opt.init(leaves), leaves)
+        got.update({f"adam{i}": p.numpy() for i, p in enumerate(leaves)})
+        ref = run(plain, params, False)
+        got.update({"ref_" + k: v for k, v in ref.items()})
+    return got
+
+
+try:
+    mesh = make_mesh((n_data, n_model), ("data", "model"), device="cpu")
+    for arch in archs:
+        try:
+            got = case(arch, mesh)
+        except Exception:
+            import traceback
+            got = {"error": traceback.format_exc()}
+        np.savez(f"{tmp}/{arch}-rank{rank}.npz", **got)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _run_ranks(tmp_path, n_data, n_model, archs):
+    """Start one process per rank and wait for all of them within the
+    deadline; kill every one that is left when it passes.  Returns each
+    config's outputs a rank, or the ranks' errors as a string."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORKER, SRC, str(r), str(n_data),
+         str(n_model), str(tmp_path), ",".join(archs), str(LR)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(n_data * n_model)]
+    deadline = time.monotonic() + RANK_DEADLINE_S
+    try:
+        outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errs = [f"rank {r}: {err[-3000:]}"
+            for r, (p, (_, err)) in enumerate(zip(procs, outs))
+            if p.returncode != 0]
+    if errs:
+        return {arch: "\n".join(errs) for arch in archs}
+    out = {}
+    for arch in archs:
+        ranks = [dict(np.load(tmp_path / f"{arch}-rank{r}.npz"))
+                 for r in range(n_data * n_model)]
+        errs = [f"rank {r}: {g['error']}" for r, g in enumerate(ranks)
+                if "error" in g]
+        out[arch] = "\n".join(errs) if errs else ranks
+    return out
+
+
+# olmoe rides along: on (1, 2) it must raise, on (2, 1) run; so does
+# hymba with a vocab of 501, padded to 502 by resolve(2), so that the
+# padding falls in the second rank's vocab shard; and danube with 7 query
+# heads over 2 KV heads, padded to 8 by resolve(2), which must raise: the
+# first rank's query head 3 reads KV head 1 and the padded head 7, on the
+# second rank, KV head 0, each held by the other rank
+PADDED_VOCAB = "hymba-1.5b:vocab=501"
+PADDED_HEADS = "h2o-danube-1.8b:n_heads=7"
+GROUPS = {(1, 2): ARCHS + ("olmoe-1b-7b", PADDED_VOCAB, PADDED_HEADS),
+          (2, 1): ARCHS + ("olmoe-1b-7b",), (2, 2): ARCHS}
+
+
+@pytest.fixture(scope="module")
+def groups(tmp_path_factory):
+    """Every mesh's group of ranks, all at once: {(arch, mesh): each
+    rank's outputs, or the error}."""
+    # the directories first, in this thread: the factory's first call
+    # creates its base directory, which threads would race to create
+    tmp = {mesh: tmp_path_factory.mktemp(f"mesh{mesh[0]}x{mesh[1]}")
+           for mesh in GROUPS}
+
+    def one(mesh):
+        return mesh, _run_ranks(tmp[mesh], *mesh, GROUPS[mesh])
+    with ThreadPoolExecutor(max_workers=len(GROUPS)) as pool:
+        done = dict(pool.map(one, GROUPS))
+    return {(arch, mesh): res for mesh, by_arch in done.items()
+            for arch, res in by_arch.items()}
+
+
+def _held(got: dict, ref: dict, key: str, lr: float):
+    out, want = got[key], ref["ref_" + key]
+    assert out.shape == want.shape, key
+    scale = max(float(np.abs(want).max()), 1e-30)
+    if key.startswith("param"):
+        i = key[len("param"):]
+        np.testing.assert_array_equal(out, ref["adam" + i], err_msg=key)
+        g = np.abs(ref["ref_grad" + i])
+        decided = (g > 1e-4 * float(g.max())) & (g > 1e-5)
+        err = np.abs(out - want)
+        assert err[decided].max(initial=0.0) <= 1e-5 * scale, key
+        assert err.max(initial=0.0) <= 2 * lr + 1e-5 * scale, key
+        return
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-5 * scale,
+                               err_msg=key)
+
+
+@pytest.mark.parametrize("arch,mesh", [(a, m) for a in ARCHS for m in MESHES],
+                         ids=[f"{a}-{m[0]}x{m[1]}" for a in ARCHS
+                              for m in MESHES])
+def test_sharded_lm_matches_one_device(groups, arch, mesh):
+    res = groups[(arch, mesh)]
+    assert not isinstance(res, str), res
+    ref = res[0]
+    keys = [k for k in ref if not k.startswith(("ref_", "adam"))]
+    assert {"logits", "loss", "prefill", "decode3", "grad0",
+            "param0"} <= set(keys)
+    for got in res:
+        assert set(k for k in got
+                   if not k.startswith(("ref_", "adam"))) == set(keys)
+        for key in keys:
+            _held(got, ref, key, LR)
+
+
+def test_padded_vocab_splits_over_the_model_axis(groups):
+    res = groups[(PADDED_VOCAB, (1, 2))]
+    assert not isinstance(res, str), res
+    assert res[0]["logits"].shape[-1] == 502
+    for got in res:
+        for key in (k for k in got if not k.startswith(("ref_", "adam"))):
+            _held(got, res[0], key, LR)
+
+
+def test_moe_under_a_model_axis_of_two_raises(groups):
+    res = groups[("olmoe-1b-7b", (1, 2))]
+    assert not isinstance(res, str), res
+    for got in res:
+        assert "expert parallelism" in str(got["raised"])
+
+
+def test_padded_head_reading_another_ranks_kv_head_raises(groups):
+    res = groups[(PADDED_HEADS, (1, 2))]
+    assert not isinstance(res, str), res
+    for got in res:
+        assert str(got["raised"]).startswith("ValueError"), got
+        assert "query head 3 on model rank 0 of 2 reads KV head 1, which " \
+            "that rank does not hold" in str(got["raised"])
+
+
+def test_moe_under_a_model_axis_of_one_runs(groups):
+    res = groups[("olmoe-1b-7b", (2, 1))]
+    assert not isinstance(res, str), res
+    for got in res:
+        for key in ("logits", "loss", "prefill", "decode3", "grad0"):
+            _held(got, res[0], key, LR)

@@ -95,7 +95,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    task 0's 50 tables (rows capped at 2^20), batch 65536, float32, the
    four shards' arenas on this one card through ``lookup_unsharded`` (K1
    forward and backward per shard and step), row-wise Adagrad on the
-   arenas and Adam on the dense nets: 2 warm-up and 2 timed steps for
+   arenas and Adam on the dense nets: 1 warm-up and 2 timed steps for
    phase 8's trained placement and its random one, on the same batches
    (``DLRMBatchStream`` through ``Prefetcher``, made once); first, on the
    trained placement's first batch, K1 forward and backward per shard at
@@ -294,7 +294,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (a) (K4), bit-equal; (d) K2 on (a)'s layer 0 q/k/v at the padded-head
    shape by phase 13's ``attention_ulp_err``, K3 and K4 by phase 15's
    checks and K3-bwd by phase 16's, on the arguments the rules handed
-   them.  Each leg prints its seconds, peaks, times and ``mfu``.
+   them; (e) olmoe-1b-7b at ``resolve(16)``, full width and depth (16
+   layers, 64 experts top-8, the experts split over ``model``), served as
+   (a): every MoE layer's rows through the all-to-all over the one-rank
+   model group (a real NCCL ``all_to_all_single``, counted), K2 on the
+   local heads, the dropped-slot share by layer; logits and tokens
+   bit-equal to ``NO_SHARDING``'s; (f) olmoe-1b-7b at 2 layers trained
+   as (b): the loss and the load-balance loss bit-equal, every gradient
+   leaf within 2 bf16 steps at its largest entry (K2).  Each leg prints
+   its seconds, peaks, times and ``mfu``.
 
 Every LM line (phases 7, 13-18) prints ``mfu``, the model FLOP
 utilisation: ``launch/roofline.model_flops`` at the smoke's own batch and
@@ -343,8 +351,8 @@ TRAIN_TASKS = 16                 # the table1_main quick regime
 CROSS_STEPS = 50
 PROFILE_COST_STEPS = 30          # phase 8's profile of the training stages
 PROFILE_RL_STEPS = 2
-DLRM_STEPS = 4                   # phase 10: 2 warm-up + 2 timed steps
-DLRM_WARMUP = 2
+DLRM_STEPS = 3                   # phase 10: 1 warm-up + 2 timed steps
+DLRM_WARMUP = 1
 K1_BWD_KERNELS = ("compact_kernel", "radix_hist_kernel", "radix_scan_kernel",
                   "radix_scatter_kernel", "runs_kernel", "chunks_kernel",
                   "pass1_kernel", "zero_rows_kernel", "long_runs_kernel")
@@ -2087,7 +2095,7 @@ def dlrm_full_width(torch, np, K, counters, task0, summary) -> dict:
     """(b) DLRM at FULL's widths over test task 0's 50 tables (rows capped
     at 2^20), batch 65536, float32, every shard's arena on this card
     through ``lookup_unsharded``: K1 against plain at the step's shapes
-    (``dlrm_kernel_checks``), then 2 warm-up and 2 timed steps for the
+    (``dlrm_kernel_checks``), then 1 warm-up and 2 timed steps for the
     trained placement and for the random one, on the same batches.
     Returns the K1 launches of these steps (and of the profiled one)."""
     from repro_torch.configs import dlrm as CD
@@ -5505,14 +5513,16 @@ def phase_frontends(torch, np, FA, plain, counters, summary: dict) -> dict:
 
 
 SHARD_TP = 16                    # 18: the dry-run's resolve(16)
-SHARD_SERVE_PROMPT = 8192        # 18 (a), (c): phase 15's serve shape
-SHARD_DECODE = 3                 # 18 (a), (c): greedy steps after a prefill
-                                 # (the first one untimed: DTensor's first
-                                 # propagation of the decode's shapes)
-SHARD_LAYERS = 2                 # 18 (b), (c): full width cut to 2 layers
+SHARD_SERVE_PROMPT = 8192        # 18 (a), (c), (e): phase 15's serve shape
+SHARD_DECODE = 3                 # 18 (a), (c), (e): greedy steps after a
+                                 # prefill (the first one untimed:
+                                 # DTensor's first propagation of the
+                                 # decode's shapes)
+SHARD_LAYERS = 2                 # 18 (b), (c), (f): full width, 2 layers
 SHARD_TRAIN_BATCH = 2            # 18 (b): phase 16's batch
 SHARD_TRAIN_SEQ = 4096
-SHARD_TRAIN_TIMED = 2            # 18 (b): after 1 warm-up step
+SHARD_TRAIN_TIMED = 2            # 18 (b), (f): after 1 warm-up step
+SHARD_MOE_GRAD_STEPS = 2         # 18 (f): every leaf, bf16 steps at its top
 SHARD_DEVICE = "cuda"
 SHARD_BACKEND = "nccl"           # NCCL takes one rank a card
 
@@ -5535,18 +5545,44 @@ def _events(torch):
             torch.cuda.Event(enable_timing=True))
 
 
+class _CallCounter:
+    """While active, counts the calls of ``module.name`` (the call itself
+    still runs; unlike ``_FirstCall`` it keeps no argument alive, which
+    would raise the peak it is read beside)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def count(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+        setattr(self.module, self.name, count)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
 def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
                 n_layers: int | None, summary: dict) -> dict:
-    """18 (a), (c): ``arch`` at ``resolve(16)`` (full width; ``n_layers``
-    cuts its depth) under ``rules`` on ``mesh``, served through
-    ``make_prefill_step`` / ``make_decode_step``: an untimed prefill, a
-    timed one of 2 x ``SHARD_SERVE_PROMPT`` tokens and ``SHARD_DECODE``
-    greedy steps (the median of all but the first), every count from
-    zero, the cache placed by ``cache_specs``; then the same weights and
-    prompts with ``NO_SHARDING`` (not counted).  Logits and greedy tokens
-    bit-equal: a one-rank mesh runs the same local ops.  Returns the
-    launches under the rules and layer 0's kernel arguments of the first
-    prefill."""
+    """18 (a), (c), (e): ``arch`` at ``resolve(16)`` (full width;
+    ``n_layers`` cuts its depth) under ``rules`` on ``mesh``, served
+    through ``make_prefill_step`` / ``make_decode_step``: an untimed
+    prefill, a timed one of 2 x ``SHARD_SERVE_PROMPT`` tokens and
+    ``SHARD_DECODE`` greedy steps (the median of all but the first),
+    every count from zero, the cache placed by ``cache_specs``; then the
+    same weights and prompts with ``NO_SHARDING`` (not counted).  Logits
+    and greedy tokens bit-equal: a one-rank mesh runs the same local ops.
+    With experts, every MoE layer of every call sends its rows to the
+    experts and back by two ``all_to_all_single`` over the model group,
+    counted, and the untimed prefill records each layer's dropped-slot
+    share.  Returns the launches under the rules and layer 0's kernel
+    arguments of the first prefill."""
+    import contextlib
+    import torch.distributed as dist
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.launch import steps as ST
@@ -5554,8 +5590,12 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
     from repro_torch.models.sharding import placements
     from repro_torch.models.transformer import map_params
     cfg = _shard_cfg(arch, n_layers)
-    n, hybrid = cfg.n_layers, cfg.block == "hybrid"
-    B, P, T = 2, SHARD_SERVE_PROMPT, SHARD_DECODE
+    n, B, P, T = cfg.n_layers, 2, SHARD_SERVE_PROMPT, SHARD_DECODE
+    attn = cfg.block in ("attn", "hybrid")
+    scan_mod, scan_name, scan_kernel = {
+        "hybrid": (scan_ops, "selective_scan", SS.selective_scan_cuda),
+        "rwkv": (wkv_ops, "wkv6", WK.wkv6_cuda)}.get(cfg.block,
+                                                    (None, None, None))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     plain = ST.build_model(cfg, device=SHARD_DEVICE)
@@ -5566,14 +5606,15 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
                               dtype=torch.int32, device=SHARD_DEVICE)
     k2 = _FirstCall(L, "flash_attention")
-    scan = _FirstCall(scan_ops if hybrid else wkv_ops,
-                      "selective_scan" if hybrid else "wkv6")
+    scan = (_FirstCall(scan_mod, scan_name) if scan_mod
+            else contextlib.nullcontext())
+    routes = _RouteRecorder() if cfg.moe else contextlib.nullcontext()
 
     def serve(m, p, warm: bool):
         prefill = ST.make_prefill_step(m, capacity=P + T)
         decode = ST.make_decode_step(m)
         if warm:
-            with k2, scan:
+            with k2, scan, routes:
                 prefill(p, {"tokens": prompts})
         t0, t1 = _events(torch)
         t0.record()
@@ -5598,7 +5639,8 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
     for c in counters:                         # counts of this path only
         c.launches = 0
     t_wall = time.perf_counter()
-    outs, toks, prefill_ms, step_ms, cache = serve(model, sharded, True)
+    with _CallCounter(dist, "all_to_all_single") as a2a:
+        outs, toks, prefill_ms, step_ms, cache = serve(model, sharded, True)
     wall = time.perf_counter() - t_wall
     peak = torch.cuda.max_memory_allocated()
     launches = {type(c).__name__: c.launches for c in counters}
@@ -5608,14 +5650,19 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
               f"{cfg.name}: cache {name} placed {t.placements}")
     del cache
     # two prefills (the warm-up and the timed one) and T decode steps
-    expect = {id(SS.selective_scan_cuda if hybrid else WK.wkv6_cuda):
-              n * (2 + T)}
-    if hybrid:
+    expect = {id(scan_kernel): n * (2 + T)} if scan_kernel else {}
+    if attn:
         expect[id(FA.flash_attention_cuda)] = 2 * n
     for c in counters:
         want = expect.get(id(c), 0)
         check(c.launches == want, f"{cfg.name} under the rules: "
               f"{type(c).__name__} launched {c.launches} times, not {want}")
+    # to the experts and back, each MoE layer of each call
+    want = 2 * n * (2 + T) if cfg.moe else 0
+    check(a2a.calls == want, f"{cfg.name} under the rules: "
+          f"{a2a.calls} all_to_all_single over the model group, not {want}")
+    if cfg.moe:
+        check(len(routes.shares) == n, f"{len(routes.shares)} routes")
     ref, ref_toks, plain_ms, plain_step_ms, _ = serve(plain, params, False)
     for c in counters:
         c.launches = launches[type(c).__name__]
@@ -5635,46 +5682,71 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
            "no_sharding_prefill_ms": plain_ms,
            "no_sharding_decode_ms": plain_step_ms,
            "peak_memory_bytes": peak, "wall_s": wall, "launches": launches,
+           "all_to_all_calls": a2a.calls,
            "mfu": {"prefill": lm_mfu(cfg, "prefill", B, P, prefill_ms),
                    "decode": lm_mfu(cfg, "decode", B, P, decode_ms)},
            "logits_bit_equal": all(equal)}
+    experts = ""
+    if cfg.moe:
+        out["dropped_share_by_layer"] = routes.shares
+        experts = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} over "
+                   f"the model axis, {a2a.calls} all_to_all_single; ")
     log(f"[shard serve] {cfg.name} at resolve({SHARD_TP}): {n} layers, "
         f"{cfg.n_heads_padded} query heads ({cfg.n_heads} real), vocab "
-        f"{cfg.vocab_padded}; rules on a 1 x 1 (data, model) mesh: prefill "
-        f"2 x {P} {prefill_ms:.1f} ms (mfu {out['mfu']['prefill']:.3f}; "
-        f"NO_SHARDING {plain_ms:.1f} ms), decode {decode_ms:.2f} ms/token "
+        f"{cfg.vocab_padded}; {experts}rules on a 1 x 1 (data, model) "
+        f"mesh: prefill 2 x {P} {prefill_ms:.1f} ms (mfu "
+        f"{out['mfu']['prefill']:.3f}; NO_SHARDING {plain_ms:.1f} ms), "
+        f"decode {decode_ms:.2f} ms/token "
         f"(mfu {out['mfu']['decode']:.5f}; NO_SHARDING "
         f"{sorted(plain_step_ms[1:])[(T - 1) // 2]:.2f}); peak "
         f"{peak / 1e9:.2f} GB; "
         f"wall {wall:.1f} s; launches {launches}; the logits and {T + 1} "
         "greedy tokens bit-equal to NO_SHARDING's")
+    if cfg.moe:
+        log(f"[shard serve] {cfg.name} dropped-slot share by layer under "
+            f"the rules: {[round(x, 4) for x in routes.shares]}")
     summary.setdefault("shard_serve", {})[cfg.name] = out
-    return {"launches": launches, "scan": scan.args,
-            "k2": (k2.args + (k2.kwargs["window"],)) if hybrid else None}
+    return {"launches": launches, "scan": scan.args if scan_mod else None,
+            "k2": (k2.args + (k2.kwargs["window"],)) if attn else None}
 
 
-def shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
+def _bf16_steps(torch, out, ref) -> float:
+    """``max |out - ref|`` in bf16 steps at ``ref``'s largest entry (inf
+    where ``ref`` is 0 and ``out`` is not)."""
+    out, ref = out.float(), ref.float()
+    err, top = float((out - ref).abs().max()), float(ref.abs().max())
+    if top == 0.0:
+        return 0.0 if err == 0.0 else math.inf
+    return err / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def shard_train(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
                 summary: dict) -> dict:
-    """18 (b): hymba-1.5b at ``resolve(16)``, full width cut to 2 layers,
-    bf16, no remat: one ``make_grad_fn`` step under ``rules`` on phase
-    16's batch (2 x 4096) against ``NO_SHARDING`` on the same weights,
-    the loss and every gradient leaf; then ``make_train_step`` (AdamW, lr
-    3e-4, weight decay 0.1) under the rules, 1 warm-up and
-    ``SHARD_TRAIN_TIMED`` steps by CUDA events.  The loss and every leaf
-    but the embedding's must be bit-equal.  Under the rules the embedding
-    is the reference's one-hot matmul, whose backward sums each table
-    row's upstream rows in float32 and rounds once, where the gather's
-    backward accumulates them in the table's bf16 (each add rounded, at
-    the scale of a partial sum, so a row's difference is no ulp count of
-    its own value where its terms cancel); so the embedding's gradient is
-    held within as many bf16 steps at its largest entry as the batch
-    repeats its most repeated token.  Returns the launches under the
-    rules and layer 0's K3 arguments of the first step."""
+    """18 (b), (f): ``arch`` at ``resolve(16)``, full width cut to 2
+    layers, bf16, no remat: one ``make_grad_fn`` step under ``rules`` on
+    phase 16's batch (2 x 4096) against ``NO_SHARDING`` on the same
+    weights, the loss, the load-balance loss and every gradient leaf; then
+    ``make_train_step`` (AdamW, lr 3e-4, weight decay 0.1) under the
+    rules, 1 warm-up and ``SHARD_TRAIN_TIMED`` steps by CUDA events.
+
+    The loss (and with experts the load-balance loss) must be bit-equal.
+    Under the rules the embedding is the reference's one-hot matmul, whose
+    backward sums each table row's upstream rows in float32 and rounds
+    once, where the gather's backward accumulates them in the table's bf16
+    (each add rounded, at the scale of a partial sum, so a row's
+    difference is no ulp count of its own value where its terms cancel).
+    hymba: every leaf but the embedding's bit-equal, the embedding's
+    within as many bf16 steps at its largest entry as the batch repeats
+    its most repeated token.  olmoe: every leaf within
+    ``SHARD_MOE_GRAD_STEPS`` bf16 steps at its largest entry.  Returns the
+    launches under the rules and layer 0's K3 arguments of the first
+    step (hymba)."""
+    import contextlib
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.launch import steps as ST
     from repro_torch.models.transformer import map_params, tree_leaves
-    cfg = _shard_cfg("hymba-1.5b", SHARD_LAYERS)
-    n = cfg.n_layers
+    cfg = _shard_cfg(arch, SHARD_LAYERS)
+    n, hybrid = cfg.n_layers, cfg.block == "hybrid"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     plain = ST.build_model(cfg, remat=False, device=SHARD_DEVICE)
@@ -5685,38 +5757,49 @@ def shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
     batches = [_lm_batch(torch, np, cfg.vocab, SHARD_TRAIN_BATCH,
                          SHARD_TRAIN_SEQ, SHARD_DEVICE, seed=i)
                for i in range(1 + SHARD_TRAIN_TIMED)]
-    expect = {id(FA.flash_attention_cuda): n, id(SS.selective_scan_cuda): n,
-              id(SS.selective_scan_grad_cuda): n}
+    expect = {id(FA.flash_attention_cuda): n}
+    if hybrid:
+        expect.update({id(SS.selective_scan_cuda): n,
+                       id(SS.selective_scan_grad_cuda): n})
     for c in counters:                         # counts of this path only
         c.launches = 0
-    with _FirstCall(scan_ops, "selective_scan") as rec:
-        grads, loss, _ = ST.make_grad_fn(model)(sharded, batches[0])
+    rec = (_FirstCall(scan_ops, "selective_scan") if hybrid
+           else contextlib.nullcontext())
+    with rec:
+        grads, loss, aux = ST.make_grad_fn(model)(sharded, batches[0])
     torch.cuda.synchronize()
     launches = {type(c).__name__: c.launches for c in counters}
     for c in counters:
         want = expect.get(id(c), 0)
         check(c.launches == want, f"{cfg.name} gradient under the rules: "
               f"{type(c).__name__} launched {c.launches} times, not {want}")
-    ref_grads, ref_loss, _ = ST.make_grad_fn(plain)(params, batches[0])
+    ref_grads, ref_loss, ref_aux = ST.make_grad_fn(plain)(params, batches[0])
     for c in counters:
         c.launches = launches[type(c).__name__]
     names = _leaf_names(params)
+    steps = {name: _bf16_steps(torch, _full(g), r)
+             for name, g, r in zip(names, grads, ref_grads)}
     same = [name for name, g, r in zip(names, grads, ref_grads)
             if bits_equal(torch, _full(g), r)]
-    check(bits_equal(torch, loss, ref_loss), f"loss under the rules "
-          f"{float(loss)} against NO_SHARDING's {float(ref_loss)}")
-    check(set(names) - set(same) <= {"embed"}, "gradients under the rules "
-          f"differ from NO_SHARDING's bits: {sorted(set(names) - set(same))}")
-    g_emb, r_emb = (t.float() for t in (_full(grads[names.index("embed")]),
-                                         ref_grads[names.index("embed")]))
-    top = float(r_emb.abs().max())
-    step = 2.0 ** (math.floor(math.log2(top)) - 7)   # a bf16 step at top
-    emb_steps = float((g_emb - r_emb).abs().max()) / step
+    check(bits_equal(torch, loss, ref_loss), f"{cfg.name}: loss under the "
+          f"rules {float(loss)} against NO_SHARDING's {float(ref_loss)}")
+    if cfg.moe:
+        check(bits_equal(torch, aux, ref_aux), f"{cfg.name}: load-balance "
+              f"loss under the rules {float(aux)} against NO_SHARDING's "
+              f"{float(ref_aux)}")
     repeats = int(torch.bincount(batches[0]["tokens"].flatten().long()).max())
-    check(emb_steps <= repeats, f"the embedding's gradient under the rules "
-          f"{emb_steps:.3g} bf16 steps at its largest entry from "
-          f"NO_SHARDING's (limit {repeats})")
-    del grads, ref_grads, plain, params, g_emb, r_emb
+    if hybrid:
+        check(set(names) - set(same) <= {"embed"}, "gradients under the "
+              f"rules differ from NO_SHARDING's bits: "
+              f"{sorted(set(names) - set(same))}")
+        limits = {"embed": float(repeats)}
+    else:
+        limits = dict.fromkeys(names, float(SHARD_MOE_GRAD_STEPS))
+    over = {k: steps[k] for k in limits if steps[k] > limits[k]}
+    check(not over, f"{cfg.name}: gradient leaves under the rules over "
+          f"their limits in bf16 steps at their largest entry: {over} "
+          f"(limits {limits})")
+    del grads, ref_grads, plain, params
 
     opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1)
     state = opt.init(tree_leaves(sharded))
@@ -5744,39 +5827,48 @@ def shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
            "batch": SHARD_TRAIN_BATCH, "seq": SHARD_TRAIN_SEQ,
            "loss": float(loss), "no_sharding_loss": float(ref_loss),
            "loss_bit_equal": True, "grad_leaves_bit_equal": same,
-           "embed_grad_bf16_steps": emb_steps, "embed_steps_limit": repeats,
+           "grad_bf16_steps": steps, "grad_steps_limits": limits,
            "step_ms": times, "median_step_ms": step_ms, "losses": losses,
            "tokens_per_s": SHARD_TRAIN_BATCH * SHARD_TRAIN_SEQ
            / (step_ms / 1e3), "peak_memory_bytes": peak,
            "launches": launches,
            "mfu": lm_mfu(cfg, "train", SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ,
                          step_ms)}
+    held = (f"the embedding's within {steps['embed']:.3g} bf16 steps at its "
+            f"largest entry (limit {repeats}, the most repeated token's "
+            "count)" if hybrid else
+            f"every leaf within {max(steps.values()):.3g} bf16 steps at its "
+            f"largest entry (limit {SHARD_MOE_GRAD_STEPS}; the largest "
+            f"{max(steps, key=steps.get)})")
+    if cfg.moe:
+        out.update(aux=float(aux), no_sharding_aux=float(ref_aux),
+                   aux_bit_equal=True)
+        held += f"; load-balance loss {float(aux):.6f} bit-equal"
     log(f"[shard train] {cfg.name} at resolve({SHARD_TP}), {n} layers, "
         f"bf16, under the rules: loss {float(loss):.6f} bit-equal to "
         f"NO_SHARDING's; {len(same)} of {len(names)} gradient leaves "
-        f"bit-equal, the embedding's within {emb_steps:.3g} bf16 steps at "
-        f"its largest entry (limit {repeats}, the most repeated token's "
-        f"count); AdamW steps "
+        f"bit-equal, {held}; AdamW steps "
         f"{[round(t, 2) for t in times]} ms "
         f"(median {step_ms:.2f}, mfu {out['mfu']:.3f}, 1 warm-up before), "
         f"losses {[round(x, 4) for x in losses]}; peak {peak / 1e9:.2f} GB; "
         f"launches {launches}")
-    summary["shard_train"] = out
-    return {"launches": launches, "scan": rec.args}
+    summary.setdefault("shard_train", {})[cfg.name] = out
+    return {"launches": launches, "scan": rec.args if hybrid else None}
 
 
 def phase_sharded(torch, np, FA, SS, WK, plain, counters,
                   summary: dict) -> dict:
     """18: the LM under sharding rules (``production_rules()``: batch on
-    ``data``, heads and channels on ``model``, FSDP on) on a 1 x 1
-    ``DeviceMesh`` over NCCL at one rank.  Returns each kernel's launches
-    under the rules by path (``"k2"``, ``"k3"``, ``"k3_bwd"``, ``"k4"``).
-    Each leg prints its seconds."""
+    ``data``, heads, channels and experts on ``model``, FSDP on) on a 1 x
+    1 ``DeviceMesh`` over NCCL at one rank.  Returns each kernel's
+    launches under the rules by path (``"k2"``, ``"k3"``, ``"k3_bwd"``,
+    ``"k4"``).  Each leg prints its seconds."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh, production_rules
     legs = dict.fromkeys(("a hymba serve", "b hymba train", "c rwkv serve",
-                          "d kernel checks"), 0.0)
+                          "d kernel checks", "e olmoe serve",
+                          "f olmoe train"), 0.0)
     names = {k: type(c).__name__ for k, c in (
         ("k2", FA.flash_attention_cuda), ("k3", SS.selective_scan_cuda),
         ("k3_bwd", SS.selective_scan_grad_cuda), ("k4", WK.wkv6_cuda))}
@@ -5807,7 +5899,7 @@ def phase_sharded(torch, np, FA, SS, WK, plain, counters,
 
             t0 = time.perf_counter()
             res = shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
-                              summary)
+                              "hymba-1.5b", summary)
             for k in ("k2", "k3", "k3_bwd"):
                 paths[k]["sharded train"] = res["launches"][names[k]]
             legs["b hymba train"] = time.perf_counter() - t0
@@ -5827,6 +5919,22 @@ def phase_sharded(torch, np, FA, SS, WK, plain, counters,
             del res
             torch.cuda.empty_cache()
             legs["d kernel checks"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            res = shard_serve(torch, np, FA, SS, WK, counters, mesh, rules,
+                              "olmoe-1b-7b", None, summary)
+            paths["k2"]["sharded olmoe serve"] = res["launches"][names["k2"]]
+            del res
+            torch.cuda.empty_cache()
+            legs["e olmoe serve"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            res = shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
+                              "olmoe-1b-7b", summary)
+            paths["k2"]["sharded olmoe train"] = res["launches"][names["k2"]]
+            del res
+            torch.cuda.empty_cache()
+            legs["f olmoe train"] = time.perf_counter() - t0
             backend = dist.get_backend()
         finally:
             dist.destroy_process_group()

@@ -2,8 +2,7 @@
 vocab=100352, MoE 16 experts top-4 (fine-grained).  [hf:databricks/dbrx-base]
 
 Sort-based capacity dispatch; the reference shards the experts over the
-model axis (1 expert per shard at tp=16), the port runs them unsharded at
-tp = 1.
+model axis (1 expert per shard at tp=16), and so does the port.
 """
 
 from repro_torch.models.config import ArchConfig, MoEConfig

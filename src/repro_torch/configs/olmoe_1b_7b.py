@@ -3,7 +3,7 @@ d_ff=1024 vocab=50304, MoE 64 experts top-8.  [arXiv:2409.02060]
 
 The fine-grained 64-expert/top-8 configuration is where expert-placement
 balance matters most (4 experts per model shard at the reference's
-tp=16; the port runs unsharded at tp = 1).
+tp=16, as the port splits them over a model axis of 16 ranks).
 """
 
 from repro_torch.models.config import ArchConfig, MoEConfig

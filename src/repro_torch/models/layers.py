@@ -8,7 +8,8 @@ card, its plain version on the CPU) with KV heads unexpanded; the op's
 backward differentiates ``chunk_attention``, one query chunk of the
 reference's blockwise scan in plain torch.  Decode attends a KV cache
 with position masking.  ``moe_apply`` routes each token to its top-k
-experts by the reference's block-local sort-based capacity dispatch.
+experts by the reference's block-local sort-based capacity dispatch, the
+experts split over the model axis' ranks (``moe_experts``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.embedding.sharded import _AllToAll
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
@@ -370,39 +372,161 @@ class _Combine(torch.autograd.Function):
         return _gather_rows(g, tok), None, None
 
 
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along dim 0 in the
+    group's rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _own_chunk(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's chunk of ``t`` split evenly along dim 0 over ``group``."""
+    m = dist.get_world_size(group)
+    return t.chunk(m)[dist.get_rank(group)]
+
+
+class _OwnExperts(torch.autograd.Function):
+    """This rank's contiguous chunk of the expert grid (E, M, D) -> (E / m,
+    M, D) of a grid that every rank of ``group`` holds whole; the backward
+    gathers the chunks' gradients, so every rank gets the whole grid's."""
+
+    @staticmethod
+    def forward(ctx, grid, group):
+        ctx.group = group
+        return _own_chunk(grid, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group), None
+
+
+class _AllExperts(torch.autograd.Function):
+    """The transpose of ``_OwnExperts``: every rank's chunk of expert rows
+    gathered in expert order; the backward keeps this rank's chunk of a
+    gradient that every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, rows, group):
+        ctx.group = group
+        return _all_gather(rows, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, ctx.group), None
+
+
+def _to_experts(grid: torch.Tensor, group) -> torch.Tensor:
+    """The all-to-all into the experts: this rank's rows of every expert,
+    (E, M, D), out as expert group ``j`` (``E / m`` contiguous experts) to
+    rank ``j``; in, every rank's rows of this rank's experts, (E / m, m *
+    M, D), rank by rank."""
+    m = dist.get_world_size(group)
+    E, M, D = grid.shape
+    got = _AllToAll.apply(grid.reshape(m, E // m, M, D), group)
+    return got.transpose(0, 1).reshape(E // m, m * M, D)
+
+
+def _from_experts(out: torch.Tensor, group) -> torch.Tensor:
+    """The inverse of ``_to_experts``: (E / m, m * M, D) -> this rank's
+    rows of every expert, (E, M, D)."""
+    m = dist.get_world_size(group)
+    E_loc, mM, D = out.shape
+    sent = out.reshape(E_loc, m, mM // m, D).transpose(0, 1)
+    return _AllToAll.apply(sent, group).reshape(m * E_loc, mM // m, D)
+
+
+def _expert_ffn(params: dict, grid: torch.Tensor, act: str) -> torch.Tensor:
+    """The experts' MLP, one batched matmul an expert weight: grid (E, R,
+    D) -> (E, R, D)."""
+    if act == "swiglu":
+        gate = torch.bmm(grid, params["wg"])
+        up = torch.bmm(grid, params["wu"])
+        h = F.silu(gate.float()).to(grid.dtype) * up
+    else:
+        h = torch.bmm(grid, params["wu"])
+        h = F.gelu(h.float(), approximate="tanh").to(grid.dtype)
+    return torch.bmm(h, params["wo"])
+
+
+def moe_experts(params: dict, x: torch.Tensor, r: MoERouting, *, act: str,
+                group=None, replicated: bool = False) -> torch.Tensor:
+    """``x`` (B, S, D) through the experts by ``r``, its routing ->
+    (B, S, D) in x's dtype.  ``params``: ``wg``/``wu`` (E / m, D, F) and
+    ``wo`` (E / m, F, D), this rank's contiguous share of the E experts,
+    ``m`` the size of ``group`` (the model axis' ranks; all E experts and
+    no exchange where it is None).
+
+    The expert rows are laid out expert by expert over every block (E, B
+    * n * cap, D) for batched matmuls.  Expert parallelism, as the
+    reference's GSPMD places it:
+
+    * all-to-all (``replicated`` False): ``x`` is this rank's own blocks
+      (its slice of the sequence); its rows of expert group ``j`` go to
+      rank ``j`` and the experts' outputs come back the same way;
+    * replicated (``replicated`` True, where the blocks do not split
+      over the ranks: a decode step's one block over two or more): every
+      rank holds ``x`` and the routing whole, runs its own experts' slice
+      of the grid and gathers every rank's outputs.
+
+    Either way each token's rows come back to the rank that routed them,
+    and the combine adds them there in ascending slot order, rounding
+    after every add, as the reference's bf16 scatter-add does and as one
+    device does: a partial sum over ranks would add them in another order
+    and change the bits.  No ``index_add_`` and no atomics, so it is
+    deterministic, and its backward (a gather) and the dispatch's (the
+    same ordered sum) are too."""
+    B, S, D = x.shape
+    tok, slots = expert_rows(r)
+    grid = _Dispatch.apply(x.reshape(B * S, D), tok, slots)
+    grid = grid.reshape(r.probs.shape[-1], -1, D)
+    if group is None:
+        out = _expert_ffn(params, grid, act)
+    elif replicated:
+        out = _AllExperts.apply(_expert_ffn(
+            params, _OwnExperts.apply(grid, group), act), group)
+    else:
+        out = _from_experts(_expert_ffn(params, _to_experts(grid, group),
+                                        act), group)
+    y = _Combine.apply(out.reshape(-1, D) * expert_major(r, r.w_buf)[:, None],
+                       slots, tok)
+    return y.reshape(B, S, D)
+
+
 def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, act: str,
               seq_chunks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE with block-local sort-based capacity dispatch, the
-    counterpart of the reference's ``moe_apply`` at ``tp = 1``.
+    counterpart of the reference's ``moe_apply``
+    (``repro/models/layers.py:154-235``) on one device: ``moe_route``,
+    ``moe_experts`` with every expert and no exchange, then the
+    load-balance loss.  ``LM`` runs the same three steps on each rank
+    with the experts split over the model axis: the all-to-all or the
+    replicated case by whether the sequence's blocks split over the
+    ranks, and the combine in one-device slot order on the rank that
+    routed (``moe_experts``), the loss's two factors summed over every
+    rank's tokens (``moe_balance_terms``).
 
     x: (B, S, D) -> (y (B, S, D) in x's dtype, the load-balance loss, a
     float32 scalar).  ``params``: ``router`` (D, E) float32, ``wg``/``wu``
-    (E, D, F) and ``wo`` (E, F, D).  The expert rows are laid out expert
-    by expert over every block (E, B * n * cap, D) for batched matmuls.
-    The combine adds each token's weighted expert rows in ascending slot
-    order, rounding after every add, as the reference's bf16 scatter-add
-    does; no ``index_add_`` and no atomics, so it is deterministic, and
-    its backward (a gather) and the dispatch's (the same ordered sum) are
-    too."""
+    (E, D, F) and ``wo`` (E, F, D)."""
     B, S, D = x.shape
     r = moe_route(x, params["router"], n_experts=n_experts, top_k=top_k,
                   capacity_factor=capacity_factor, seq_chunks=seq_chunks)
-    tok, slots = expert_rows(r)
-    grid = _Dispatch.apply(x.reshape(B * S, D), tok, slots)
-    grid = grid.reshape(n_experts, -1, D)
-    if act == "swiglu":
-        gate = torch.bmm(grid, params["wg"])
-        up = torch.bmm(grid, params["wu"])
-        h = F.silu(gate.float()).to(x.dtype) * up
-    else:
-        h = torch.bmm(grid, params["wu"])
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    out = torch.bmm(h, params["wo"]).reshape(-1, D)
-    y = _Combine.apply(out * expert_major(r, r.w_buf)[:, None], slots, tok)
+    y = moe_experts(params, x, r, act=act)
     aux = moe_load_balance_loss(r.probs.reshape(B * S, n_experts),
                                 r.top_e.reshape(B * S, top_k), n_experts)
-    return y.reshape(B, S, D), aux
+    return y, aux
+
+
+def moe_balance_terms(probs: torch.Tensor, top_e: torch.Tensor,
+                      n_experts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The load-balance loss's two factors over T tokens (probs (T, E),
+    top_e (T, K)): the share of the tokens whose first choice is each
+    expert, and each expert's mean router probability, (E,) float32
+    each."""
+    frac_routed = F.one_hot(top_e[:, 0], n_experts).float().mean(dim=0)
+    return frac_routed, probs.mean(dim=0)
 
 
 def moe_load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,
@@ -410,5 +534,5 @@ def moe_load_balance_loss(probs: torch.Tensor, top_e: torch.Tensor,
     """Switch-style load-balance auxiliary loss (float32): ``E`` x the sum
     over experts of the share of tokens whose first choice it is, times
     its mean router probability."""
-    frac_routed = F.one_hot(top_e[:, 0], n_experts).float().mean(dim=0)
-    return n_experts * (frac_routed * probs.mean(dim=0)).sum()
+    frac_routed, mean_prob = moe_balance_terms(probs, top_e, n_experts)
+    return n_experts * (frac_routed * mean_prob).sum()

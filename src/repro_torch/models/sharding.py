@@ -165,9 +165,23 @@ def distribute_tree(tree, spec_tree, mesh):
 @dataclasses.dataclass(frozen=True)
 class Summed:
     """An output spec of ``local_apply``: each rank holds a partial sum
-    over the rules' model axis (DTensor's ``Partial``), split elsewhere
-    as ``logical`` says."""
+    (DTensor's ``Partial``) over the mesh axes of the logical axes
+    ``over`` (by default the rules' model axis), split elsewhere as
+    ``logical`` says."""
     logical: tuple
+    over: tuple = ("model",)
+
+
+def _mesh_dims(rules, mesh, logical) -> set:
+    """The indices of ``mesh``'s dims that the logical axes name."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = []
+    for ax in logical:
+        if ax == "batch":
+            axes.extend(rules.batch_axes)
+        elif ax == "model" and rules.model_axis is not None:
+            axes.append(rules.model_axis)
+    return {names.index(a) for a in axes}
 
 
 def _out_placements(rules, mesh, spec):
@@ -175,13 +189,13 @@ def _out_placements(rules, mesh, spec):
         return None
     if isinstance(spec, Summed):
         out = list(rules.placements(mesh, *spec.logical))
-        if rules.model_axis is not None:
-            out[mesh.mesh_dim_names.index(rules.model_axis)] = Partial()
+        for i in _mesh_dims(rules, mesh, spec.over):
+            out[i] = Partial()
         return tuple(out)
     return rules.placements(mesh, *spec)
 
 
-def local_apply(rules, fn, out_specs, in_specs, *args):
+def local_apply(rules, fn, out_specs, in_specs, *args, gathers=()):
     """``fn(*args)`` on each rank's local shards, the kernels' way into
     DTensor (``local_map``).  ``in_specs`` gives each argument's logical
     axes (None for a non-tensor argument); each DTensor argument is
@@ -193,7 +207,11 @@ def local_apply(rules, fn, out_specs, in_specs, *args):
     along which some argument is split is a partial sum over that dim
     (each rank's share of the work adds to it); over a mesh dim along
     which nothing is split every rank did the same work, and the
-    gradient stays replicated."""
+    gradient stays replicated.  So does it over the dims of the logical
+    axes ``gathers``: ``fn`` gathers what its split arguments give along
+    them itself, by a collective whose backward hands every rank the
+    whole gradient, so every rank computes the replicated arguments'
+    whole gradient."""
     if not rules.enabled:
         return fn(*args)
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
@@ -211,8 +229,10 @@ def local_apply(rules, fn, out_specs, in_specs, *args):
             a = a.redistribute(mesh, want)
         in_pl.append(want)
         moved.append(a)
-    split = [any(p is not None and isinstance(p[i], Shard) for p in in_pl)
-             for i in range(mesh.ndim)]
+    whole = _mesh_dims(rules, mesh, gathers)
+    split = [i not in whole and any(
+        p is not None and isinstance(p[i], Shard) for p in in_pl)
+        for i in range(mesh.ndim)]
     grad_pl = tuple(
         None if p is None else tuple(
             Partial() if isinstance(pi, Replicate) and split[i] else pi

@@ -41,10 +41,15 @@ parameters are DTensors over a ``DeviceMesh`` placed by ``param_specs``
 at the reference's sites, with the residual stream sequence-parallel over
 the model axis; DTensor inserts the collectives.  Every kernel (K2, K3,
 K3-bwd, K4, K4-bwd) runs through ``sharding.local_apply`` on the rank's
-own heads or channels.  The cross-entropy over a vocab shard and decode
-over a cache split along its sequence run in ``local_apply`` with an
-explicit all-reduce of their running max.  Inputs may be plain tensors
-(every rank passes the global batch) or DTensors; outputs are DTensors.
+own heads or channels.  MoE layers split their experts over the model
+axis (expert parallelism, ``_ffn``): the rows go to the experts and back
+by an all-to-all over the model group, or, where the sequence's blocks do
+not split over its ranks, each rank runs its own experts on the whole
+block and gathers the others' outputs.  The cross-entropy over a vocab
+shard and decode over a cache split along its sequence run in
+``local_apply`` with an explicit all-reduce of their running max.
+Inputs may be plain tensors (every rank passes the global batch) or
+DTensors; outputs are DTensors.
 
 Train and prefill attention run through the flash attention op (K2 on
 the card; its backward recomputes the blockwise scan in
@@ -297,17 +302,22 @@ class LM:
         return {"layers": c, "pos": P()}
 
     def check_mesh(self, mesh) -> None:
-        """Raise where this model cannot run on ``mesh`` under its rules:
-        MoE layers with a model axis of more than one rank."""
+        """Raise ``ValueError`` where this model cannot run on ``mesh``
+        under its rules: experts that do not split evenly over the model
+        axis, or a query head whose KV head another model rank holds."""
         _, n_model, _ = model_coords(self.rules, mesh)
-        if self.cfg.moe and n_model > 1:
-            raise NotImplementedError(
-                f"{self.cfg.name}: MoE layers over a model axis of "
-                f"{n_model} ranks need expert parallelism (seq_chunks = "
-                "tp), ROADMAP's next item; a model axis of one rank runs")
+        self._check_experts(n_model)
         if self.kv_map is not None:
             for c in range(n_model):
                 self._rank_heads(c, n_model, True, self.kv_shardable)
+
+    def _check_experts(self, n_model: int) -> None:
+        moe = self.cfg.moe
+        if moe and moe.n_experts % n_model:
+            raise ValueError(
+                f"{self.cfg.name} at tp={self.cfg.tp}: {moe.n_experts} "
+                f"experts do not split evenly over a model axis of "
+                f"{n_model} ranks")
 
     def shard_params(self, params: dict, mesh) -> dict:
         """``params`` (the same values on every rank) as DTensors on
@@ -319,12 +329,15 @@ class LM:
 
     # ---- sharding helpers ----------------------------------------------------
 
-    def _local(self, fn, out_specs, in_specs, *args):
-        return local_apply(self.rules, fn, out_specs, in_specs, *args)
+    def _local(self, fn, out_specs, in_specs, *args, gathers=()):
+        return local_apply(self.rules, fn, out_specs, in_specs, *args,
+                           gathers=gathers)
 
     def _mesh(self, params):
-        return (params["final_norm"].device_mesh if self.rules.enabled
-                else None)
+        return self._mesh_of(params["final_norm"])
+
+    def _mesh_of(self, t):
+        return t.device_mesh if self.rules.enabled else None
 
     def _input(self, t, mesh, *logical):
         """A model input under the rules: a plain tensor (the global
@@ -482,28 +495,62 @@ class LM:
 
     def _ffn(self, lp, h):
         """The MLP, or on MoE layers the routed experts; returns (y, the
-        load-balance loss, 0.0 without experts)."""
+        load-balance loss, 0.0 without experts).
+
+        The experts split over the model axis' ``m`` ranks (``param_specs``)
+        and each sequence into the reference's ``n`` blocks (``tp`` where
+        the sequence divides, else 1), counted on the whole sequence, as
+        ``moe_apply`` routes on one device.  Where the blocks split over
+        the ranks (``n % m == 0``), each rank routes its own slice of the
+        sequence and an all-to-all over the model group carries its rows
+        to the experts and back; otherwise (over two or more ranks: a
+        decode step, a prompt that ``tp`` does not divide) every rank
+        routes the whole block, runs its own experts' slice of the grid
+        and gathers the others' outputs (``layers.moe_experts``).  Either
+        way each token's rows are combined on the rank that routed them
+        in one-device slot order, so a one-rank mesh gives
+        ``NO_SHARDING``'s bits.  The load-balance
+        loss is over every token: each rank's two factors of it
+        (``layers.moe_balance_terms``), weighted by its share of the
+        tokens, are summed over the axes that split the tokens before the
+        product.  With the rules off this is ``moe_apply``'s computation,
+        with no group and no exchange."""
         cfg = self.cfg
-        if cfg.moe:
-            seq_chunks = cfg.tp if h.shape[1] % cfg.tp == 0 else 1
+        if not cfg.moe:
+            return L.mlp_apply(lp["mlp"], h, cfg.act), 0.0
+        moe = cfg.moe
+        B, S, _ = h.shape
+        n = cfg.tp if S % cfg.tp == 0 else 1       # blocks of the sequence
+        _, n_model, group = model_coords(self.rules, self._mesh_of(h))
+        self._check_experts(n_model)
+        split = n % n_model == 0            # the blocks split over ranks
 
-            def moe(x, *leaves):
-                p = dict(zip(("router", "wg", "wu", "wo"), leaves))
-                return L.moe_apply(p, x, n_experts=cfg.moe.n_experts,
-                                   top_k=cfg.moe.top_k,
-                                   capacity_factor=cfg.moe.capacity_factor,
-                                   act=cfg.act, seq_chunks=seq_chunks)
+        def experts(x, router, wg, wu, wo):
+            r = L.moe_route(x, router, n_experts=moe.n_experts,
+                            top_k=moe.top_k,
+                            capacity_factor=moe.capacity_factor,
+                            seq_chunks=n // n_model if split else n)
+            y = L.moe_experts({"wg": wg, "wu": wu, "wo": wo}, x, r,
+                              act=cfg.act, group=group,
+                              replicated=not split)
+            T = x.shape[0] * x.shape[1]
+            frac, prob = L.moe_balance_terms(
+                r.probs.reshape(T, moe.n_experts),
+                r.top_e.reshape(T, moe.top_k), moe.n_experts)
+            share = T / (B * S)             # this rank's share of the tokens
+            return y, frac * share, prob * share
 
-            if self.rules.enabled:
-                # a model axis of one rank: the experts run whole on every
-                # rank, the stream gathered over the batch axes
-                self.check_mesh(h.device_mesh)
-            rep = (None, None, None)
-            leaves = [lp["moe"][n] for n in ("router", "wg", "wu", "wo")]
-            y, aux = self._local(moe, (rep, ()), (rep, *[
-                (None,) * t.dim() for t in leaves]), h, *leaves)
-            return y, aux
-        return L.mlp_apply(lp["mlp"], h, cfg.act), 0.0
+        x_spec = ("batch", "model", None) if split else ("batch", None, None)
+        terms = Summed((None,), over=("batch", "model") if split
+                       else ("batch",))
+        leaves = [lp["moe"][k] for k in ("router", "wg", "wu", "wo")]
+        y, frac, prob = self._local(
+            experts, (x_spec, terms, terms),
+            (x_spec, (None, None), *[("model", None, None)] * 3),
+            h, *leaves, gathers=() if split else ("model",))
+        frac = self.rules.constrain(frac, None)
+        prob = self.rules.constrain(prob, None)
+        return y, moe.n_experts * (frac * prob).sum()
 
     def _layer(self, lp, x, positions, cache=None, pos=None):
         """One block. Returns (x, aux); the layer's cache, when given, is

@@ -11,26 +11,34 @@ mostly reuses, so a group a config would take several times as long.
 For each config every rank builds the same seeded float32 weights,
 distributes them by ``LM.param_specs`` over a ``(data, model)``
 ``DeviceMesh`` and runs:
-the forward's logits, ``forward_loss``, the gradient of every leaf
-(``make_grad_fn``, each reduced to its parameter's placements), one
-AdamW step (``make_train_step``), then a prefill and 4 decode steps on
-a cache placed by ``LM.cache_specs``.  Rank 0 also runs the same
-weights and inputs on one device with ``NO_SHARDING``.  The ranks sum
-in another order, so every output is held within 1e-5 of its largest
-value.  Adam's first step moves a parameter by about the learning rate
-whatever the size of its gradient (``g / (|g| + eps)``), so where a
-gradient entry is small the step turns on the summation order: the step
-is held where the gradient decides it (more than 1e-4 of its leaf's
-largest and 1e-5 in size), within twice the learning rate elsewhere,
-and every rank's parameters equal, bit for bit, one-device AdamW applied
-to the sharded run's own gathered gradients.  The meshes are (1, 2),
-(2, 1) and (2, 2), the last with the weights also split over the data
-axis (FSDP).  On (1, 2) hymba also runs with a vocab of 501, padded to
-502, so that the second rank's vocab shard holds the padding, and danube
-with 7 query heads over 2 KV heads, padded to 8, raises ``ValueError``:
-its query heads 3 and 7 read KV heads that the other rank holds.  An
-MoE config under a model axis of two ranks raises
-``NotImplementedError``; on a model axis of one rank it runs.
+the forward's logits (and with experts its load-balance loss),
+``forward_loss``, the gradient of every leaf (``make_grad_fn``, each
+reduced to its parameter's placements), one AdamW step
+(``make_train_step``), then a prefill and 4 decode steps on a cache
+placed by ``LM.cache_specs``.  Rank 0 also runs the same weights and
+inputs on one device with ``NO_SHARDING``.  The ranks sum in another
+order, so every output is held within 1e-5 of its largest value.  Adam's
+first step moves a parameter by about the learning rate whatever the
+size of its gradient (``g / (|g| + eps)``), so where a gradient entry is
+small the step turns on the summation order: the step is held where the
+gradient decides it (more than 1e-4 of its leaf's largest and 1e-5 in
+size), within twice the learning rate elsewhere, and every rank's
+parameters equal, bit for bit, one-device AdamW applied to the sharded
+run's own gathered gradients.  The meshes are (1, 2), (2, 1) and (2, 2),
+the last with the weights also split over the data axis (FSDP).
+
+The MoE archs (olmoe-1b-7b, dbrx-132b SMOKE: 4 experts, top-2) run on
+every mesh with their experts split over the model axis: a 16-token
+sequence is two blocks, one a model rank at (1, 2) and (2, 2), whose rows
+the all-to-all carries to the experts and back; a decode token is one
+block, routed whole on every model rank, each running its own experts
+and gathering the others' outputs.  On (1, 2) olmoe also runs a prompt of
+15, which tp = 2 does not divide (one block, replicated in every phase),
+and with 3 experts raises ``ValueError``: they do not split over 2
+ranks.  On (1, 2) hymba also runs with a vocab of 501, padded to 502, so
+that the second rank's vocab shard holds the padding, and danube with 7
+query heads over 2 KV heads, padded to 8, raises ``ValueError``: its
+query heads 3 and 7 read KV heads that the other rank holds.
 """
 
 import os
@@ -57,6 +65,7 @@ import numpy as np, torch, torch.distributed as dist
 from torch.distributed.tensor import DTensor
 from repro_torch.configs import get_smoke
 from repro_torch.launch import steps as ST
+from repro_torch.models.config import MoEConfig
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.sharding import (NO_SHARDING, ShardingRules,
                                          placements)
@@ -68,14 +77,14 @@ rank, n_data, n_model, tmp, archs, lr = (
 torch.manual_seed(0)
 dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                         rank=rank, world_size=n_data * n_model)
-B, S, N_DECODE = 2, 16, 4
+B, N_DECODE = 2, 4
 
 
 def full(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
 
 
-def run(model, params, shard):
+def run(model, params, shard, S):
     cfg = model.cfg
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
@@ -86,11 +95,13 @@ def run(model, params, shard):
     forced = torch.as_tensor(rng.integers(0, cfg.vocab, (N_DECODE, B, 1)),
                              dtype=torch.int32)
     out = {}
-    logits, _ = model.forward(params, tokens)
+    logits, aux = model.forward(params, tokens)
     out["logits"] = full(logits)
     batch = {"tokens": tokens, "labels": labels, "loss_mask": mask}
-    grads, loss, _ = ST.make_grad_fn(model)(params, batch)
+    grads, loss, grad_aux = ST.make_grad_fn(model)(params, batch)
     out["loss"] = full(loss)
+    if cfg.moe:
+        out["aux"], out["grad_aux"] = full(aux), full(grad_aux)
     for i, g in enumerate(grads):
         out[f"grad{i}"] = full(g)
     plog, cache = model.prefill(params, tokens, capacity=S + N_DECODE)
@@ -114,10 +125,16 @@ def run(model, params, shard):
 
 def case(arch, mesh):
     arch, _, over = arch.partition(":")
-    cfg = get_smoke(arch)
+    cfg, S = get_smoke(arch), 16
     if over:
         field, _, value = over.partition("=")
-        cfg = dataclasses.replace(cfg, **{field: int(value)})
+        if field == "seq":
+            S = int(value)
+        elif field in {f.name for f in dataclasses.fields(MoEConfig)}:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, **{field: int(value)}))
+        else:
+            cfg = dataclasses.replace(cfg, **{field: int(value)})
     cfg = cfg.resolve(2)
     fsdp = ("data",) if n_data > 1 and n_model > 1 else ()
     rules = ShardingRules(fsdp_axes=fsdp)
@@ -127,9 +144,9 @@ def case(arch, mesh):
     model = LM(cfg, rules, **kw)
     try:
         sharded = model.shard_params(map_params(torch.clone, params), mesh)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         return {"raised": f"{type(e).__name__}: {e}"}
-    got = run(model, sharded, True)
+    got = run(model, sharded, True, S)
     if rank == 0:
         # one-device AdamW on the gathered sharded gradients
         leaves = [p.clone() for p in tree_leaves(params)]
@@ -137,7 +154,7 @@ def case(arch, mesh):
         opt.apply([torch.as_tensor(got[f"grad{i}"])
                    for i in range(len(leaves))], opt.init(leaves), leaves)
         got.update({f"adam{i}": p.numpy() for i, p in enumerate(leaves)})
-        ref = run(plain, params, False)
+        ref = run(plain, params, False, S)
         got.update({"ref_" + k: v for k, v in ref.items()})
     return got
 
@@ -190,16 +207,22 @@ def _run_ranks(tmp_path, n_data, n_model, archs):
     return out
 
 
-# olmoe rides along: on (1, 2) it must raise, on (2, 1) run; so does
-# hymba with a vocab of 501, padded to 502 by resolve(2), so that the
-# padding falls in the second rank's vocab shard; and danube with 7 query
-# heads over 2 KV heads, padded to 8 by resolve(2), which must raise: the
+# hymba rides along with a vocab of 501, padded to 502 by resolve(2), so
+# that the padding falls in the second rank's vocab shard; danube with 7
+# query heads over 2 KV heads, padded to 8 by resolve(2), must raise: the
 # first rank's query head 3 reads KV head 1 and the padded head 7, on the
-# second rank, KV head 0, each held by the other rank
+# second rank, KV head 0, each held by the other rank; olmoe with a prompt
+# of 15, which tp = 2 does not divide, routes one block replicated over
+# the model axis in every phase; olmoe with 3 experts must raise: they do
+# not split over 2 model ranks
 PADDED_VOCAB = "hymba-1.5b:vocab=501"
 PADDED_HEADS = "h2o-danube-1.8b:n_heads=7"
-GROUPS = {(1, 2): ARCHS + ("olmoe-1b-7b", PADDED_VOCAB, PADDED_HEADS),
-          (2, 1): ARCHS + ("olmoe-1b-7b",), (2, 2): ARCHS}
+MOE_ARCHS = ("olmoe-1b-7b", "dbrx-132b")
+MOE_ODD_SEQ = "olmoe-1b-7b:seq=15"
+MOE_ODD_EXPERTS = "olmoe-1b-7b:n_experts=3"
+GROUPS = {(1, 2): ARCHS + MOE_ARCHS + (PADDED_VOCAB, PADDED_HEADS,
+                                       MOE_ODD_SEQ, MOE_ODD_EXPERTS),
+          (2, 1): ARCHS + MOE_ARCHS, (2, 2): ARCHS + MOE_ARCHS}
 
 
 @pytest.fixture(scope="module")
@@ -236,11 +259,7 @@ def _held(got: dict, ref: dict, key: str, lr: float):
                                err_msg=key)
 
 
-@pytest.mark.parametrize("arch,mesh", [(a, m) for a in ARCHS for m in MESHES],
-                         ids=[f"{a}-{m[0]}x{m[1]}" for a in ARCHS
-                              for m in MESHES])
-def test_sharded_lm_matches_one_device(groups, arch, mesh):
-    res = groups[(arch, mesh)]
+def _held_to_one_device(res):
     assert not isinstance(res, str), res
     ref = res[0]
     keys = [k for k in ref if not k.startswith(("ref_", "adam"))]
@@ -251,6 +270,47 @@ def test_sharded_lm_matches_one_device(groups, arch, mesh):
                    if not k.startswith(("ref_", "adam"))) == set(keys)
         for key in keys:
             _held(got, ref, key, LR)
+    return keys
+
+
+@pytest.mark.parametrize("arch,mesh", [(a, m) for a in ARCHS for m in MESHES],
+                         ids=[f"{a}-{m[0]}x{m[1]}" for a in ARCHS
+                              for m in MESHES])
+def test_sharded_lm_matches_one_device(groups, arch, mesh):
+    _held_to_one_device(groups[(arch, mesh)])
+
+
+@pytest.mark.parametrize("arch,mesh",
+                         [(a, m) for a in MOE_ARCHS for m in MESHES],
+                         ids=[f"{a}-{m[0]}x{m[1]}" for a in MOE_ARCHS
+                              for m in MESHES])
+def test_sharded_moe_matches_one_device(groups, arch, mesh):
+    """Expert parallelism (SMOKE: 4 experts, top-2, float32) held to the
+    port's one-device run at the same ``resolve(2)``: the forward's logits
+    and load-balance loss, ``forward_loss``, every gradient, the AdamW
+    step, a prefill of 16 (two blocks: on a model axis of two ranks each
+    rank routes its own, and the all-to-all carries the rows) and 4
+    decode steps (one token: the block replicated over the model axis).
+
+    The chain to the JAX package: the one-device run at ``resolve(2)`` is
+    held to the JAX LM at ``resolve(2)``, whose ``moe_apply`` routes the
+    same two blocks (``seq_chunks = tp``), by
+    ``tests/test_torch_lm_padded_tp2.py``; ``moe_apply`` itself to the
+    reference's at ``seq_chunks = 2`` by
+    ``tests/test_torch_moe.py::test_output_is_the_reference[chunks2-f32]``
+    (and its routing, combine and gradient tests at ``chunks2``).
+    """
+    keys = _held_to_one_device(groups[(arch, mesh)])
+    assert {"aux", "grad_aux"} <= set(keys)
+
+
+def test_moe_prefill_whose_sequence_tp_does_not_divide(groups):
+    """A prompt of 15 at (1, 2): one block, routed whole on both model
+    ranks, each running its own experts and gathering the others'
+    outputs, in the forward, the gradient, the prefill and decode."""
+    keys = _held_to_one_device(groups[(MOE_ODD_SEQ, (1, 2))])
+    assert groups[(MOE_ODD_SEQ, (1, 2))][0]["logits"].shape[1] == 15
+    assert {"aux", "grad_aux"} <= set(keys)
 
 
 def test_padded_vocab_splits_over_the_model_axis(groups):
@@ -262,11 +322,13 @@ def test_padded_vocab_splits_over_the_model_axis(groups):
             _held(got, res[0], key, LR)
 
 
-def test_moe_under_a_model_axis_of_two_raises(groups):
-    res = groups[("olmoe-1b-7b", (1, 2))]
+def test_experts_that_do_not_split_over_the_model_axis_raise(groups):
+    res = groups[(MOE_ODD_EXPERTS, (1, 2))]
     assert not isinstance(res, str), res
     for got in res:
-        assert "expert parallelism" in str(got["raised"])
+        assert str(got["raised"]).startswith("ValueError"), got
+        assert "3 experts do not split evenly over a model axis of 2 " \
+            "ranks" in str(got["raised"])
 
 
 def test_padded_head_reading_another_ranks_kv_head_raises(groups):
@@ -276,11 +338,3 @@ def test_padded_head_reading_another_ranks_kv_head_raises(groups):
         assert str(got["raised"]).startswith("ValueError"), got
         assert "query head 3 on model rank 0 of 2 reads KV head 1, which " \
             "that rank does not hold" in str(got["raised"])
-
-
-def test_moe_under_a_model_axis_of_one_runs(groups):
-    res = groups[("olmoe-1b-7b", (2, 1))]
-    assert not isinstance(res, str), res
-    for got in res:
-        for key in ("logits", "loss", "prefill", "decode3", "grad0"):
-            _held(got, res[0], key, LR)

@@ -303,6 +303,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    as (b): the loss and the load-balance loss bit-equal, every gradient
    leaf within 2 bf16 steps at its largest entry (K2).  Each leg prints
    its seconds, peaks, times and ``mfu``.
+19. (after phase 18, which destroys its process group) the dry-run held
+   to the card (``launch/dryrun``): a process group of torch's ``fake``
+   backend with one rank, a 1 x 1 mesh on it, and 18's legs (e), (f) and
+   (b) traced on fake CUDA tensors as 18 runs them (``TraceMode``: every
+   local op counted once, the kernels' stand-ins, nothing allocated or
+   launched).  For each leg the predicted peak (18's bytes at the leg's
+   start plus the trace's peak of live bytes) must lie within 0.85-1.15x
+   of 18's ``max_memory_allocated``, the counted FLOPs of a prefill, a
+   decode step and a train step must reach ``model_flops`` less the
+   embedding's share where the call gathers it, (e) must trace as many
+   ``all_to_all_single`` as 18 counted, and no kernel's launch counter
+   may move; it prints ``compute_s`` and ``memory_s`` beside the measured
+   ms and the traced collectives by op.
 
 Every LM line (phases 7, 13-18) prints ``mfu``, the model FLOP
 utilisation: ``launch/roofline.model_flops`` at the smoke's own batch and
@@ -5598,6 +5611,7 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
                                                     (None, None, None))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what the leg starts with
     plain = ST.build_model(cfg, device=SHARD_DEVICE)
     model = ST.build_model(cfg, rules=rules, device=SHARD_DEVICE)
     params = plain.init_params(0)
@@ -5681,7 +5695,8 @@ def shard_serve(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
            "decode_ms": step_ms, "decode_ms_median": decode_ms,
            "no_sharding_prefill_ms": plain_ms,
            "no_sharding_decode_ms": plain_step_ms,
-           "peak_memory_bytes": peak, "wall_s": wall, "launches": launches,
+           "peak_memory_bytes": peak, "base_memory_bytes": base,
+           "wall_s": wall, "launches": launches,
            "all_to_all_calls": a2a.calls,
            "mfu": {"prefill": lm_mfu(cfg, "prefill", B, P, prefill_ms),
                    "decode": lm_mfu(cfg, "decode", B, P, decode_ms)},
@@ -5749,6 +5764,7 @@ def shard_train(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
     n, hybrid = cfg.n_layers, cfg.block == "hybrid"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what the leg starts with
     plain = ST.build_model(cfg, remat=False, device=SHARD_DEVICE)
     model = ST.build_model(cfg, rules=rules, remat=False,
                            device=SHARD_DEVICE)
@@ -5831,7 +5847,7 @@ def shard_train(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
            "step_ms": times, "median_step_ms": step_ms, "losses": losses,
            "tokens_per_s": SHARD_TRAIN_BATCH * SHARD_TRAIN_SEQ
            / (step_ms / 1e3), "peak_memory_bytes": peak,
-           "launches": launches,
+           "base_memory_bytes": base, "launches": launches,
            "mfu": lm_mfu(cfg, "train", SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ,
                          step_ms)}
     held = (f"the embedding's within {steps['embed']:.3g} bf16 steps at its "
@@ -5946,6 +5962,237 @@ def phase_sharded(torch, np, FA, SS, WK, plain, counters,
         log(f"[shard] leg {name}: {secs:.1f} s")
     summary["shard_legs_s"] = legs
     return paths
+
+
+DRY_LEGS = (("e olmoe serve", "olmoe-1b-7b", "serve"),
+            ("f olmoe train", "olmoe-1b-7b", "train"),
+            ("b hymba train", "hymba-1.5b", "train"))
+DRY_PEAK_BAND = (0.85, 1.15)     # 19: predicted peak over phase 18's
+
+
+def _fake_layout(torch, model, device):
+    """``model``'s parameters by ``param_layout`` as fake tensors (under a
+    ``TraceMode``): what ``init_params`` leaves allocated."""
+    from repro_torch.models.transformer import map_params
+    return map_params(lambda spec: torch.empty(spec.shape, dtype=spec.dtype,
+                                               device=device),
+                      model.param_layout())
+
+
+class _DryCounts:
+    """A leg's collectives by op over every traced call, and each named
+    call's own counts."""
+
+    def __init__(self, mode):
+        self.mode, self.collectives, self.calls = mode, {}, {}
+
+    def start(self):
+        self.mode.reset()
+
+    def stop(self, name: str | None = None):
+        m = self.mode
+        for op, n in m.collectives.items():
+            self.collectives[op] = self.collectives.get(op, 0) + n
+        if name and name not in self.calls:
+            self.calls[name] = {"flops": m.flops, "bytes": m.bytes,
+                                "wire": dict(m.wire),
+                                "collectives": dict(m.collectives)}
+
+
+def dry_serve(torch, mode, mesh, rules, arch: str):
+    """19 (e): phase 18 (e)'s serve leg traced as it runs: the plain
+    model's weights and their sharded copy, the prompts, a warm-up
+    prefill (layer 0's attention arguments kept, as 18 keeps them), the
+    timed prefill and ``SHARD_DECODE`` greedy steps.  Returns (cfg, the
+    peak of live bytes, the counts)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import map_params
+    cfg = _shard_cfg(arch, None)
+    B, P, T = 2, SHARD_SERVE_PROMPT, SHARD_DECODE
+    counts = _DryCounts(mode)
+    with mode, mode.local_only():
+        mode.reset_peak()
+        plain = ST.build_model(cfg, device=SHARD_DEVICE)
+        model = ST.build_model(cfg, rules=rules, device=SHARD_DEVICE)
+        params = _fake_layout(torch, plain, SHARD_DEVICE)
+        sharded = model.shard_params(map_params(lambda t: t, params), mesh)
+        prompts = torch.empty((B, P), dtype=torch.int32, device=SHARD_DEVICE)
+        prefill = ST.make_prefill_step(model, capacity=P + T)
+        decode = ST.make_decode_step(model)
+        k2 = _FirstCall(L, "flash_attention")
+        counts.start()
+        with k2:
+            prefill(sharded, {"tokens": prompts})
+        counts.stop()
+        counts.start()
+        logits, cache = prefill(sharded, {"tokens": prompts})
+        counts.stop("prefill")
+        outs = [_full(logits)]
+        tok = outs[0][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        for _ in range(T):
+            counts.start()
+            logits, cache = decode(sharded, cache, {"tokens": tok})
+            counts.stop("decode")
+            outs.append(_full(logits))
+            tok = outs[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        peak = mode.peak
+        del outs, cache, logits, sharded, params, k2
+    return cfg, peak, counts
+
+
+def dry_train(torch, mode, mesh, rules, arch: str):
+    """19 (f), (b): phase 18's train leg traced as it runs: the plain
+    weights and their sharded clone, the batches, the gradient under the
+    rules (layer 0's scan arguments kept on hymba, as 18 keeps them) and
+    with ``NO_SHARDING``, each leaf pair widened to float32 as 18's
+    comparison does, then AdamW's state and 1 + ``SHARD_TRAIN_TIMED``
+    steps.  Returns (cfg, the peak of live bytes, the counts; ``train``
+    is the first timed step's)."""
+    import contextlib
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.transformer import map_params, tree_leaves
+    cfg = _shard_cfg(arch, SHARD_LAYERS)
+    B, S = SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ
+    counts = _DryCounts(mode)
+    with mode, mode.local_only():
+        mode.reset_peak()
+        plain = ST.build_model(cfg, remat=False, device=SHARD_DEVICE)
+        model = ST.build_model(cfg, rules=rules, remat=False,
+                               device=SHARD_DEVICE)
+        params = _fake_layout(torch, plain, SHARD_DEVICE)
+        sharded = model.shard_params(map_params(torch.clone, params), mesh)
+        batches = [{"tokens": torch.empty((B, S), dtype=torch.int32,
+                                          device=SHARD_DEVICE),
+                    "labels": torch.empty((B, S), dtype=torch.int32,
+                                          device=SHARD_DEVICE),
+                    "loss_mask": torch.empty((B, S), device=SHARD_DEVICE)}
+                   for _ in range(1 + SHARD_TRAIN_TIMED)]
+        rec = (_FirstCall(scan_ops, "selective_scan")
+               if cfg.block == "hybrid" else contextlib.nullcontext())
+        counts.start()
+        with rec:
+            grads, _, _ = ST.make_grad_fn(model)(sharded, batches[0])
+        ref_grads, _, _ = ST.make_grad_fn(plain)(params, batches[0])
+        counts.stop()
+        for g, r in zip(grads, ref_grads):
+            (_full(g).float() - r.float()).abs()
+        del grads, ref_grads, plain, params
+        opt, step = ST.make_train_step(model, lr=3e-4, weight_decay=0.1)
+        state = opt.init(tree_leaves(sharded))
+        for i, batch in enumerate(batches):
+            counts.start()
+            sharded, state, _ = step(sharded, state, batch)
+            counts.stop("train" if i == 1 else None)
+        peak = mode.peak
+        del sharded, state, batches, rec
+    return cfg, peak, counts
+
+
+def _embedding_rule(cfg, kind: str, B: int, S: int) -> float:
+    """``model_flops`` of one call less the embedding's share where the
+    call takes the embedding by a gather (prefill, decode), the rule of
+    ``tests/test_torch_dryrun.py``."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.roofline import model_flops
+    want = model_flops(cfg, InputShape(f"smoke_{kind}", S, B, kind))
+    if kind != "train":
+        emb = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+        want -= 2.0 * emb * B * (S if kind == "prefill" else 1)
+    return want
+
+
+def phase_dryrun(torch, np, counters, summary: dict) -> dict:
+    """19: the dry-run held to the card.  After phase 18 has destroyed its
+    process group, a process group of torch's ``fake`` backend with one
+    rank, a 1 x 1 ``(data, model)`` mesh on it, and ``production_rules()``
+    trace phase 18's legs (e), (f) and (b) as ``launch/dryrun`` traces a
+    step (``TraceMode``: fake CUDA tensors, the kernels' stand-ins).  For
+    each leg it prints the predicted and the measured peak (phase 18's
+    bytes at the leg's start plus the trace's peak of live bytes, against
+    its ``max_memory_allocated``), the counted FLOPs of one call against
+    ``model_flops``, ``compute_s`` and ``memory_s`` against the measured
+    ms, and the traced collectives by op.  Fails unless the predicted peak
+    lies within ``DRY_PEAK_BAND`` of the measured one, every call's FLOPs
+    reach ``model_flops`` by the CPU test's embedding rule, (e) traces as
+    many ``all_to_all_single`` as phase 18 counted, and no kernel's launch
+    counter moved during a trace."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh, production_rules
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    rules = production_rules()
+    before = {type(c).__name__: c.launches for c in counters}
+    legs, out = {}, {}
+    with D.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device=SHARD_DEVICE)
+        for leg, arch, kind in DRY_LEGS:
+            t0 = time.perf_counter()
+            mode = D.TraceMode()
+            trace = dry_serve if kind == "serve" else dry_train
+            cfg, peak, counts = trace(torch, mode, mesh, rules, arch)
+            moved = {type(c).__name__: c.launches - before[type(c).__name__]
+                     for c in counters}
+            check(not any(moved.values()), f"19 {leg}: kernels launched "
+                  f"during a trace: {moved}")
+            got = summary["shard_serve" if kind == "serve"
+                          else "shard_train"][cfg.name]
+            predicted = got["base_memory_bytes"] + peak
+            ratio = predicted / got["peak_memory_bytes"]
+            rec = {"arch": cfg.name, "predicted_peak_bytes": predicted,
+                   "traced_peak_bytes": peak,
+                   "measured_peak_bytes": got["peak_memory_bytes"],
+                   "peak_ratio": ratio, "collectives": counts.collectives,
+                   "calls": {}}
+            if kind == "serve":
+                B, P = got["batch"], got["prompt"]
+                measured = {"prefill": ("prefill", B, P, got["prefill_ms"]),
+                            "decode": ("decode", B, P,
+                                       got["decode_ms_median"])}
+            else:
+                measured = {"train": ("train", got["batch"], got["seq"],
+                                      got["median_step_ms"])}
+            failed = []
+            for call, (k, B, S, ms) in measured.items():
+                c = counts.calls[call]
+                want = _embedding_rule(cfg, k, B, S)
+                if c["flops"] < want:
+                    failed.append(f"{call} counts {c['flops']:.4g} FLOPs, "
+                                  f"under model_flops' {want:.4g}")
+                rec["calls"][call] = {
+                    **c, "model_flops_less_embedding": want,
+                    "compute_ms": c["flops"] / PEAK_FLOPS * 1e3,
+                    "memory_ms": c["bytes"] / HBM_BW * 1e3,
+                    "measured_ms": ms}
+            if kind == "serve":
+                a2a = counts.collectives.get("alltoall_base_", 0)
+                if a2a != got["all_to_all_calls"]:
+                    failed.append(f"{a2a} all_to_all_single traced, phase "
+                                  f"18 counted {got['all_to_all_calls']}")
+            if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+                failed.append(f"the predicted peak is {ratio:.3f} of the "
+                              f"measured (limits {DRY_PEAK_BAND})")
+            legs[leg] = time.perf_counter() - t0
+            calls = "; ".join(
+                f"{call}: {c['flops']:.4g} FLOPs (model_flops less the "
+                f"embedding {c['model_flops_less_embedding']:.4g}), compute "
+                f"{c['compute_ms']:.2f} ms, memory {c['memory_ms']:.2f} ms, "
+                f"measured {c['measured_ms']:.2f} ms"
+                for call, c in rec["calls"].items())
+            base = got["base_memory_bytes"]
+            log(f"[dryrun] {leg} {cfg.name}: peak predicted "
+                f"{predicted / 1e9:.3f} GB (18's {base / 1e9:.3f} at the "
+                f"leg's start + traced {peak / 1e9:.3f}), measured "
+                f"{got['peak_memory_bytes'] / 1e9:.3f} GB (ratio {ratio:.3f});"
+                f" {calls}; traced collectives {counts.collectives}; "
+                f"{legs[leg]:.1f} s")
+            check(not failed, f"19 {leg}: " + "; ".join(failed))
+            out[leg] = rec
+            del mode
+    summary["dryrun"] = out
+    for name, secs in legs.items():
+        log(f"[dryrun] leg {name}: {secs:.1f} s")
+    return out
 
 
 def run(name: str, fn, *args, phases: dict):
@@ -6069,6 +6316,9 @@ def main() -> int:
     shard = run("18 sharding rules", phase_sharded, torch, np, FA, SS, WK,
                 attention_plain, counters, summary, phases=phases)
     lm_launches.update(shard.pop("k2"))
+    torch.cuda.empty_cache()
+    run("19 the dry-run held to the card", phase_dryrun, torch, np,
+        counters, summary, phases=phases)
     for key, by_path in shard.items():
         ssm["paths"][key].update(by_path)
     # each kernel's launches on each path it serves, summed

@@ -39,11 +39,13 @@ from repro_torch.kernels.embedding_bag.ops import embedding_bag
 
 def init_arenas(plan: PlacementPlan, *, generator: torch.Generator | None
                 = None, device=None, dtype=torch.float32,
-                scale: float = 0.01) -> list[torch.Tensor]:
-    """One ``(shard_rows[s], dim)`` arena per shard, normal times
-    ``scale``, with row 0 zero.  ``generator`` must live on ``device``."""
+                scale: float = 0.01, shards=None) -> list[torch.Tensor]:
+    """One ``(shard_rows[s], dim)`` arena per shard (each of ``shards``
+    only, where given), normal times ``scale``, with row 0 zero.
+    ``generator`` must live on ``device``."""
     arenas = []
-    for rows in plan.shard_rows:
+    for rows in (plan.shard_rows if shards is None
+                 else plan.shard_rows[list(shards)]):
         a = torch.randn((int(rows), plan.dim), generator=generator,
                         device=device, dtype=dtype)
         a.mul_(scale)
@@ -198,8 +200,17 @@ def grid_groups(n_data: int, n_model: int):
     return model, data
 
 
-def make_sharded_lookup(plan: PlacementPlan, *, model_group,
-                        data_group=None):
+def mesh_groups(mesh, data_axes=("data",), model_axis="model"):
+    """``(model_group, data_groups)`` of this rank on a ``DeviceMesh``:
+    the process group along ``model_axis`` and one along each of
+    ``data_axes`` (the axes the arenas are replicated over)."""
+    return (mesh.get_group(model_axis),
+            tuple(mesh.get_group(ax) for ax in data_axes))
+
+
+def make_sharded_lookup(plan: PlacementPlan, *, model_group=None,
+                        data_group=None, mesh=None, data_axes=("data",),
+                        model_axis="model"):
     """The distributed lookup of one rank.
 
     ``fn(arenas, bases, indices)``: ``arenas`` holds this rank's one
@@ -211,18 +222,28 @@ def make_sharded_lookup(plan: PlacementPlan, *, model_group,
     Concatenated in rank order (rank = d * S + m), the outputs are the
     global batch.  With ``data_group`` the arena's gradient is summed
     over it.
+
+    With ``mesh`` (a ``DeviceMesh``), as the reference's
+    ``make_sharded_lookup(mesh, plan, data_axes=, model_axis=)``: the
+    model group is the mesh's ``model_axis`` and the arena's gradient is
+    summed over each of ``data_axes`` in turn (``mesh_groups``); ``m`` is
+    the rank's place along ``model_axis``.
     """
+    data_groups = () if data_group is None else (data_group,)
+    if mesh is not None:
+        model_group, data_groups = mesh_groups(mesh, data_axes, model_axis)
     S, K, D = plan.n_shards, plan.k_max, plan.dim
     if dist.get_world_size(model_group) != S:
         raise ValueError(f"the plan has {S} shards, the model group "
                          f"{dist.get_world_size(model_group)} ranks")
-    m = dist.get_rank(model_group)
-    sum_grad = data_group is not None and dist.get_world_size(data_group) > 1
+    m = (mesh.get_local_rank(model_axis) if mesh is not None
+         else dist.get_rank(model_group))
+    sum_over = [g for g in data_groups if dist.get_world_size(g) > 1]
 
     def fn(arenas, bases, indices):
         (arena,) = arenas
-        if sum_grad:
-            arena = _SumGradOver.apply(arena, data_group)
+        for g in sum_over:
+            arena = _SumGradOver.apply(arena, g)
         B_loc, _, Pp = indices.shape
         if B_loc % S:
             raise ValueError(f"the batch slice {B_loc} is not a multiple of "

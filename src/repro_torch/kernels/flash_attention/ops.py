@@ -9,8 +9,12 @@ by their true length.
 
 The forward goes to the kernel for CUDA tensors, which launches or
 raises, and to the plain version for CPU tensors; neither falls back to
-the other.  The op is differentiable.  The reference trains through its
-blockwise jnp scan (``repro/models/layers.py::flash_attention``) and has
+the other.  On fake or meta tensors (a dry-run's trace) it goes to the
+kernel's stand-in (``kernels/fake``), which gives the output's shape and
+dtype, counts the kernel's FLOPs and computes nothing; that is not a
+fallback either, since such a tensor holds no data to compute on.  The
+op is differentiable.  The reference trains through its blockwise jnp
+scan (``repro/models/layers.py::flash_attention``) and has
 no Pallas backward, so the backward here is that same differentiation:
 it saves only q, k and v, and recomputes the scan (``models.layers.
 chunk_attention``) one query chunk at a time under autograd, over the
@@ -24,14 +28,41 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import fake
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_plain
 
 
+def attended_pairs(S: int, T: int, *, causal: bool,
+                   window: int | None) -> int:
+    """The (query, key) pairs that ``attention_mask(S, T, ...)`` lets
+    through, counted without building it."""
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _k2_flops(q, k, v, causal, window, scale, out_shape=None):
+    """K2's bound's count: 4 hd a (query, key) pair and query head."""
+    B, S, Hq, hd = q
+    return 4 * hd * B * Hq * attended_pairs(S, k[1], causal=causal,
+                                            window=window)
+
+
+_k2_trace = fake.define(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+    "int? window, float? scale) -> Tensor",
+    lambda q, k, v, causal, window, scale: torch.empty_like(q), _k2_flops)
+
+
 def _forward(q, k, v, causal, window, scale):
+    if fake.traced(q, k, v):
+        return _k2_trace(q, k, v, causal, window, scale)
     if q.is_cuda or k.is_cuda or v.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     scale=scale)

@@ -18,8 +18,53 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fake
 from repro_torch.kernels.wkv6.kernel import wkv6_cuda, wkv6_grad_cuda
-from repro_torch.kernels.wkv6.ref import wkv6_plain
+from repro_torch.kernels.wkv6.ref import CHUNK, wkv6_plain
+
+
+def _k4_fake(r, k, v, w, u, s0, save_states):
+    B, S, H, hd = r.shape
+    hs = (B, H, -(-S // CHUNK), hd, hd) if save_states else (0,)
+    f32 = dict(dtype=torch.float32)
+    return (r.new_empty(r.shape, **f32), torch.empty_like(s0),
+            r.new_empty(hs, **f32))
+
+
+def _k4_grad_fake(r, k, v, w, u, hs, dy, dsT):
+    B, S, H, hd = r.shape
+    f32 = dict(dtype=torch.float32)
+    return (*(torch.empty_like(r) for _ in range(3)),
+            r.new_empty(r.shape, **f32), r.new_empty((H, hd), **f32),
+            r.new_empty((B, H, hd, hd), **f32))
+
+
+_k4_trace = fake.define(
+    "wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor s0, "
+    "bool save_states) -> (Tensor, Tensor, Tensor)", _k4_fake,
+    # K4's bound's count: 7 float32 operations a state element and step
+    lambda r, *_, out_shape=None: 7 * r[0] * r[1] * r[2] * r[3] * r[3])
+_k4_grad_trace = fake.define(
+    "wkv6_grad(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+    "Tensor hs, Tensor dy, Tensor? dsT) -> (Tensor, Tensor, Tensor, "
+    "Tensor, Tensor, Tensor)", _k4_grad_fake,
+    # K4-bwd's: 14
+    lambda r, *_, out_shape=None: 14 * r[0] * r[1] * r[2] * r[3] * r[3])
+
+
+def _wkv(ins, save_states=False):
+    """K4, or its stand-in on a trace's tensors."""
+    if fake.traced(*ins):
+        out = _k4_trace(*ins, save_states)
+        return out if save_states else out[:2]
+    return wkv6_cuda(*ins, save_states=save_states)
+
+
+def _wkv_grad(*args):
+    """K4-bwd, or its stand-in on a trace's tensors."""
+    if fake.traced(*args[:7]):
+        return _k4_grad_trace(*args)
+    return wkv6_grad_cuda(*args)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -39,7 +84,7 @@ class _WKV6(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, s0):
         rkvw = [_aligned(t) for t in (r, k, v, w)]
         uf = u.float().contiguous()
-        y, sT, hs = wkv6_cuda(*rkvw, uf, s0.contiguous(), save_states=True)
+        y, sT, hs = _wkv((*rkvw, uf, s0.contiguous()), save_states=True)
         ctx.save_for_backward(*rkvw, uf, hs)
         ctx.u_dtype = u.dtype
         ctx.set_materialize_grads(False)
@@ -52,7 +97,7 @@ class _WKV6(torch.autograd.Function):
         # starts the walk from zero
         dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device) \
             if dy is None else _aligned(dy)
-        dr, dk, dv, dw, du, ds0 = wkv6_grad_cuda(
+        dr, dk, dv, dw, du, ds0 = _wkv_grad(
             r, k, v, w, uf, hs, dy,
             None if dsT is None else dsT.contiguous())
         # u entered as u.float(): its gradient is cast back once
@@ -69,9 +114,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     float32); s0: (B, H, 64, 64) float32 -> (y (B, S, H, 64), sT (B, H,
     64, 64)), float32."""
     ts = (r, k, v, w, u, s0)
-    if any(t.is_cuda for t in ts):
+    if fake.traced(*ts) or any(t.is_cuda for t in ts):
         if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
             return _WKV6.apply(*ts)
-        return wkv6_cuda(*(_aligned(t) for t in (r, k, v, w)),
-                         u.float().contiguous(), s0.contiguous())
+        return _wkv((*(_aligned(t) for t in (r, k, v, w)),
+                     u.float().contiguous(), s0.contiguous()))
     return wkv6_plain(r, k, v, w, u, s0)

@@ -17,8 +17,9 @@ utilisation (``mfu``) that the smoke prints beside each LM time.
 
 ``collective_wire_bytes`` is pure text parsing of post-SPMD XLA HLO: it
 has no torch input, and the port keeps it so that the reference's
-dry-run records can be read with the card's link rate.  The port's own
-collective count comes with the mesh and dry-run slices (ROADMAP queue).
+dry-run records can be read with the card's link rate; its ring formulas
+(``ring_wire_bytes``) are what ``launch/dryrun`` applies to the
+collectives it traces.
 ``extrapolate`` is the reference's two-point layer extrapolation,
 metric(L) = m(1) + (L - 1) (m(2) - m(1)), exact for homogeneous stacks.
 """
@@ -76,20 +77,26 @@ def collective_wire_bytes(hlo_text: str, default_group: int) -> dict:
             D = int(gi.group(2))
         else:
             D = default_group
-        D = max(D, 1)
-        frac = (D - 1) / D
-        if kind == "all-gather":
-            wire = size * frac                  # result = gathered full
-        elif kind == "reduce-scatter":
-            wire = size * D * frac              # result = scattered shard
-        elif kind == "all-reduce":
-            wire = 2 * size * frac
-        elif kind == "all-to-all":
-            wire = size * frac
-        else:                                    # collective-permute
-            wire = size
-        out[kind] += wire
+        out[kind] += ring_wire_bytes(kind, size, D)
     return out
+
+
+def ring_wire_bytes(kind: str, size: float, group: int) -> float:
+    """Per-device ring wire bytes of one collective of ``kind`` whose
+    result is ``size`` bytes a device, over a group of ``group`` ranks
+    (the formulas ``collective_wire_bytes`` applies to each HLO
+    collective, and ``launch/dryrun`` to each traced one)."""
+    D = max(group, 1)
+    frac = (D - 1) / D
+    if kind == "all-gather":
+        return size * frac                  # result = gathered full
+    if kind == "reduce-scatter":
+        return size * D * frac              # result = scattered shard
+    if kind == "all-reduce":
+        return 2 * size * frac
+    if kind == "all-to-all":
+        return size * frac
+    return size                             # collective-permute
 
 
 @dataclasses.dataclass

@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import RandomPlacer, SimOracle
 from repro_torch.core import features as F
@@ -57,18 +58,35 @@ def update_arenas(opt, arenas, grads: list, state: OptState) -> OptState:
     return OptState(state.step + 1, accs)
 
 
-def make_train_step(model: DLRM, lookup_fn, emb_opt, dense_opt):
+def make_train_step(model: DLRM, lookup_fn, emb_opt, dense_opt, *,
+                    batch_group=None):
     """``step(emb_state, dense_state, gidx, dense, labels) -> (emb_state,
     dense_state, loss)``: forward, BCE, gradients of the arenas and the
     dense nets, then ``emb_opt`` per shard and ``dense_opt``, applied in
-    place.  The loss stays on the device."""
+    place.  The loss stays on the device.
+
+    With ``batch_group`` (the one-rank form: ``model`` holds one shard,
+    ``lookup_fn`` is ``make_sharded_lookup``'s, the batch split over the
+    group's ``n`` ranks) each rank differentiates its own rows' mean loss
+    over ``n``, so the arena gradients that the lookup's exchange brings
+    back add up to the global mean's; the dense nets' gradients are
+    summed over the group (the average of the ranks' own), and the loss
+    returned is the global mean.  The row-wise state is the rank's own."""
     arenas = list(model.arenas)
     dense_params = model.dense_parameters()
+    n = 1 if batch_group is None else dist.get_world_size(batch_group)
 
     def step(emb_state, dense_state, gidx, dense, labels):
         loss = DLRM.loss(model(dense, gidx, lookup_fn), labels)
+        if n > 1:
+            loss = loss / n
         grads = list(torch.autograd.grad(loss, arenas + dense_params))
         g_dense = grads[len(arenas):]
+        if n > 1:
+            for g in g_dense:
+                dist.all_reduce(g, group=batch_group)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=batch_group)
         del grads[len(arenas):]
         upd, dense_state = dense_opt.update(g_dense, dense_state,
                                             dense_params)

@@ -7,7 +7,11 @@ interaction with the dense representation -> top MLP -> CTR logit.
 
 The MLPs and the interaction are plain ``torch`` matmuls in float32 (the
 reference leaves them to XLA, outside any Pallas kernel); the lookup is
-K1 per shard.  Arenas are one ``nn.Parameter`` per shard.
+K1 per shard.  Arenas are one ``nn.Parameter`` per shard, or, in the
+one-rank form (``shard=m``) of the distributed step, the arena of shard
+``m`` alone: a rank of a ``(data, model)`` mesh holds its model place's
+arena, as the reference's ``P(model, None, None)`` arenas place one on
+each device.
 """
 
 from __future__ import annotations
@@ -57,12 +61,15 @@ def _run_mlp(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
 class DLRM(nn.Module):
     """``forward(dense, gidx, lookup_fn)`` -> CTR logits (B,).
 
-    ``arenas`` holds one arena per shard (``E.init_arenas``: row 0 zero);
-    ``bottom`` and ``top`` are the dense nets.  Weights are drawn from
-    ``seed`` on ``device`` (``cuda`` unless told otherwise)."""
+    ``arenas`` holds one arena per shard (``E.init_arenas``: row 0 zero),
+    or with ``shard`` that shard's alone (drawn first, so the dense nets'
+    draws differ from the whole model's); ``bottom`` and ``top`` are the
+    dense nets.  Weights are drawn from ``seed`` on ``device`` (``cuda``
+    unless told otherwise)."""
 
     def __init__(self, cfg: DLRMConfig, plan: PlacementPlan, *,
-                 seed: int = 0, device=None, dtype=torch.float32):
+                 seed: int = 0, device=None, dtype=torch.float32,
+                 shard: int | None = None):
         super().__init__()
         if plan.slot_cols is not None:
             raise ValueError(
@@ -73,8 +80,9 @@ class DLRM(nn.Module):
         self.cfg = cfg
         self.plan = plan
         self.dtype = dtype
-        self.arenas = nn.ParameterList(
-            E.init_arenas(plan, generator=gen, device=dev, dtype=dtype))
+        self.arenas = nn.ParameterList(E.init_arenas(
+            plan, generator=gen, device=dev, dtype=dtype,
+            shards=None if shard is None else [shard]))
         n_inter = cfg.n_tables + 1          # tables + dense rep
         inter_dim = n_inter * (n_inter - 1) // 2 + cfg.embed_dim
         self.bottom = _mlp((cfg.n_dense_features, *cfg.bottom_mlp,

@@ -409,11 +409,16 @@ class LM:
         q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        kv_ax = "model" if self.kv_shardable else None
+        # k and v placed as their weights before the head split: DTensor
+        # may leave a projection split over the model axis where the KV
+        # heads do not divide over it, which the reshape cannot unflatten
+        k = rules.constrain(k, "batch", None, kv_ax)
+        v = rules.constrain(v, "batch", None, kv_ax)
         q = q.reshape(B, Sq, Hq, hd)
         k = k.reshape(B, Sq, Hkv, hd)
         v = v.reshape(B, Sq, Hkv, hd)
         mesh = q.device_mesh if rules.enabled else None
-        kv_ax = "model" if self.kv_shardable else None
         q_spec = ("batch", None, "model", None)
         kv_spec = ("batch", None, kv_ax, None)
         q = rules.constrain(q, *q_spec)

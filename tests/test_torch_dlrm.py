@@ -46,6 +46,10 @@ from repro_torch.models.dlrm import DLRM, dlrm_params_from_jax
 from repro_torch.optim import rowwise_adagrad
 from repro_torch.optim.optimizers import OptState
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

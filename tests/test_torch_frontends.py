@@ -47,6 +47,10 @@ from repro_torch.launch import steps as ST
 from repro_torch.launch import train as TR
 from repro_torch.models import transformer as T
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 ARCHS = ("llava-next-34b", "musicgen-large")
 B, N_TOK, N_DECODE = 2, 48, 6
 LR = 1e-3

@@ -1633,3 +1633,115 @@ def test_frontend_lm_on_cuda_matches_cpu(cuda, no_tf32, arch):
     for g, c in zip(grads, cgrads):
         assert float((g.cpu() - c).abs().max()) <= 1e-4 * max(
             float(c.abs().max()), 1e-30)
+
+
+def _launched(counter, fn):
+    """``fn()``'s result and how many launches it added to ``counter``."""
+    n0 = counter.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counter.launches - n0
+
+
+def test_ops_on_cuda_launch_as_before_and_a_trace_launches_nothing(cuda):
+    """Each kernel op on CUDA tensors launches its kernel once a call, and
+    its output (and each gradient) is the kernel wrapper's own bits: the
+    stand-in of a fake trace (``kernels/fake``) is not on this path.  The
+    same ops on fake CUDA tensors under ``launch/dryrun``'s ``TraceMode``
+    give the kernels' shapes and launch nothing."""
+    from repro_torch.kernels.selective_scan import kernel as SSK
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.wkv6 import kernel as WKK
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch.dryrun import TraceMode
+    counters = (embedding_bag_cuda, embedding_bag_grad_cuda,
+                flash_attention_cuda, SSK.selective_scan_cuda,
+                SSK.selective_scan_grad_cuda, WKK.wkv6_cuda,
+                WKK.wkv6_grad_cuda)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # K2
+    q, k, v = (torch.randn((1, 256, 4, 64), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    out, n = _launched(flash_attention_cuda,
+                       lambda: flash_ops.flash_attention(q, k, v))
+    assert n == 1
+    assert _same_bits(out, flash_attention_cuda(q, k, v, causal=True))
+    # K1 and K1-bwd
+    arena = torch.randn((300, 128), generator=g, device=cuda)
+    arena[0] = 0.0
+    idx = torch.randint(0, 300, (64, 7), generator=g, device=cuda,
+                        dtype=torch.int32)
+    leaf = arena.clone().requires_grad_(True)
+    out, n = _launched(embedding_bag_cuda,
+                       lambda: ops.embedding_bag(leaf, idx))
+    assert n == 1 and _same_bits(out, embedding_bag_cuda(arena, idx))
+    dout = torch.randn(out.shape, generator=g, device=cuda)
+    _, n = _launched(embedding_bag_grad_cuda,
+                     lambda: out.backward(dout))
+    assert n == 1
+    assert _same_bits(leaf.grad, embedding_bag_grad_cuda(
+        tuple(arena.shape), idx, dout))
+    # K3 and K3-bwd
+    x, dt, Bc, Cc, A, h0 = _scan_inputs(cuda, 2, 40, 96, 16)
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        (y, hT), n = _launched(SSK.selective_scan_cuda,
+                               lambda: scan_ops.selective_scan(
+                                   x, dt, Bc, Cc, A, h0))
+    assert n == 1
+    y0, hT0, hs = SSK.selective_scan_cuda(x, dt, Bc, Cc, A, h0,
+                                          save_states=True)
+    assert _same_bits(y, y0) and _same_bits(hT, hT0)
+    xl = x.clone().requires_grad_(True)
+    (y, _), n = _launched(SSK.selective_scan_cuda,
+                          lambda: scan_ops.selective_scan(
+                              xl, dt, Bc, Cc, A, h0))
+    assert n == 1 and _same_bits(y, y0)
+    dy = torch.randn(y.shape, generator=g, device=cuda).to(y.dtype)
+    _, n = _launched(SSK.selective_scan_grad_cuda, lambda: y.backward(dy))
+    assert n == 1
+    assert _same_bits(xl.grad, SSK.selective_scan_grad_cuda(
+        x, dt, Bc, Cc, A, hs, dy)[0])
+    # K4 and K4-bwd
+    r, kk, vv, w, u, s0 = _wkv_inputs(cuda, 2, 40, 4)
+    r, kk, vv = (t.to(torch.bfloat16) for t in (r, kk, vv))
+    with torch.no_grad():
+        (y, sT), n = _launched(WKK.wkv6_cuda, lambda: wkv_ops.wkv6(
+            r, kk, vv, w, u, s0))
+    assert n == 1
+    y0, sT0, hs = WKK.wkv6_cuda(r, kk, vv, w, u, s0, save_states=True)
+    assert _same_bits(y, y0) and _same_bits(sT, sT0)
+    rl = r.clone().requires_grad_(True)
+    (y, _), n = _launched(WKK.wkv6_cuda, lambda: wkv_ops.wkv6(
+        rl, kk, vv, w, u, s0))
+    assert n == 1 and _same_bits(y, y0)
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    _, n = _launched(WKK.wkv6_grad_cuda, lambda: y.backward(dy))
+    assert n == 1
+    assert _same_bits(rl.grad, WKK.wkv6_grad_cuda(
+        r, kk, vv, w, u, hs, dy)[0])
+
+    # the same ops on fake CUDA tensors: shapes, and no launch
+    before = [c.launches for c in counters]
+    with TraceMode():
+        def fake(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=cuda)
+        q = fake(1, 256, 4, 64, dtype=torch.bfloat16)
+        assert flash_ops.flash_attention(q, q, q).shape == q.shape
+        leaf = fake(300, 128).requires_grad_(True)
+        out = ops.embedding_bag(leaf, fake(64, 7, dtype=torch.int32))
+        out.sum().backward()
+        assert out.shape == (64, 128) and leaf.grad.shape == leaf.shape
+        xl = fake(2, 40, 96, dtype=torch.bfloat16).requires_grad_(True)
+        y, _ = scan_ops.selective_scan(xl, fake(2, 40, 96), fake(2, 40, 16),
+                                       fake(2, 40, 16), fake(96, 16),
+                                       fake(2, 96, 16))
+        y.float().sum().backward()
+        assert xl.grad.shape == xl.shape
+        rl = fake(2, 40, 4, 64, dtype=torch.bfloat16).requires_grad_(True)
+        y, _ = wkv_ops.wkv6(rl, rl, rl, fake(2, 40, 4, 64), fake(4, 64),
+                            fake(2, 4, 64, 64))
+        y.sum().backward()
+        assert rl.grad.shape == rl.shape
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before

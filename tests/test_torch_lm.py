@@ -46,6 +46,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import (LM, params_from_jax,
                                             params_to_jax)
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 PROMPT = 96
 N_DECODE = 8
 NEAR_TIE = 1e-2

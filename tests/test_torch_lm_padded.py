@@ -45,6 +45,10 @@ from repro_torch.models.config import MoEConfig
 from repro_torch.models.transformer import (LM, params_from_jax,
                                             tree_leaves)
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 PROMPT = 24
 N_DECODE = 4
 TOL = 1e-4

@@ -10,12 +10,17 @@ expert-parallel runs over gloo, held to the port's one-device run at
 ``resolve(2)``, and the JAX package."""
 
 import pytest
+import torch
 
 from test_torch_lm_padded import (_run, check_decode_against_the_forward,
                                   check_decode_against_the_reference,
                                   test_forward_logits, test_forward_loss,
                                   test_gradients,
                                   test_prefill_logits_and_cache)
+
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 CASES = [("olmoe-1b-7b", 2), ("dbrx-132b", 2)]
 IDS = [f"{a}-tp{tp}" for a, tp in CASES]

@@ -5,6 +5,7 @@ loss, gradients, prefill and its cache, decode against the JAX decode
 where no head is padded and against the port's own forward everywhere."""
 
 import pytest
+import torch
 
 from test_torch_lm_padded import (_run, cases,
                                   check_decode_against_the_forward,
@@ -12,6 +13,10 @@ from test_torch_lm_padded import (_run, cases,
                                   test_forward_logits, test_forward_loss,
                                   test_gradients,
                                   test_prefill_logits_and_cache)
+
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 CASES, IDS, UNPADDED = cases(8)
 

@@ -36,6 +36,10 @@ from repro_torch.launch import steps as ST
 from repro_torch.models.transformer import (LM, params_from_jax,
                                             params_to_jax, tree_leaves)
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
 PROMPT = 96
 N_DECODE = 8

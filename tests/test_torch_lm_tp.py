@@ -25,7 +25,9 @@ gradient decides it (more than 1e-4 of its leaf's largest and 1e-5 in
 size), within twice the learning rate elsewhere, and every rank's
 parameters equal, bit for bit, one-device AdamW applied to the sharded
 run's own gathered gradients.  The meshes are (1, 2), (2, 1) and (2, 2),
-the last with the weights also split over the data axis (FSDP).
+the last with the weights also split over the data axis (FSDP), and
+danube also at (2, 4), at ``resolve(4)``, whose 2 KV heads do not divide
+over the 4 model ranks.
 
 The MoE archs (olmoe-1b-7b, dbrx-132b SMOKE: 4 experts, top-2) run on
 every mesh with their experts split over the model axis: a 16-token
@@ -135,7 +137,9 @@ def case(arch, mesh):
                 cfg.moe, **{field: int(value)}))
         else:
             cfg = dataclasses.replace(cfg, **{field: int(value)})
-    cfg = cfg.resolve(2)
+    # tp 2, or the model axis where it is larger (4 ranks over danube's 2
+    # KV heads: the projections whole on ``model`` before the head split)
+    cfg = cfg.resolve(max(2, n_model))
     fsdp = ("data",) if n_data > 1 and n_model > 1 else ()
     rules = ShardingRules(fsdp_axes=fsdp)
     kw = dict(dtype=torch.float32, device="cpu", q_chunk=8, kv_chunk=8)
@@ -220,9 +224,14 @@ PADDED_HEADS = "h2o-danube-1.8b:n_heads=7"
 MOE_ARCHS = ("olmoe-1b-7b", "dbrx-132b")
 MOE_ODD_SEQ = "olmoe-1b-7b:seq=15"
 MOE_ODD_EXPERTS = "olmoe-1b-7b:n_experts=3"
+# danube at (2, 4), resolve(4): its 2 KV heads do not divide over the 4
+# model ranks, with a data axis of 2 (the smallest mesh where the head
+# split once met a projection DTensor had left split over ``model``)
+KV_REPLICATED = "h2o-danube-1.8b"
 GROUPS = {(1, 2): ARCHS + MOE_ARCHS + (PADDED_VOCAB, PADDED_HEADS,
                                        MOE_ODD_SEQ, MOE_ODD_EXPERTS),
-          (2, 1): ARCHS + MOE_ARCHS, (2, 2): ARCHS + MOE_ARCHS}
+          (2, 1): ARCHS + MOE_ARCHS, (2, 2): ARCHS + MOE_ARCHS,
+          (2, 4): (KV_REPLICATED,)}
 
 
 @pytest.fixture(scope="module")
@@ -311,6 +320,16 @@ def test_moe_prefill_whose_sequence_tp_does_not_divide(groups):
     keys = _held_to_one_device(groups[(MOE_ODD_SEQ, (1, 2))])
     assert groups[(MOE_ODD_SEQ, (1, 2))][0]["logits"].shape[1] == 15
     assert {"aux", "grad_aux"} <= set(keys)
+
+
+def test_kv_heads_that_do_not_divide_over_the_model_axis(groups):
+    """danube SMOKE at (2, 4), ``resolve(4)``: 8 query heads over 4 model
+    ranks, its 2 KV heads whole on every rank and the cache split along
+    its sequence, FSDP over ``data``; held to the one-device run as every
+    mesh is.  Before the repair its forward raised in the KV head split
+    (``Cannot unflatten unevenly sharded tensor``)."""
+    keys = _held_to_one_device(groups[(KV_REPLICATED, (2, 4))])
+    assert {"cache_k", "cache_v"} <= set(keys)
 
 
 def test_padded_vocab_splits_over_the_model_axis(groups):

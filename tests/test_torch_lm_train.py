@@ -33,6 +33,10 @@ from repro_torch.launch import train as TR
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 DENSE = ("h2o-danube-1.8b", "qwen2.5-14b", "phi4-mini-3.8b", "granite-34b")
 MOE = ("olmoe-1b-7b", "dbrx-132b")
 

@@ -39,6 +39,10 @@ from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
 from test_torch_lm_train import DENSE, jax_model
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 LR = 1e-3
 B, S = 4, 64
 

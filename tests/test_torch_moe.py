@@ -37,6 +37,10 @@ import torch
 from repro.models import layers as JL
 from repro_torch.models import layers as L
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 CASES = {
     "smoke-f32": dict(dtype="float32"),
     "smoke-bf16": dict(dtype="bfloat16"),

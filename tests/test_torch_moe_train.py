@@ -36,6 +36,10 @@ from test_torch_lm_train_step import (
     LR, test_train_step_gradients as _check_gradients,
     test_train_step_params as _check_params, run_two_steps)
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 CASES = [("olmoe-1b-7b", "float32", 1), ("dbrx-132b", "float32", 1),
          ("olmoe-1b-7b", "bfloat16", 2), ("dbrx-132b", "bfloat16", 2)]
 

@@ -6,12 +6,17 @@ greedy and with sampled candidates (on the CPU here; the card's pin is
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.api import PlacementSession, SimOracle
 from repro_torch.api.session import pad_tables
 from repro_torch.core.trainer import DreamShard, DreamShardConfig
 from repro_torch.data.synthetic import make_dlrm_pool
 from repro_torch.data.tasks import make_benchmark_suite
+
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

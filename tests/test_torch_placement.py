@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.api import SimOracle as JSimOracle
 from repro.api import evaluate_placer as j_evaluate_placer
@@ -29,6 +30,10 @@ from repro_torch.core import networks as N
 from repro_torch.core.trainer import DreamShard, DreamShardConfig
 from repro_torch.data.synthetic import make_dlrm_pool
 from repro_torch.data.tasks import make_benchmark_suite
+
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 N_TASKS = 4
 

@@ -23,6 +23,10 @@ from repro.data.synthetic import make_dlrm_pool
 from repro_torch.core import networks as N
 from repro_torch.core import rollout as R
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 M, D = 12, 4
 
 

@@ -10,7 +10,11 @@ against ``repro.embedding.sharded``, and its distributed lookup over gloo.
 - ``make_sharded_lookup`` over gloo with 2 and 4 CPU ranks in (1, 2),
   (1, 4) and (2, 2) data x model grids against ``lookup_unsharded``: the
   outputs concatenated in rank order, and each rank's arena gradient,
-  within 1e-6;
+  within 1e-6; built from a ``DeviceMesh`` (``mesh=``), bit for bit the
+  ``grid_groups`` form's;
+- the one-rank DLRM step (``DLRM(shard=m)``, ``make_train_step(
+  batch_group=)``) over gloo at (1, 2) and (2, 2) against the whole
+  model's step on one device, within 1e-6;
 - ``measure_all_to_all`` and ``calibrate_comm`` at 2 gloo ranks (host
   times, not device ones); ``calibrate_comm`` for the card refuses a gloo
   group, and several cards with no process group.
@@ -179,6 +183,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np, torch, torch.distributed as dist
 from repro_torch.embedding import sharded as E
 from repro_torch.embedding.plan import build_plan
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.profiling import collectives as CO
 
 rank, n_data, n_model, tmp, mode = (int(sys.argv[2]), int(sys.argv[3]),
@@ -193,16 +198,54 @@ try:
         model_group, data_group = E.grid_groups(n_data, n_model)
         d, m = divmod(rank, n_model)
         b_loc = z["gidx"].shape[0] // n_data
-        arena = torch.tensor(z[f"arena{m}"], requires_grad=True)
         gidx = torch.from_numpy(z["gidx"][d * b_loc:(d + 1) * b_loc])
-        lookup = E.make_sharded_lookup(plan, model_group=model_group,
-                                       data_group=data_group)
-        out = lookup([arena], plan.base_rows, gidx)
-        n = out.shape[0]
-        w = torch.from_numpy(z["w"][rank * n:(rank + 1) * n])
-        (out * w).sum().backward()
-        np.savez(f"{tmp}/rank{rank}.npz", out=out.detach().numpy(),
-                 grad=arena.grad.numpy())
+        mesh = make_mesh((n_data, n_model), ("data", "model"), device="cpu")
+        got = {}
+        for form, lookup in (
+                ("", E.make_sharded_lookup(plan, model_group=model_group,
+                                           data_group=data_group)),
+                ("mesh_", E.make_sharded_lookup(plan, mesh=mesh))):
+            arena = torch.tensor(z[f"arena{m}"], requires_grad=True)
+            out = lookup([arena], plan.base_rows, gidx)
+            n = out.shape[0]
+            w = torch.from_numpy(z["w"][rank * n:(rank + 1) * n])
+            (out * w).sum().backward()
+            got.update({form + "out": out.detach().numpy(),
+                        form + "grad": arena.grad.numpy()})
+        np.savez(f"{tmp}/rank{rank}.npz", **got)
+    elif mode == "dlrm":
+        from repro_torch.launch.train_dlrm import make_train_step
+        from repro_torch.models.dlrm import DLRM, DLRMConfig
+        from repro_torch.optim import adam, rowwise_adagrad
+        z = np.load(f"{tmp}/inputs.npz")
+        plan = build_plan(z["raw"], z["assign"], n_model)
+        mesh = make_mesh((n_data, n_model), ("data", "model"), device="cpu")
+        d, m = divmod(rank, n_model)
+        model = DLRM(DLRMConfig(embed_dim=plan.dim, bottom_mlp=(16,),
+                                top_mlp=(16,), n_tables=plan.n_tables),
+                     plan, device="cpu", shard=m)
+        state = {k: torch.from_numpy(z["w_" + k]) for k in
+                 z["state_keys"]}
+        state["arenas.0"] = state.pop(f"arenas.{m}")
+        model.load_state_dict({k: v for k, v in state.items()
+                               if not k.startswith("arenas.") or
+                               k == "arenas.0"})
+        b_loc = z["gidx"].shape[0] // n_data
+        rows = slice(d * b_loc + m * (b_loc // n_model),
+                     d * b_loc + (m + 1) * (b_loc // n_model))
+        emb_opt, dense_opt = rowwise_adagrad(0.05), adam(1e-3)
+        step = make_train_step(model, E.make_sharded_lookup(plan, mesh=mesh),
+                               emb_opt, dense_opt,
+                               batch_group=dist.group.WORLD)
+        _, _, loss = step(emb_opt.init(list(model.arenas)),
+                          dense_opt.init(model.dense_parameters()),
+                          torch.from_numpy(z["gidx"][d * b_loc:
+                                                     (d + 1) * b_loc]),
+                          torch.from_numpy(z["dense"][rows]),
+                          torch.from_numpy(z["labels"][rows]))
+        np.savez(f"{tmp}/rank{rank}.npz", loss=loss.numpy(),
+                 **{k: v.detach().numpy()
+                    for k, v in model.state_dict().items()})
     else:
         payload = [0.05, 0.2]
         times = CO.measure_all_to_all(payload, warmup=1, repeats=3)
@@ -278,7 +321,67 @@ def test_sharded_lookup_over_gloo_matches_unsharded(tmp_path, n_data,
         m = rank % n_model
         np.testing.assert_allclose(r["grad"], leaves[m].grad.numpy(),
                                    rtol=1e-6, atol=1e-6)
+        # the lookup built from a DeviceMesh: the grid groups' bits
+        np.testing.assert_array_equal(r["mesh_out"], r["out"])
+        np.testing.assert_array_equal(r["mesh_grad"], r["grad"])
     assert all(float(leaf.grad[1:].abs().max()) > 0 for leaf in leaves)
+
+
+@pytest.mark.parametrize("n_data,n_model", [(1, 2), (2, 2)])
+def test_one_rank_dlrm_step_over_gloo_matches_one_device(tmp_path, n_data,
+                                                         n_model):
+    """``DLRM(shard=m)`` holding its rank's arena, the lookup from a
+    ``DeviceMesh`` and ``make_train_step(batch_group=)``: one step of row-
+    wise Adagrad and Adam over the ranks against the whole model's step
+    on one device from the same weights.  Each rank's logits, and so its
+    loss terms, come from the same rows; the loss, the arena gradients
+    (summed over the data axis) and the dense nets' (over every rank) add
+    in another order, so the updated weights and the loss are held within
+    1e-6 of their largest entry, and the ranks of one model place hold the
+    same arena bit for bit."""
+    from repro_torch.launch.train_dlrm import make_train_step
+    from repro_torch.models.dlrm import DLRM, DLRMConfig
+    from repro_torch.optim import adam, rowwise_adagrad
+    raw = _raw()
+    assign = np.arange(M) % n_model
+    plan = build_plan(raw, assign, n_model)
+    model = DLRM(DLRMConfig(embed_dim=plan.dim, bottom_mlp=(16,),
+                            top_mlp=(16,), n_tables=M), plan, seed=3,
+                 device="cpu")
+    rng = np.random.default_rng(5)
+    gidx = E.group_indices(plan, _indices(seed=7))
+    dense = rng.normal(size=(B, 13)).astype(np.float32)
+    labels = (rng.random(B) < 0.5).astype(np.float32)
+    weights = {k: v.detach().numpy().copy()
+               for k, v in model.state_dict().items()}
+    np.savez(tmp_path / "inputs.npz", raw=raw, assign=assign, gidx=gidx,
+             dense=dense, labels=labels, state_keys=np.array(list(weights)),
+             **{"w_" + k: v for k, v in weights.items()})
+    emb_opt, dense_opt = rowwise_adagrad(0.05), adam(1e-3)
+    step = make_train_step(model, lambda a, b, g: E.lookup_unsharded(
+        a, b, g, plan), emb_opt, dense_opt)
+    _, _, loss = step(emb_opt.init(list(model.arenas)),
+                      dense_opt.init(model.dense_parameters()),
+                      torch.from_numpy(gidx), torch.from_numpy(dense),
+                      torch.from_numpy(labels))
+    want = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+
+    ranks = _run_ranks(tmp_path, n_data, n_model, "dlrm")
+    for rank, r in enumerate(ranks):
+        m = rank % n_model
+        np.testing.assert_allclose(r["loss"], loss.numpy(), rtol=1e-6)
+        for k, v in want.items():
+            key = k
+            if k.startswith("arenas."):
+                if k != f"arenas.{m}":
+                    continue                # another place's arena
+                key = "arenas.0"
+            scale = float(np.abs(v).max())
+            np.testing.assert_allclose(r[key], v, rtol=0, atol=1e-6 * scale,
+                                       err_msg=k)
+            assert not np.array_equal(v, weights[k]), k     # it moved
+        same = ranks[m]                     # the data row 0 of place m
+        np.testing.assert_array_equal(r["arenas.0"], same["arenas.0"])
 
 
 def test_payload_rows_is_the_reference_sizing():

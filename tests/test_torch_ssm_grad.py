@@ -39,6 +39,10 @@ from repro_torch.models import ssm as S
 from test_torch_ssm import (B, DI, N, RW_D, SEQ, _both, _np, _rand,
                             _rwkv_params, _ssm_params)
 
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
+
 # below a chunk, one K3 chunk, past one K3 chunk and K4's two
 LENGTHS = (1, 7, 16, 32, 40)
 

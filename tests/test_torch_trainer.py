@@ -15,6 +15,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.trainer import DreamShard as JDreamShard
 from repro.core.trainer import DreamShardConfig as JConfig
@@ -23,6 +24,10 @@ from repro.data.tasks import make_benchmark_suite
 from repro.sim.costsim import CostSimulator
 from repro_torch.api import SimOracle
 from repro_torch.core.trainer import CostSample, DreamShard, DreamShardConfig
+
+# one intra-op thread: the suite runs in parallel workers, and
+# torch's default of a thread a core in each oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 def _cfg(**kw):

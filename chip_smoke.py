@@ -7,11 +7,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: K1 (``src/repro_torch/csrc/embedding_bag.cu``, its forward and
-   its backward), K2 (``src/repro_torch/csrc/flash_attention.cu``), K3
+   its backward), K2 (``src/repro_torch/csrc/flash_attention.cu``), K2-bwd
+   (``src/repro_torch/csrc/flash_attention_bwd.cu``), K3
    (``src/repro_torch/csrc/selective_scan.cu``, with K3-bwd) and K4
    (``src/repro_torch/csrc/wkv6.cu``, with K4-bwd) with nvcc for sm_90a into
    ``build/kernels/``, one nvcc per source, started together; ptxas must
-   report no spill in any bf16 (tensor-core) K2 instance;
+   report no spill in any bf16 (tensor-core) K2 or K2-bwd instance;
 3. K1's forward against its plain PyTorch version on the card, bit for
    bit: the reference's test sweep (rows x dim x pool x {f32, bf16}),
    padding at arbitrary positions with a zero, a signed-zero and a non-zero
@@ -45,6 +46,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (after phase 7) layer 0's real q/k/v of the served model at 8192 tokens
    and window 4096: bf16 by bf16 ulps (``attention_ulp_err``, as phase
    13's), float32 to a limit below a typical output;
+6c. K2-bwd (the attention backward: FA2's, from K2's output and row
+   log-sum-exp) against its plain version's float64 run on the card at
+   hymba's head shape (hd 64, 25 over 5 heads, window 1024, 2 x 4096),
+   musicgen's (hd 64, group 1), granite's (hd 128, 48 over 1 head),
+   non-causal attention over ragged keys (with and without a window), hd
+   32 and hd 256: bf16 (tensor cores) within 1e-2 max |err| / max |ref|
+   and 1e-2 relative rms (13 (c)'s limits: P and dS are rounded to bf16
+   for their products, the output is bf16), float32 (CUDA cores) within
+   1e-4 and 1e-5 (float32 sums of up to 4096 terms); each case twice
+   with the same bits, and K2's output bit-equal with and without its
+   lse store;
 7. the LM path: serve h2o-danube-1.8b at full width (24 layers, bf16,
    seeded weights) through ``repro_torch.launch.serve.serve``: 2 prompts
    of 8192 tokens, one warm-up prefill, a timed prefill and 15 greedy
@@ -158,23 +170,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and its backward held to plain at each device's shapes and indices of
    each of these four placements.
 13. (after phase 12) the LM train path (``launch/steps.make_train_step``,
-   AdamW, chunked cross-entropy; K2 on the forward, the op's backward
-   recomputing the blockwise scan): (a) h2o-danube-1.8b at full width and
+   AdamW, chunked cross-entropy; K2 on the forward, K2-bwd on the
+   attention backward): (a) h2o-danube-1.8b at full width and
    depth (24 layers, 1831201280 bf16 params, seeded as in phase 7), no
    remat, batch 2 x 4096 tokens (train_4k's sequence, its batch cut from
    256): 1 warm-up and 1 step timed by CUDA events, tokens/s, finite
-   losses, peak memory, 24 K2 launches a step, then torch.profiler over
-   one step (kernel ms, idle share, the shares of K2, of the attention
-   backward and of cuBLAS) and the attention backward alone on layer 0;
+   losses, peak memory, 24 K2 and 24 K2-bwd launches a step, then
+   torch.profiler over one step (kernel ms, idle share, the shares of K2,
+   of K2-bwd and of cuBLAS) and the attention backward alone on layer 0,
+   then K2-bwd's yardstick on layer 0's q/k/v: the kernel, its plain
+   version and SDPA's backward, beside the bound (10 hd FLOPs a pair and
+   query head at the bf16 peak);
    (b) the same path at 2 layers in float32 on the card (K2) and on the
    CPU (plain): one step's loss (1e-5 relative), every gradient leaf
    (1e-4 of its largest) and the params after it (1e-6 where the gradient
    decides Adam's step, 2 lr elsewhere); (c) layer 0's real q/k/v of (a)'s
    first step (both rows): K2's training forward against plain by bf16
    ulps (``attention_ulp_err``: 2 ulps of |ref| + 2^-8 sum p|v|/l, rms
-   1e-2; a mask one key wide must fail it, a scale 1% off is read), and
-   the op's dq/dk/dv (bf16 and float32) against a float64 autograd of
-   plain's arithmetic; (d) qwen2.5-14b (QKV biases), phi4-mini-3.8b
+   1e-2; a mask one key wide must fail it, a scale 1% off is read), the
+   op's dq/dk/dv (bf16 and float32, through K2-bwd) against a float64
+   autograd of plain's arithmetic, and K2-bwd on the whole of both rows
+   as phase 6c holds it; (d) qwen2.5-14b (QKV biases), phi4-mini-3.8b
    (tied embeddings) and granite-34b (one KV head) at full width cut to 2
    layers, bf16: K2 against plain by the same rule on layer 0's q/k/v of
    the train batch (2 x 1024, hd 128: groups 5, 3 and 48), one train step
@@ -191,7 +207,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``moe_aux_weight`` 0.01, remat) on 2 x 4096 tokens: 1 warm-up and 1
    steps timed by CUDA events, tokens/s, peak, losses and load-balance
    losses, then torch.profiler over one step (the shares of the expert
-   GEMMs, dispatch and combine, routing, the attention backward and
+   GEMMs, dispatch and combine, routing, K2-bwd and
    AdamW's foreach kernels; the idle share); (c) dbrx-132b at full width
    cut to 2 layers: a serve (2 x 1024 + 8 tokens) and a train step (2 x
    1024), peak; (d) K2 against plain by phase 13's ``attention_ulp_err``
@@ -235,7 +251,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and 1 step timed by CUDA events, tokens/s, finite losses, every leaf
    moved (but the bf16 ones that rounding holds: norms at 1), the peak, K2, K3 and K3-bwd launched as many times a step as
    the path needs them and no other kernel, then torch.profiler over one
-   step (``[ssm train profile]``: K3, K3-bwd, K2, the attention backward,
+   step (``[ssm train profile]``: K3, K3-bwd, K2, K2-bwd,
    cuBLAS, AdamW, elementwise); (b) rwkv6-1.6b (24 layers, 1678264320
    params) the same way with K4 and K4-bwd; (c) K3-bwd and K4-bwd on
    layer 0's real train inputs (the forward's own arguments) and a
@@ -558,6 +574,24 @@ def bits_equal(torch, out, ref) -> bool:
     view = torch.int16 if out.element_size() == 2 else torch.int32
     return out.dtype == ref.dtype and out.shape == ref.shape and torch.equal(
         out.contiguous().view(view), ref.contiguous().view(view))
+
+
+# every LM train path, each of which must launch K2-bwd
+LM_TRAIN_PATHS = ("lm train", "lm train cuda vs cpu", "dense configs",
+                  "moe train", "dbrx", "moe cuda vs cpu", "hybrid train",
+                  "ssm train cuda vs cpu", "frontend train musicgen-large",
+                  "frontend train llava-next-34b", "frontend cuda vs cpu",
+                  "sharded train", "sharded olmoe train")
+
+
+def k2_bwd_record(summary: dict, path: str, n: int) -> None:
+    """Add K2-bwd's ``n`` launches to ``path``'s count in
+    ``summary["k2_bwd_paths"]`` (the kernels line reads it); fail if it is
+    0: every LM train path runs the attention backward through the
+    kernel."""
+    check(n > 0, f"{path}: K2-bwd launched {n} times")
+    paths = summary.setdefault("k2_bwd_paths", {})
+    paths[path] = paths.get(path, 0) + n
 
 
 def _row0(torch, arena, kind: str) -> None:
@@ -1149,6 +1183,97 @@ def phase_k2_layer0(torch, FA, plain, res, summary: dict) -> float:
     summary["k2_layer0"] = errs
     torch.cuda.empty_cache()
     return errs["bfloat16"]["max_abs_err"]
+
+
+# phase 6c: K2-bwd against its plain version; (name, B, S, T, Hq, Hkv, hd,
+# causal, window).  The danube layer is 13 (c)'s, on its real q/k/v.
+K2_BWD_CASES = (
+    ("hymba", 2, 4096, 4096, 25, 5, 64, True, 1024),
+    ("musicgen", 2, 2048, 2048, 32, 32, 64, True, None),
+    ("granite", 1, 2048, 2048, 48, 1, 128, True, None),
+    ("non-causal, ragged keys", 2, 300, 1000, 8, 2, 80, False, None),
+    ("non-causal, ragged keys, window 40", 1, 130, 99, 4, 4, 80, False, 40),
+    ("hd 32", 2, 1000, 1000, 8, 4, 32, True, None),
+    ("hd 256", 1, 1000, 1000, 8, 2, 256, True, 300))
+# (max |err| / max |ref|, rms err / rms ref) against plain's float64 run:
+# bf16 rounds P and dS for their products and the gradients once; float32
+# adds up to 4096 terms a sum in float32
+K2_BWD_LIMITS = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-5)}
+
+
+def k2_bwd_case(torch, FA, q, k, v, dout, *, causal: bool, window,
+                what: str) -> dict:
+    """K2-bwd on ``q, k, v`` (bf16 or float32) and ``dout`` from K2's own
+    forward (whose output must not change by storing lse), twice (the
+    same bits), against ``attention_bwd_plain``'s float64 run from a
+    float64 forward by ``K2_BWD_LIMITS``, and against plain on the same
+    inputs (read, not checked).  Launches here are put back."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_plain, attention_plain)
+    name = str(q.dtype).split(".")[-1]
+    n0 = (FA.flash_attention_cuda.launches,
+          FA.flash_attention_bwd_cuda.launches)
+    kw = {"causal": causal, "window": window}
+    bare = FA.flash_attention_cuda(q, k, v, **kw)
+    out, lse = FA.flash_attention_cuda(q, k, v, lse=True, **kw)
+    check(bits_equal(torch, out, bare), f"{what} {name}: K2's output "
+          "changes when it stores lse")
+    del bare
+    grads = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    same = all(bits_equal(torch, a, b) for a, b in zip(grads, again))
+    check(same, f"{what} {name}: two K2-bwd calls differ")
+    del again
+    FA.flash_attention_cuda.launches, FA.flash_attention_bwd_cuda.launches = n0
+    plain = attention_bwd_plain(q, k, v, out, dout, lse, q_chunk=512, **kw)
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    o64, l64 = attention_plain(q64, k64, v64, lse=True, **kw)
+    ref = attention_bwd_plain(q64, k64, v64, o64, dout.double(), l64,
+                              q_chunk=512, **kw)
+    del o64, l64, q64, k64, v64
+    max_rel, rel_rms = K2_BWD_LIMITS[name]
+    err = {"bits_twice": same, "max_abs_vs_plain": 0.0}
+    for g_name, g, p, r in zip(("dq", "dk", "dv"), grads, plain, ref):
+        d = g.double() - r
+        e = {"max_rel_err": float(d.abs().max() / r.abs().max()),
+             "rel_rms_err": float(d.norm() / r.norm()),
+             "max_abs_vs_plain": float((g.float() - p.float()).abs().max())}
+        check(e["max_rel_err"] <= max_rel and e["rel_rms_err"] <= rel_rms,
+              f"{what} {name} {g_name} against float64: {e}")
+        err[g_name] = e
+        err["max_abs_vs_plain"] = max(err["max_abs_vs_plain"],
+                                      e["max_abs_vs_plain"])
+    log(f"[k2-bwd] {what}: q {tuple(q.shape)}, k {tuple(k.shape)}, causal "
+        f"{causal}, window {window}, {name}: K2-bwd against plain's float64 "
+        "run, max |err| / max |ref| (limit "
+        f"{max_rel:g}) / rms err / rms ref (limit {rel_rms:g}): "
+        + ", ".join(f"{g} {err[g]['max_rel_err']:.3g} / "
+                    f"{err[g]['rel_rms_err']:.3g}" for g in ("dq", "dk",
+                                                            "dv"))
+        + f"; max |K2-bwd - plain| {err['max_abs_vs_plain']:.3g}; the same "
+        "bits twice; K2's output the same bits with lse stored")
+    del grads, plain, ref
+    return err
+
+
+def phase_k2_bwd_checks(torch, np, FA) -> dict:
+    """6c: K2-bwd on ``K2_BWD_CASES``, bf16 and float32, by
+    ``k2_bwd_case``."""
+    out = {}
+    for i, (name, B, S, T, Hq, Hkv, hd, causal, window) in enumerate(
+            K2_BWD_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(torch, np, 100 + i, B, S, T, Hq, Hkv, hd, dtype)
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            dout = torch.randn(q.shape, generator=gen, device="cuda").to(
+                dtype)
+            out[f"{name} {str(dtype).split('.')[-1]}"] = k2_bwd_case(
+                torch, FA, q, k, v, dout, causal=causal, window=window,
+                what=name)
+            del q, k, v, dout
+            torch.cuda.empty_cache()
+    return out
 
 
 def lm_mfu(cfg, kind: str, batch: int, seq: int, ms: float) -> float:
@@ -3337,6 +3462,8 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "K2"
+    if "flash_bwd" in low or "bwd_delta" in low:
+        return "K2-bwd"
     if "selective_scan_bwd" in low:
         return "K3-bwd"
     if "wkv6_bwd" in low:
@@ -3365,17 +3492,15 @@ def train_profile(torch, step, params, state, batch, spans=None,
                   classify=_kernel_class, tag: str = "lm train profile",
                   host: bool = True) -> dict:
     """torch.profiler over one train step: kernel ms, idle share, and the
-    shares of each kernel class (``classify``: K2, cuBLAS's GEMMs, ...)
-    and of the attention backward's blockwise recompute (every kernel
-    launched under autograd's ``_FlashAttentionBackward`` node; it
-    overlaps cuBLAS: the recompute's matmuls are cuBLAS's).  ``spans``
+    shares of each kernel class (``classify``: K2, K2-bwd (the attention
+    backward, its three kernels by name), cuBLAS's GEMMs, ...).  ``spans``
     maps more names to ``(pred, outside)``: the device time of the
     outermost host events that ``pred`` holds for and that no event
     ``outside`` holds for encloses.  With ``host=False`` only the device's
     activity is recorded (a deep step's host events take tens of seconds
-    to gather), so the recompute and ``spans`` are not read.  The profiler
-    slows the host, so the idle share is an upper bound.  Log lines start
-    with ``[tag]``."""
+    to gather), so ``spans`` are not read.  The profiler slows the host,
+    so the idle share is an upper bound.  Log lines start with
+    ``[tag]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     check(host or not spans, "spans need the host's events")
@@ -3399,15 +3524,6 @@ def train_profile(torch, step, params, state, batch, spans=None,
         cls = classify(name)
         by_class[cls] = by_class.get(cls, 0.0) + ms
 
-    def attn_bwd(e):
-        return (e is not None and e.device_type == DeviceType.CPU
-                and e.name.endswith("_FlashAttentionBackward"))
-
-    # the engine's evaluate_function event holds the node's own: count
-    # the outermost only
-    recompute = sum(e.device_time_total for e in prof.events()
-                    if attn_bwd(e) and not attn_bwd(e.cpu_parent)
-                    ) / 1e3 if host else None
     more = {}
     for name, (pred, outside) in (spans or {}).items():
         more[name] = sum(
@@ -3416,8 +3532,6 @@ def train_profile(torch, step, params, state, batch, spans=None,
             and not _under(e, pred)
             and not (outside and (outside(e) or _under(e, outside)))) / 1e3
     ms = {**by_class, **more}
-    if host:
-        ms["attention backward"] = recompute
     from repro_torch.profiling.microbench import kernel_name
     out = {"wall_ms": wall_ms, "kernel_ms": busy,
            "idle_share": 1 - busy / wall_ms if busy else None,
@@ -3432,9 +3546,7 @@ def train_profile(torch, step, params, state, batch, spans=None,
             f"{busy:.1f} ms (idle share <= {out['idle_share']:.3f}); "
             + ", ".join(f"{k} {by_class[k]:.1f} ms ({out['share'][k]:.3f})"
                         for k in classes)
-            + (f"; attention backward (blockwise recompute) {recompute:.1f} "
-               f"ms ({out['share']['attention backward']:.3f})" if host
-               else "; the device's activity only") + "".join(
+            + ("" if host else "; the device's activity only") + "".join(
                 f"; {k} {v:.1f} ms ({out['share'][k]:.3f})"
                 for k, v in more.items()))
     else:
@@ -3445,9 +3557,12 @@ def train_profile(torch, step, params, state, batch, spans=None,
 
 
 def attention_backward_ms(torch, FA, q, k, v, window, chunks) -> float:
-    """CUDA-event ms of the op's backward (the blockwise recompute) on one
-    layer's q/k/v at the train shape, median of 3 after a warm-up."""
+    """CUDA-event ms of the op's backward (K2-bwd) on one layer's q/k/v at
+    the train shape, median of 3 after a warm-up.  Its launches are put
+    back."""
     from repro_torch.kernels.flash_attention import ops
+    n0 = (FA.flash_attention_cuda.launches,
+          FA.flash_attention_bwd_cuda.launches)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = ops.flash_attention(qs, ks, vs, window=window, q_chunk=chunks,
                               kv_chunk=chunks)
@@ -3462,6 +3577,7 @@ def attention_backward_ms(torch, FA, q, k, v, window, chunks) -> float:
         t1.synchronize()
         if i:
             times.append(t0.elapsed_time(t1))
+    FA.flash_attention_cuda.launches, FA.flash_attention_bwd_cuda.launches = n0
     return sorted(times)[1]
 
 
@@ -3500,7 +3616,12 @@ def lm_train_full(torch, np, FA, counters, summary: dict) -> tuple:
     check(launches == cfg.n_layers * n_steps,
           f"K2 launched {launches} times in {n_steps} steps of "
           f"{cfg.n_layers} layers")
-    check_idle(counters, (FA.flash_attention_cuda,), "the LM train path")
+    check(FA.flash_attention_bwd_cuda.launches == cfg.n_layers * n_steps,
+          f"K2-bwd launched {FA.flash_attention_bwd_cuda.launches} times in "
+          f"{n_steps} steps of {cfg.n_layers} layers")
+    k2_bwd_record(summary, "lm train", FA.flash_attention_bwd_cuda.launches)
+    check_idle(counters, (FA.flash_attention_cuda,
+                          FA.flash_attention_bwd_cuda), "the LM train path")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = sorted(times)[len(times) // 2]
@@ -3520,22 +3641,26 @@ def lm_train_full(torch, np, FA, counters, summary: dict) -> tuple:
         f"{step_ms:.2f}, mfu {out['mfu']:.3f}, 1 warm-up step before), "
         f"{out['tokens_per_s']:.0f} "
         f"tokens/s; losses {[round(x, 4) for x in losses]}; peak memory "
-        f"{peak / 1e9:.2f} GB; K2 launches {launches // n_steps} a step")
+        f"{peak / 1e9:.2f} GB; K2 and K2-bwd launches {launches // n_steps} "
+        "a step")
     for c in counters:
         c.launches = 0
     out["profile"] = train_profile(torch, step, params, state, batches[0])
-    check(FA.flash_attention_cuda.launches == cfg.n_layers,
-          "K2 launches in the profiled step")
+    check(FA.flash_attention_cuda.launches == cfg.n_layers
+          and FA.flash_attention_bwd_cuda.launches == cfg.n_layers,
+          "K2 and K2-bwd launches in the profiled step")
     launches += FA.flash_attention_cuda.launches
+    k2_bwd_record(summary, "lm train", FA.flash_attention_bwd_cuda.launches)
     del state, batches
     torch.cuda.empty_cache()
     bwd_ms = attention_backward_ms(torch, FA, *qkv, cfg.sliding_window,
                                    model.q_chunk)
     out["attention_backward_ms_per_layer"] = bwd_ms
     out["attention_backward_share"] = bwd_ms * cfg.n_layers / step_ms
-    log(f"[lm train] the attention backward alone (layer 0's q/k/v, CUDA "
-        f"events): {bwd_ms:.2f} ms a layer, {bwd_ms * cfg.n_layers:.1f} ms "
-        f"a step, {out['attention_backward_share']:.3f} of the median step")
+    log(f"[lm train] the attention backward (K2-bwd) alone (layer 0's "
+        f"q/k/v, CUDA events, with the op's autograd): {bwd_ms:.2f} ms a "
+        f"layer, {bwd_ms * cfg.n_layers:.1f} ms a step, "
+        f"{out['attention_backward_share']:.3f} of the median step")
     del params
     torch.cuda.empty_cache()
     summary["lm_train"] = out
@@ -3571,6 +3696,10 @@ def lm_train_cross_device(torch, np, FA, counters, summary: dict) -> int:
     step(params, opt.init(tree_leaves(params)), batch)
     launches = FA.flash_attention_cuda.launches
     check(launches == 2 * cfg.n_layers, f"K2 launched {launches} times")
+    check(FA.flash_attention_bwd_cuda.launches == 2 * cfg.n_layers,
+          f"K2-bwd launched {FA.flash_attention_bwd_cuda.launches} times")
+    k2_bwd_record(summary, "lm train cuda vs cpu",
+                  FA.flash_attention_bwd_cuda.launches)
     cg, closs, _ = ST.make_grad_fn(cpu)(cparams, cbatch)
     copt, cstep = ST.make_train_step(cpu, lr=lr)
     cstep(cparams, copt.init(tree_leaves(cparams)), cbatch)
@@ -3668,18 +3797,113 @@ def k2_train_forward_check(torch, FA, plain, q, k, v, window, what: str,
     return err
 
 
+def k2_bwd_yardstick(torch, FA, qkv, window, summary: dict) -> dict:
+    """K2-bwd, its plain version and SDPA's backward (the yardstick, never
+    on the path) on 13 (a)'s layer 0 q/k/v (bf16, causal, ``window``)
+    and a seeded dout, beside the bound: 10 hd FLOPs a (query, key) pair
+    and query head at the bf16 peak, against the bytes (q, k, v, out,
+    dout and lse read once, dq, dk, dv written once).  Its row of the
+    kernels line goes to ``summary["k2_bwd_row"]``."""
+    from repro_torch.kernels.flash_attention.ops import attended_pairs
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_plain, attention_mask)
+    from repro_torch.profiling.microbench import median_time_ms
+    q, k, v = qkv
+    B, S, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    n0 = (FA.flash_attention_cuda.launches,
+          FA.flash_attention_bwd_cuda.launches)
+    out, lse = FA.flash_attention_cuda(q, k, v, window=window, lse=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+
+    def kernel(*args):
+        return FA.flash_attention_bwd_cuda(*args, window=window)
+
+    def pl(*args):
+        return attention_bwd_plain(*args, window=window, q_chunk=1024)
+
+    args = (q, k, v, out, dout, lse)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(kernel(*args), pl(*args)))
+    ms = median_time_ms(kernel, args, warmup=2, repeats=10)
+    plain_ms = median_time_ms(pl, args, warmup=1, repeats=3)
+    torch.cuda.empty_cache()
+    # SDPA's backward on the same values, its KV heads expanded (its
+    # flash route takes no GQA); causal alone where the window covers S
+    causal_only = window is None or window >= S
+    mask = None if causal_only else attention_mask(
+        S, S, causal=True, window=window, device="cuda")
+    qe, ke, ve = (t.transpose(1, 2).detach().requires_grad_(True) for t in (
+        q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qe, ke, ve, attn_mask=mask, is_causal=causal_only)
+    do = dout.transpose(1, 2)
+
+    def sdpa_bwd(g):
+        return torch.autograd.grad(o, (qe, ke, ve), g, retain_graph=True)
+    library_ms = median_time_ms(sdpa_bwd, (do,), warmup=2, repeats=10)
+    del o, qe, ke, ve, do, mask
+    FA.flash_attention_cuda.launches, FA.flash_attention_bwd_cuda.launches = n0
+    pairs = attended_pairs(S, S, causal=True, window=window)
+    flops = 10 * hd * pairs * B * Hq
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + lse.numel() * 4
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/layers.py:46 (JAX's autodiff of "
+                       "flash_attention's blockwise lax.scan; no Pallas "
+                       "kernel)",
+           "design": "mma.sync m16n8k16 (bf16 tensor cores), dK/dV and dQ "
+                     "kernels, cp.async two-stage tiles",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "library_ms": library_ms}
+    summary["k2_bwd_row"] = row
+    summary["k2_bwd_yardstick"] = {
+        "shape": [B, S, Hq, k.shape[2], hd], "window": window,
+        "dtype": "bfloat16", "pairs_per_head": pairs, "flops": flops,
+        "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "tflops": flops / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms,
+        "sdpa_masked": not causal_only, **row}
+    log(f"[k2-bwd yardstick] danube's layer 0 (13 (a)): q {tuple(q.shape)}, "
+        f"k/v {tuple(k.shape)} bf16, causal, window {window}, {pairs} pairs "
+        f"per head: K2-bwd {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s, {bound_ms / ms:.1%} of the bound), plain {plain_ms:.2f} "
+        f"ms, SDPA's backward {library_ms:.3f} ms (KV heads expanded"
+        f"{', causal' if causal_only else ', masked'}), bound "
+        f"{bound_ms:.3f} ms ({row['bound_by']}); max |K2-bwd - plain| "
+        f"{err:.3g}")
+    del out, lse, dout
+    torch.cuda.empty_cache()
+    return row
+
+
 def lm_train_kernel_checks(torch, FA, plain, qkv, window, chunk,
                            summary: dict) -> dict:
     """13 (c): K2's training forward on layer 0's real q/k/v of 13 (a)'s
     first step (the whole batch, 2 x 4096 tokens) against plain, with two
-    faulty controls, and the op's dq/dk/dv (the first 1024 queries of both
-    rows, bf16 and float32) against a float64 autograd of
+    faulty controls; K2-bwd on the same q/k/v by ``k2_bwd_case`` (bf16 and
+    float32); and the op's dq/dk/dv (the first 1024 queries of both rows,
+    bf16 and float32, through K2-bwd) against a float64 autograd of
     ``attention_plain``.  Launches here are not counted."""
     from repro_torch.kernels.flash_attention import ops
     q, k, v = qkv
     errs = {"forward": k2_train_forward_check(
         torch, FA, plain, q, k, v, window, "layer 0 of the train batch",
         controls=True)}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        errs[f"k2_bwd {str(dt).split('.')[-1]}"] = k2_bwd_case(
+            torch, FA, q.to(dt), k.to(dt), v.to(dt), dout.to(dt),
+            causal=True, window=window, what="danube layer 0 (13 (a)'s "
+            "first batch)")
+        torch.cuda.empty_cache()
+    del dout
     S = GRAD_CHECK_SEQ
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (t[:, :S].contiguous() for t in (q, k, v))
@@ -3688,9 +3912,9 @@ def lm_train_kernel_checks(torch, FA, plain, qkv, window, chunk,
     ref = torch.autograd.grad(
         attention_dense(torch, q64, k64, v64, window, torch.float64),
         (q64, k64, v64), dout.double())
-    limits = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-5)}
-    n0 = FA.flash_attention_cuda.launches
-    for name, (max_rel, rel_rms) in limits.items():
+    n0 = (FA.flash_attention_cuda.launches,
+          FA.flash_attention_bwd_cuda.launches)
+    for name, (max_rel, rel_rms) in K2_BWD_LIMITS.items():
         dt = getattr(torch, name)
         args = [t.to(dt).requires_grad_(True) for t in (q, k, v)]
         out = ops.flash_attention(*args, window=window, q_chunk=chunk,
@@ -3712,7 +3936,7 @@ def lm_train_kernel_checks(torch, FA, plain, qkv, window, chunk,
                 f"{err['max_abs_ref']:.3g} = {err['max_rel_err']:.3g} "
                 f"(limit {max_rel:g}), rms err / rms ref "
                 f"{err['rel_rms_err']:.3g} (limit {rel_rms:g})")
-    FA.flash_attention_cuda.launches = n0
+    FA.flash_attention_cuda.launches, FA.flash_attention_bwd_cuda.launches = n0
     summary["lm_train_kernel_checks"] = errs
     torch.cuda.empty_cache()
     return errs
@@ -3763,6 +3987,7 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
                                   n_layers=DENSE_LAYERS).resolve(1)
         check(cfg.head_dim == 128, f"{arch} head_dim {cfg.head_dim}")
         n0 = FA.flash_attention_cuda.launches
+        b0 = FA.flash_attention_bwd_cuda.launches
         torch.cuda.reset_peak_memory_stats()
         model = ST.build_model(cfg, remat=False, device="cuda")
         params = model.init_params(0)
@@ -3795,6 +4020,9 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
               f"{arch} token ids in range")
         k2 = FA.flash_attention_cuda.launches - n0
         check(k2 == 2 * cfg.n_layers, f"{arch}: K2 launched {k2} times")
+        check(FA.flash_attention_bwd_cuda.launches - b0 == cfg.n_layers,
+              f"{arch}: K2-bwd launched "
+              f"{FA.flash_attention_bwd_cuda.launches - b0} times")
         out[arch] = {"params": n_params, "loss": loss, "train_s": train_s,
                      "prefill_ms": served["prefill_ms"],
                      "decode_ms_per_token": served["decode_ms_per_token"],
@@ -3818,7 +4046,10 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
         del params, logits, batch, served
         torch.cuda.empty_cache()
     launches = FA.flash_attention_cuda.launches
-    check_idle(counters, (FA.flash_attention_cuda,), "the dense configs")
+    k2_bwd_record(summary, "dense configs",
+                  FA.flash_attention_bwd_cuda.launches)
+    check_idle(counters, (FA.flash_attention_cuda,
+                          FA.flash_attention_bwd_cuda), "the dense configs")
     summary["lm_dense"] = out
     return launches
 
@@ -3826,13 +4057,14 @@ def lm_dense_configs(torch, np, FA, plain, counters, summary: dict) -> int:
 def phase_lm_train(torch, np, FA, plain, counters, summary: dict) -> dict:
     """The LM train path; returns K2's launches by path."""
     launches = {}
+    from repro_torch.configs import get_full
+    window = get_full(ARCH).sliding_window
     launches["lm train"], qkv = lm_train_full(torch, np, FA, counters,
                                               summary)
+    k2_bwd_yardstick(torch, FA, qkv, window, summary)
     launches["lm train cuda vs cpu"] = lm_train_cross_device(
         torch, np, FA, counters, summary)
-    from repro_torch.configs import get_full
-    lm_train_kernel_checks(torch, FA, plain, qkv,
-                           get_full(ARCH).sliding_window, 1024, summary)
+    lm_train_kernel_checks(torch, FA, plain, qkv, window, 1024, summary)
     del qkv
     launches["dense configs"] = lm_dense_configs(torch, np, FA, plain,
                                                  counters, summary)
@@ -3898,14 +4130,10 @@ class _MoESpans:
             setattr(self.L, n, fn)
 
 
-def _attn_bwd(e) -> bool:
-    return e.name.endswith("_FlashAttentionBackward")
-
-
 MOE_PROFILE_SPANS = {
     # bmm is the experts' (attention projections are mm; the attention
-    # backward's recompute, whose einsums are bmm, is left out)
-    "expert GEMMs": (lambda e: e.name == "aten::bmm", _attn_bwd),
+    # backward is K2-bwd's own kernels)
+    "expert GEMMs": (lambda e: e.name == "aten::bmm", None),
     "dispatch and combine": (lambda e: e.name == "moe.dispatch_combine",
                              None),
     "routing": (lambda e: e.name == "moe.route", None)}
@@ -4009,7 +4237,12 @@ def moe_train(torch, np, FA, counters, params, summary: dict) -> tuple:
     per_step = 2 * cfg.n_layers        # remat runs each forward twice
     check(launches == per_step * n_steps,
           f"K2 launched {launches} times in {n_steps} steps")
-    check_idle(counters, (FA.flash_attention_cuda,), "the MoE path")
+    check(FA.flash_attention_bwd_cuda.launches == cfg.n_layers * n_steps,
+          f"K2-bwd launched {FA.flash_attention_bwd_cuda.launches} times in "
+          f"{n_steps} steps")
+    k2_bwd_record(summary, "moe train", FA.flash_attention_bwd_cuda.launches)
+    check_idle(counters, (FA.flash_attention_cuda,
+                          FA.flash_attention_bwd_cuda), "the MoE path")
     check(all(math.isfinite(x) for x in losses + auxs),
           f"losses {losses}, aux {auxs}")
     peak = torch.cuda.max_memory_allocated()
@@ -4061,6 +4294,8 @@ def moe_train(torch, np, FA, counters, params, summary: dict) -> tuple:
         f"{out['grad_ms']:.1f} ms, AdamW {out['adamw_ms']:.1f} ms "
         f"({out['adamw_ms'] / step_ms:.3f} of the median step)")
     launches += FA.flash_attention_cuda.launches - per_step
+    # the profiled step's and this one's
+    k2_bwd_record(summary, "moe train", FA.flash_attention_bwd_cuda.launches)
     del state, batches, grads
     torch.cuda.empty_cache()
     summary["moe_train"] = out
@@ -4107,7 +4342,9 @@ def moe_dbrx(torch, np, FA, plain, counters, summary: dict) -> int:
           f"dbrx loss {loss}, aux {aux}")
     launches = FA.flash_attention_cuda.launches
     check(launches == 2 * cfg.n_layers, f"dbrx: K2 launched {launches}")
-    check_idle(counters, (FA.flash_attention_cuda,), "the MoE path")
+    k2_bwd_record(summary, "dbrx", FA.flash_attention_bwd_cuda.launches)
+    check_idle(counters, (FA.flash_attention_cuda,
+                          FA.flash_attention_bwd_cuda), "the MoE path")
     peak = torch.cuda.max_memory_allocated()
     mfu = {"train": lm_mfu(cfg, "train", 2, DENSE_SEQ, train_s * 1e3),
            "prefill": lm_mfu(cfg, "prefill", 2, DENSE_SEQ,
@@ -4215,6 +4452,8 @@ def moe_cross_device(torch, np, FA, counters, summary: dict) -> int:
             f"greedy tokens equal {gpu['tokens'][0].tolist()}")
     launches = FA.flash_attention_cuda.launches
     check(launches == 2 * 2 * 2, f"K2 launched {launches} times")
+    k2_bwd_record(summary, "moe cuda vs cpu",
+                  FA.flash_attention_bwd_cuda.launches)
     # determinism: the ordered combine and its transpose, at olmoe's width
     from repro_torch.configs import get_full
     cfg = get_full(MOE_ARCH)
@@ -4780,6 +5019,7 @@ def ssm_train(torch, np, FA, SS, WK, counters, arch: str,
     expect = {id(scan): fwd_per_step, id(grad): n}
     if hybrid:
         expect[id(FA.flash_attention_cuda)] = fwd_per_step
+        expect[id(FA.flash_attention_bwd_cuda)] = n
     for c in counters:                         # counts of this path only
         c.launches = 0
     losses, times = [], []
@@ -5079,6 +5319,8 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
                                "hymba-1.5b", summary)
     for key in ("k2", "k3", "k3_bwd"):
         paths[key]["hybrid train"] = launches[names[key]]
+    k2_bwd_record(summary, "hybrid train",
+                  launches[type(FA.flash_attention_bwd_cuda).__name__])
     legs["a hymba train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     checks["k3_bwd"] = k3_grad_checks(torch, SS, args)
@@ -5163,6 +5405,8 @@ def phase_ssm_train(torch, np, FA, SS, WK, counters, summary: dict) -> dict:
     launches = ssm_train_cross_device(torch, np, counters, summary)
     for key in paths:
         paths[key]["ssm train cuda vs cpu"] = launches[names[key]]
+    k2_bwd_record(summary, "ssm train cuda vs cpu",
+                  launches[type(FA.flash_attention_bwd_cuda).__name__])
     legs["d cuda vs cpu"] = time.perf_counter() - t0
     summary["ssm_grad_checks"] = checks
     for name, secs in legs.items():
@@ -5328,7 +5572,13 @@ def frontend_train(torch, FA, counters, cfg, params, n_timed: int,
     check(launches == cfg.n_layers * n_steps,
           f"{cfg.name}: K2 launched {launches} times in {n_steps} steps of "
           f"{cfg.n_layers} layers")
-    check_idle(counters, (FA.flash_attention_cuda,),
+    check(FA.flash_attention_bwd_cuda.launches == cfg.n_layers * n_steps,
+          f"{cfg.name}: K2-bwd launched {FA.flash_attention_bwd_cuda.launches}"
+          f" times in {n_steps} steps")
+    k2_bwd_record(summary, f"frontend train {cfg.name}",
+                  FA.flash_attention_bwd_cuda.launches)
+    check_idle(counters, (FA.flash_attention_cuda,
+                          FA.flash_attention_bwd_cuda),
                f"the {cfg.name} train path")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     peak = torch.cuda.max_memory_allocated()
@@ -5359,17 +5609,18 @@ def frontend_train(torch, FA, counters, cfg, params, n_timed: int,
     out["profile"] = train_profile(torch, step, params, state, batches[0],
                                    tag=f"frontend train profile {cfg.name}",
                                    host=False)
-    check(FA.flash_attention_cuda.launches == cfg.n_layers,
-          f"{cfg.name}: K2 launches in the profiled step")
+    check(FA.flash_attention_cuda.launches == cfg.n_layers
+          and FA.flash_attention_bwd_cuda.launches == cfg.n_layers,
+          f"{cfg.name}: K2 and K2-bwd launches in the profiled step")
     launches += FA.flash_attention_cuda.launches
+    k2_bwd_record(summary, f"frontend train {cfg.name}",
+                  FA.flash_attention_bwd_cuda.launches)
     del state, batches, params
     torch.cuda.empty_cache()
-    # the attention backward (the op's blockwise recompute) alone, by CUDA
-    # events on layer 0's q/k/v; its forward's K2 launch is not counted
-    n0 = FA.flash_attention_cuda.launches
+    # the attention backward (K2-bwd) alone, by CUDA events on layer 0's
+    # q/k/v; its launches are not counted
     bwd_ms = attention_backward_ms(torch, FA, *qkv, cfg.sliding_window,
                                    model.q_chunk)
-    FA.flash_attention_cuda.launches = n0
     out["attention_backward_ms_per_layer"] = bwd_ms
     out["attention_backward_share"] = bwd_ms * cfg.n_layers / step_ms
     log(f"[frontend train] {cfg.name}: the attention backward alone (layer "
@@ -5455,7 +5706,10 @@ def frontend_cross_device(torch, np, FA, counters, summary: dict) -> int:
     launches = FA.flash_attention_cuda.launches
     check(launches == 2 * 2 * 2, f"K2 launched {launches} times (a prefill "
           "and a forward of 2 layers an arch)")
-    check_idle(counters, (FA.flash_attention_cuda,),
+    k2_bwd_record(summary, "frontend cuda vs cpu",
+                  FA.flash_attention_bwd_cuda.launches)
+    check_idle(counters, (FA.flash_attention_cuda,
+                          FA.flash_attention_bwd_cuda),
                "the frontends' cuda vs cpu")
     summary["frontend_cross_device"] = out
     return launches
@@ -5773,7 +6027,8 @@ def shard_train(torch, np, FA, SS, WK, counters, mesh, rules, arch: str,
     batches = [_lm_batch(torch, np, cfg.vocab, SHARD_TRAIN_BATCH,
                          SHARD_TRAIN_SEQ, SHARD_DEVICE, seed=i)
                for i in range(1 + SHARD_TRAIN_TIMED)]
-    expect = {id(FA.flash_attention_cuda): n}
+    expect = {id(FA.flash_attention_cuda): n,
+              id(FA.flash_attention_bwd_cuda): n}
     if hybrid:
         expect.update({id(SS.selective_scan_cuda): n,
                        id(SS.selective_scan_grad_cuda): n})
@@ -5918,6 +6173,8 @@ def phase_sharded(torch, np, FA, SS, WK, plain, counters,
                               "hymba-1.5b", summary)
             for k in ("k2", "k3", "k3_bwd"):
                 paths[k]["sharded train"] = res["launches"][names[k]]
+            k2_bwd_record(summary, "sharded train", res["launches"][
+                type(FA.flash_attention_bwd_cuda).__name__])
             legs["b hymba train"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             checks["k3_bwd"] = k3_grad_checks(torch, SS, res["scan"])
@@ -5948,6 +6205,8 @@ def phase_sharded(torch, np, FA, SS, WK, plain, counters,
             res = shard_train(torch, np, FA, SS, WK, counters, mesh, rules,
                               "olmoe-1b-7b", summary)
             paths["k2"]["sharded olmoe train"] = res["launches"][names["k2"]]
+            k2_bwd_record(summary, "sharded olmoe train", res["launches"][
+                type(FA.flash_attention_bwd_cuda).__name__])
             del res
             torch.cuda.empty_cache()
             legs["f olmoe train"] = time.perf_counter() - t0
@@ -6229,17 +6488,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     counters = (K.embedding_bag_cuda, K.embedding_bag_grad_cuda,
-                FA.flash_attention_cuda, SS.selective_scan_cuda,
-                SS.selective_scan_grad_cuda, WK.wkv6_cuda,
-                WK.wkv6_grad_cuda)
+                FA.flash_attention_cuda, FA.flash_attention_bwd_cuda,
+                SS.selective_scan_cuda, SS.selective_scan_grad_cuda,
+                WK.wkv6_cuda, WK.wkv6_grad_cuda)
     phases: dict = {}
     summary: dict = {"torch": torch.__version__, "cuda": torch.version.cuda,
                      "phase_s": phases}
     summary["nvidia_smi"] = run("1 device", phase_device, phases=phases)
     summary["build_s"] = run(
-        "2 build K1, K2, K3 and K4", phase_build,
+        "2 build K1, K2, K2-bwd, K3 and K4", phase_build,
         {"K1": (K.LIBRARY, None),
          "K2": (FA.LIBRARY, "flash_fwd_tc_kernel"),
+         "K2-bwd": (FA.BWD_LIBRARY, "_tc_kernel"),
          "K3": (SS.LIBRARY, None), "K4": (WK.LIBRARY, None)}, phases=phases)
     summary["kernel_check_cases"] = run(
         "3 K1 checks", phase_kernel_checks, torch, np, K,
@@ -6258,6 +6518,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["k2_check_max_abs_err"] = run(
         "6 K2 checks", phase_k2_checks, torch, np, FA, attention_plain,
+        phases=phases)
+    summary["k2_bwd_checks"] = run(
+        "6c K2-bwd checks", phase_k2_bwd_checks, torch, np, FA,
         phases=phases)
     res, k2_launches = run("7 LM serve path", phase_serve, torch, counters,
                            FA, summary, phases=phases)
@@ -6321,6 +6584,9 @@ def main() -> int:
         counters, summary, phases=phases)
     for key, by_path in shard.items():
         ssm["paths"][key].update(by_path)
+    check(sorted(summary["k2_bwd_paths"]) == sorted(LM_TRAIN_PATHS),
+          f"K2-bwd's paths {sorted(summary['k2_bwd_paths'])}, not "
+          f"{LM_TRAIN_PATHS}")
     # each kernel's launches on each path it serves, summed
     k1_paths = {"place and measure": k1_launches,
                 "train": train_launches["fwd"],
@@ -6338,6 +6604,9 @@ def main() -> int:
              "launches_by_path": bwd_paths},
             {**k2_row, "launches": k2_launches + sum(lm_launches.values()),
              "launches_by_path": {"serve": k2_launches, **lm_launches}},
+            {**summary["k2_bwd_row"],
+             "launches": sum(summary["k2_bwd_paths"].values()),
+             "launches_by_path": summary["k2_bwd_paths"]},
             *({**ssm["rows"][key],
                "launches": sum(ssm["paths"][key].values()),
                "launches_by_path": ssm["paths"][key]}

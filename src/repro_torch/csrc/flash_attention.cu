@@ -23,6 +23,14 @@
 // Only the tensor cores can approach it: float32 on the CUDA cores (67
 // TFLOP/s) needs at least 7.7 ms.
 //
+// Training also asks for each row's log-sum-exp of the scaled scores,
+// lse = log(sum_k exp(q . k * scale)), (B, Hq, S) float32, which the
+// backward (csrc/flash_attention_bwd.cu) reads instead of recomputing the
+// softmax's statistics.  Both kernels store it after their last key tile
+// where the caller passes an lse pointer (a null pointer stores nothing,
+// as when serving); it changes no arithmetic of the output.  A row with no
+// valid key stores +inf, so that the backward's P is 0 there.
+//
 // Which dtype takes which kernel:
 //
 // * bfloat16 -> flash_fwd_tc_kernel, on the tensor cores with wgmma
@@ -165,7 +173,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const typename IO::T* __restrict__ q,
                      const typename IO::T* __restrict__ k,
                      const typename IO::T* __restrict__ v,
-                     typename IO::T* __restrict__ o, int S, int T, int Hq,
+                     typename IO::T* __restrict__ o,
+                     float* __restrict__ lse, int S, int T, int Hq,
                      int Hkv, int causal, int window, float scale) {
   using Sm = Smem<HD>;
   constexpr int kCols = (HD + kWarp - 1) / kWarp;  // columns per lane
@@ -298,13 +307,16 @@ __global__ void __launch_bounds__(kThreads)
       const int d = lane + c * kWarp;
       if (d < HD) orow[d] = IO::from_float(acc[r][c] * inv);
     }
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * S + qp] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : __int_as_float(0x7f800000);
   }
 }
 
 template <int HD, class IO>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int T, int Hq, int Hkv, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int S, int T, int Hq, int Hkv,
+                   int causal, int window, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<HD, IO>;
   const int bytes = static_cast<int>(Smem<HD>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(
@@ -314,32 +326,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + kQTile - 1) / kQTile, B * Hq);
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T_*>(q), static_cast<const T_*>(k),
-      static_cast<const T_*>(v), static_cast<T_*>(o), S, T, Hq, Hkv, causal,
-      window, scale);
+      static_cast<const T_*>(v), static_cast<T_*>(o), lse, S, T, Hq, Hkv,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 template <class IO>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     void* o, int B, int S, int T, int Hq, int Hkv,
-                     int causal, int window, float scale,
+                     void* o, float* lse, int B, int S, int T, int Hq,
+                     int Hkv, int causal, int window, float scale,
                      cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<32, IO>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                            scale, stream);
+      return launch<32, IO>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                            causal, window, scale, stream);
     case 64:
-      return launch<64, IO>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                            scale, stream);
+      return launch<64, IO>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                            causal, window, scale, stream);
     case 80:
-      return launch<80, IO>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                            scale, stream);
+      return launch<80, IO>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                            causal, window, scale, stream);
     case 128:
-      return launch<128, IO>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                             scale, stream);
+      return launch<128, IO>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                             causal, window, scale, stream);
     case 256:
-      return launch<256, IO>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                             scale, stream);
+      return launch<256, IO>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                             causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -691,8 +703,9 @@ template <int HD>
 __global__ void __launch_bounds__(TcCfg<HD>::kThreads, TcCfg<HD>::kMinBlocks)
     flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                        int S, int T, int Hq, int Hkv, int causal, int window,
-                        float scale_log2, int n_qtiles) {
+                        float* __restrict__ lse, int S, int T, int Hq,
+                        int Hkv, int causal, int window, float scale_log2,
+                        int n_qtiles) {
   using C = TcCfg<HD>;
   constexpr int kKeys = C::kKeys;
   const float kInf = __int_as_float(0x7f800000);
@@ -894,6 +907,9 @@ __global__ void __launch_bounds__(TcCfg<HD>::kThreads, TcCfg<HD>::kMinBlocks)
     const float inv = 1.f / fmaxf(sum, 1e-20f);
     const int row = row0 + 8 * hf;
     if (row >= S) continue;
+    if (lse != nullptr && lane % 4 == 0)  // m is in log2 units
+      lse[static_cast<int64_t>(bh) * S + row] =
+          m[hf] == -kInf ? kInf : (m[hf] + log2f(sum)) * 0.6931471805599453f;
     bf16* orow = ob + static_cast<int64_t>(row) * q_row + col0;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -905,8 +921,9 @@ __global__ void __launch_bounds__(TcCfg<HD>::kThreads, TcCfg<HD>::kMinBlocks)
 
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int T, int Hq, int Hkv, int causal,
-                      int window, float scale, cudaStream_t stream) {
+                      float* lse, int B, int S, int T, int Hq, int Hkv,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
   // the row max is taken on the unscaled scores, which needs scale > 0
   if (!(scale > 0.f)) return cudaErrorInvalidValue;
   auto kern = flash_fwd_tc_kernel<HD>;
@@ -920,31 +937,31 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   kern<<<static_cast<unsigned>(blocks), TcCfg<HD>::kThreads, bytes,
          stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, T, Hq, Hkv,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, T, Hq, Hkv,
       causal, window, scale * 1.4426950408889634f, n_qtiles);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_tc(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int S, int T, int Hq, int Hkv,
-                        int causal, int window, float scale,
+                        void* o, float* lse, int B, int S, int T, int Hq,
+                        int Hkv, int causal, int window, float scale,
                         cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_tc<32>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                           scale, stream);
+      return launch_tc<32>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                           causal, window, scale, stream);
     case 64:
-      return launch_tc<64>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                           scale, stream);
+      return launch_tc<64>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                           causal, window, scale, stream);
     case 80:
-      return launch_tc<80>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                           scale, stream);
+      return launch_tc<80>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                           causal, window, scale, stream);
     case 128:
-      return launch_tc<128>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                            scale, stream);
+      return launch_tc<128>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                            causal, window, scale, stream);
     case 256:
-      return launch_tc<256>(q, k, v, o, B, S, T, Hq, Hkv, causal, window,
-                            scale, stream);
+      return launch_tc<256>(q, k, v, o, lse, B, S, T, Hq, Hkv,
+                            causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -958,9 +975,11 @@ extern "C" {
 // contiguous, 16-byte aligned, float32 (is_bf16 = 0: the CUDA-core
 // kernel) or bfloat16 (is_bf16 = 1: the tensor-core kernel, which takes
 // scale > 0 only); hd in {32, 64, 80, 128, 256}; Hq % Hkv == 0; window <= 0
-// means none.  Returns the cudaError_t of the launch (0 = success).
+// means none.  lse: (B, Hq, S) float32 for the row log-sum-exp, or null.
+// Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* o, int is_bf16, int head_dim, int batch,
+                        void* o, float* lse, int is_bf16, int head_dim,
+                        int batch,
                         int s_len, int t_len, int n_q_heads, int n_kv_heads,
                         int causal, int window, float scale, int device,
                         void* stream) {
@@ -968,10 +987,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    err = dispatch_tc(head_dim, q, k, v, o, batch, s_len, t_len, n_q_heads,
-                      n_kv_heads, causal, window, scale, s);
+    err = dispatch_tc(head_dim, q, k, v, o, lse, batch, s_len, t_len,
+                      n_q_heads, n_kv_heads, causal, window, scale, s);
   else
-    err = dispatch<F32IO>(head_dim, q, k, v, o, batch, s_len, t_len,
+    err = dispatch<F32IO>(head_dim, q, k, v, o, lse, batch, s_len, t_len,
                           n_q_heads, n_kv_heads, causal, window, scale, s);
   return static_cast<int>(err);
 }

@@ -5,8 +5,9 @@ The counterpart of ``repro/models/layers.py``, with its casts: float32
 inside rms_norm, rope and the activations, then back to the stream dtype.
 Train and prefill attention go to the flash attention op (K2 on the
 card, its plain version on the CPU) with KV heads unexpanded; the op's
-backward differentiates ``chunk_attention``, one query chunk of the
-reference's blockwise scan in plain torch.  Decode attends a KV cache
+backward is K2-bwd on the card and its plain version on the CPU.
+``blockwise_attention`` is the reference's blockwise scan in plain torch.
+Decode attends a KV cache
 with position masking.  ``moe_apply`` routes each token to its top-k
 experts by the reference's block-local sort-based capacity dispatch, the
 experts split over the model axis' ranks (``moe_experts``).
@@ -68,8 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd), KV heads unexpanded ->
     (B, S, Hq, hd).  Query head h reads KV head h // G, the reference's
     ``kv_map`` expansion where no head is padded (``LM._attend`` expands
-    the KV heads first where the map differs).  The chunks are those of
-    the backward's blockwise recompute."""
+    the KV heads first where the map differs).  ``q_chunk`` is the plain
+    backward's block of queries (the CPU's)."""
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
 

@@ -52,8 +52,8 @@ Inputs may be plain tensors (every rank passes the global batch) or
 DTensors; outputs are DTensors.
 
 Train and prefill attention run through the flash attention op (K2 on
-the card; its backward recomputes the blockwise scan in
-``q_chunk``/``kv_chunk`` blocks); the SSM's and RWKV's scans over time
+the card, and its backward through K2-bwd; on the CPU the plain backward
+walks ``q_chunk`` blocks of queries); the SSM's and RWKV's scans over time
 run through K3 and K4 on the card, and their backward through K3-bwd and
 K4-bwd (under ``remat`` each layer's scan runs again in the backward,
 with the same bits).  The cache (KV, and the SSM's state and conv carry,
@@ -69,7 +69,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch.distributed import tensor as dtensor
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
@@ -671,12 +670,25 @@ class LM:
             if not self.rules.enabled:
                 xs.append(table[tokens])
             elif torch.is_grad_enabled():
-                xs.append(F.one_hot(tokens, table.shape[0]).to(
-                    self.dtype) @ table)
+                xs.append(self._one_hot(tokens, table.shape[0]) @ table)
             else:
                 xs.append(self._gather_rows(mesh, table, tokens))
         x = torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
         return self._constrain_stream(x)
+
+    def _one_hot(self, tokens, vocab: int):
+        """``(B, S, vocab)`` one-hot of the tokens, built in the model's
+        dtype on each rank's batch shard (the reference's
+        ``jax.nn.one_hot(..., dtype=self.dtype)``): ones scattered into
+        zeros, exact in bf16, with no int64 ``(B, S, vocab)`` tensor."""
+        def one_hot(tok):
+            out = torch.zeros((*tok.shape, vocab), dtype=self.dtype,
+                              device=tok.device)
+            return (out.scatter_(-1, tok[..., None], 1),)
+
+        (x,) = self._local(one_hot, (("batch", None, None),),
+                           (("batch", None),), tokens)
+        return x
 
     def _gather_rows(self, mesh, table, tokens):
         """``table[tokens]`` from a table split over the vocab: each rank

@@ -226,8 +226,9 @@ def test_flops_a_device_lie_in_the_band_of_the_references(
     ("h2o-danube-1.8b", "decode"), ("olmoe-1b-7b", "train"),
     ("hymba-1.5b", "train"), ("rwkv6-1.6b", "train")])
 def test_two_point_extrapolation_is_the_full_depth_count(mesh, arch, kind):
+    depths = (1, 2, 3, 4) if kind == "train" else (1, 2, 3)
     metrics = {}
-    for k in (1, 2, 3):
+    for k in depths:
         _, t = _trace(mesh, arch, kind, n_layers=k)
         metrics[k] = {"flops": float(t.flops), "bytes": float(t.bytes),
                       "wire": t.wire}
@@ -240,9 +241,15 @@ def test_two_point_extrapolation_is_the_full_depth_count(mesh, arch, kind):
         return
     # the gradient of each layer's slice of a stacked leaf is the whole
     # leaf's size (zeros, then the slice added), so a train step's bytes
-    # grow as L^2 and the extrapolation falls short by that term
-    short = metrics[3]["bytes"] - terms.hlo_bytes
-    assert 0 < short < 0.02 * metrics[3]["bytes"]
+    # grow as a + b L + c L^2 and the extrapolation from 1 and 2 layers
+    # falls short by that term alone, c (L - 1) (L - 2): 2 c at 3 layers,
+    # 6 c at 4 (exactly for danube, olmoe and hymba; rwkv6's 4-layer step
+    # moves 5120 bytes more, 1.2e-3 of its 3-layer shortfall)
+    short = {L: metrics[L]["bytes"] - D.extrapolated_terms(
+        {k: metrics[k] for k in (1, 2)}, L, 0.0, 8).hlo_bytes
+        for L in (3, 4)}
+    assert short[3] > 0
+    assert abs(short[4] / short[3] - 3) < 2e-3, short
 
 
 @pytest.mark.parametrize("arch", C.ARCH_NAMES)

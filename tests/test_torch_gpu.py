@@ -5,8 +5,10 @@ that has only PyTorch: K1's forward and backward and K2 against their
 plain versions on the card (K2 in bf16 on its tensor-core kernel, in
 float32 on its CUDA-core one), K1's autograd op, the wrappers' input
 checks and launch counts, the LM on the card against the LM on the CPU,
-the default device of the entry points, the flash attention op's backward
-and the LM train step on the card against the CPU, a tiny ``KernelOracle``
+the default device of the entry points, K2-bwd (the attention backward)
+against its plain version's float64 run and its bits on two calls, the
+flash attention op's backward and the LM train step on the card against
+the CPU, a tiny ``KernelOracle``
 calibration on the card (it launches K1), one training iteration on
 the card against the CPU on the cost stage, the distributed embedding
 lookup over NCCL at one rank (bit-equal to ``lookup_unsharded``),
@@ -49,8 +51,10 @@ from repro_torch.kernels.embedding_bag.ref import (embedding_bag_grad_plain,
                                                    embedding_bag_grad_replay,
                                                    embedding_bag_plain)
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_plain,
+                                                     attention_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -944,17 +948,19 @@ def _op_grads(q, k, v, dout, **kw):
                                                 (257, None, 8, 1)])
 def test_flash_backward_on_cuda_matches_cpu(cuda, no_tf32, hd, S, window,
                                             group, Hkv):
-    """float32: the forward is K2's CUDA-core kernel on the card and plain
-    on the CPU; both backwards recompute the blockwise scan (chunks of 64
-    here), so the gradients differ by float32 summation order: 1e-5."""
+    """float32: the forward is K2's CUDA-core kernel and the backward
+    K2-bwd's on the card, both plain on the CPU, with FA2's arithmetic, so
+    the gradients differ by float32 summation order: 1e-5."""
     q, k, v = _qkv(S + hd, 2, S, S, Hkv * group, Hkv, hd, torch.float32,
                    cuda)
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(S)
                        ).to(cuda)
     kw = {"window": window, "q_chunk": 64, "kv_chunk": 64}
     n0 = flash_attention_cuda.launches
+    b0 = flash_attention_bwd_cuda.launches
     on_card = _op_grads(q, k, v, dout, **kw)
-    assert flash_attention_cuda.launches == n0 + 1    # the forward only
+    assert flash_attention_cuda.launches == n0 + 1
+    assert flash_attention_bwd_cuda.launches == b0 + 1
     on_cpu = _op_grads(q.cpu(), k.cpu(), v.cpu(), dout.cpu(), **kw)
     for a, b in zip(on_card, on_cpu):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
@@ -963,9 +969,9 @@ def test_flash_backward_on_cuda_matches_cpu(cuda, no_tf32, hd, S, window,
 @pytest.mark.parametrize("hd", [80, 128])
 def test_flash_backward_bf16_on_cuda(cuda, no_tf32, hd):
     """bf16 as the train step runs it: K2's tensor-core forward within its
-    bf16 limits of plain, and dq/dk/dv (float32 inside, rounded once to
-    bf16) within 1e-2 relative rms of the float32 op's on the same
-    values."""
+    bf16 limits of plain, and K2-bwd's dq/dk/dv (P and dS rounded to bf16
+    for their products, float32 sums, rounded once to bf16) within 1e-2
+    relative rms of the float32 op's on the same values."""
     q, k, v = _qkv_served(hd, 2, 512, 512, 8, 2, hd, cuda)
     dout = torch.randn(q.shape, device=cuda,
                        generator=torch.Generator(device=cuda).manual_seed(1))
@@ -976,6 +982,77 @@ def test_flash_backward_bf16_on_cuda(cuda, no_tf32, hd):
     for a, b in zip(bf[1:], f32[1:]):
         assert a.dtype == torch.bfloat16
         assert float((a.float() - b).norm() / b.norm()) <= 1e-2
+
+
+# (B, S, T, Hq, Hkv, causal, window): groups 1, 4 and 48, windows, T != S
+BWD_SHAPES = [(2, 200, 200, 4, 4, True, None),
+              (2, 300, 300, 8, 2, True, 64),
+              (1, 257, 257, 48, 1, True, None),
+              (1, 130, 99, 4, 4, False, 40),
+              (2, 77, 131, 8, 2, False, None),
+              (1, 70, 200, 6, 3, True, None)]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "-".join(
+    map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_kernel_matches_plain(cuda, no_tf32, hd, shape, dtype):
+    """K2-bwd from K2's own output and lse against plain's float64 run (a
+    float64 forward and ``attention_bwd_plain``): bf16 (tensor cores; P
+    and dS rounded to bf16 for their products) within 1e-2 of max |ref|
+    and 1e-2 relative rms, float32 (CUDA cores) within 1e-4 and 1e-5; two
+    calls give the same bits, and K2's output is the same with and
+    without its lse store."""
+    B, S, T, Hq, Hkv, causal, window = shape
+    q, k, v = _qkv(S + T + hd, B, S, T, Hq, Hkv, hd, dtype, cuda)
+    dout = torch.randn(q.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(hd)).to(dtype)
+    kw = {"causal": causal, "window": window}
+    out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+    bare = flash_attention_cuda(q, k, v, **kw)
+    assert torch.equal(out, bare)
+    assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    grads = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    o64, l64 = attention_plain(q64, k64, v64, lse=True, **kw)
+    torch.testing.assert_close(lse.double(), l64, rtol=0, atol=1e-4)
+    ref = attention_bwd_plain(q64, k64, v64, o64, dout.double(), l64, **kw)
+    max_rel, rel_rms = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4,
+                                                                     1e-5)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for g, g2, r, t in zip(grads, again, ref, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.equal(g.view(bits), g2.view(bits))
+        d = g.double() - r
+        assert float(d.abs().max() / r.abs().max()) <= max_rel
+        assert float(d.norm() / r.norm()) <= rel_rms
+
+
+def test_flash_bwd_wrapper_checks_and_counts(cuda):
+    q, k, v = _qkv(5, 1, 64, 64, 4, 2, 64, torch.bfloat16, cuda)
+    out, lse = flash_attention_cuda(q, k, v, lse=True)
+    dout = torch.ones_like(out)
+    n0 = flash_attention_bwd_cuda.launches
+    flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    assert flash_attention_bwd_cuda.launches == n0 + 1
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, k, v, out, dout, lse[:, :1])
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, k, v, out.float(), dout, lse)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q.cpu(), k, v, out, dout, lse)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, k, v, out, dout.transpose(1, 2)
+                                 .contiguous().transpose(1, 2), lse)
+    assert flash_attention_bwd_cuda.launches == n0 + 1
+    # the op with a gradient stores lse and launches K2-bwd; without one,
+    # neither
+    args = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    flash_ops.flash_attention(*args).sum().backward()
+    assert flash_attention_bwd_cuda.launches == n0 + 2
 
 
 def test_train_step_on_cuda_matches_cpu(cuda, no_tf32):

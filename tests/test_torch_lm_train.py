@@ -116,13 +116,20 @@ def test_key_range_holds_every_key_a_chunk_may_attend(window, causal):
 
 
 def test_op_backward_saves_only_q_k_v():
+    """The backward keeps q, k, v (no copies), the output and each row's
+    log-sum-exp (B, Hq, S) float32: nothing of S x T."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
     q, k, v, dout = _qkv(1, 40, 1, 2, 16)
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     out = ops.flash_attention(tq, tk, tv, q_chunk=16, kv_chunk=16)
     saved = out.grad_fn.saved_tensors
-    assert len(saved) == 3
+    assert len(saved) == 5
     assert all(s.data_ptr() == t.data_ptr() for s, t in zip(saved,
                                                            (tq, tk, tv)))
+    assert torch.equal(saved[3], out)
+    _, lse = attention_plain(tq, tk, tv, lse=True)
+    assert saved[4].shape == (1, 2, 40) and saved[4].dtype == torch.float32
+    assert torch.equal(saved[4], lse)
 
 
 def test_op_without_grad_is_the_plain_forward():
